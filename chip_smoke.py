@@ -1,0 +1,521 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA card and check its CUDA kernels.
+
+    python3 chip_smoke.py          # from the root of a checkout; one card
+
+Phases, in order; any failure exits non-zero and prints no result:
+
+1. Card: its name and power limit (`nvidia-smi`), TF32 off, and the build
+   of every kernel from ``src/repro_torch/kernels/csrc`` (`nvcc`, sm_90a).
+2. Kernels against their plain PyTorch versions on the card: every leaf of
+   the 784-200-10 MLP plus a 16M-element leaf for `fasgd_update`; K in
+   {1, 16, 128} x both modes x has_push in {0, 1} x track_stats in {T, F}
+   for `fused_event_apply`.  Max |Δ| and the tolerance of each are printed;
+   θ' is held through the update it carries, and each case runs again at
+   θ = 0, where θ' is the update itself.
+3. Main path, serial: the quickstart fleet (λ=16, μ=8, fasgd lr=0.0025,
+   kernel on) for 2000 events on the full synthetic set, then the same
+   fleet gated (c_push=0.02, c_fetch=0.1, 'cache').  The launch count of
+   `fasgd_update` must equal the simulator's ``kernel_launches`` and be
+   above 0; the validation cost must fall.  The share of the run's time
+   spent making the draws (`NativeDraws.events`) is printed.
+4. Main path, fused: λ=256, K=128, μ=4, fasgd with the kernel, 40 windows.
+   The same checks for `fused_event_apply`.
+5. Times (CUDA events, L2 flushed before each run, median of 50) of each
+   kernel at the main path's shapes beside its byte bound and its plain
+   version, and the events/s of phases 3 and 4.
+6. Where the time goes: the serial and fused event loops run once under
+   ``torch.cuda.set_sync_debug_mode('error')`` (a host sync in the loop
+   fails the script) and once under `torch.profiler`, which gives the
+   device's busy and idle share and its top kernels (traces are written to
+   ``build/traces/``).
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# Published H100 rates (NVIDIA data sheets, dense, at the full power limit)
+# by the words of the card's name: memory bytes/s and fp32 (non-tensor) op/s.
+CARD_RATES = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
+              ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
+MLP_SHAPES = ((200,), (784, 200), (10,), (200, 10))   # b0 w0 b1 w1 (JAX order)
+FP32_TOL = dict(rtol=1e-5, atol=1e-6)     # as tests/test_kernels_fasgd.py
+KSUM_TOL = dict(rtol=1e-4, atol=1e-6)     # K-sums: einsum vs in-order loop
+LITERAL_V_TOL = dict(rtol=2e-3, atol=1e-6)
+BF16_RTOL = 2e-2
+
+
+def fail(msg: str):
+    """Stop the script with a non-zero exit and `msg`."""
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_rates(name: str):
+    """(bytes/s, fp32 op/s) published for the card named `name`."""
+    for words, bw, flops in CARD_RATES:
+        if all(w in name for w in words.split()):
+            return bw, flops
+    fail(f"no published rates for card {name!r}")
+
+
+def check(tag, got, want, update_mag, update_rtol, stat_tols) -> float:
+    """Hold the four outputs (θ', n', b', v') against the plain version's;
+    print one line and return θ''s max |Δ|.
+
+    n', b', v' are held to |Δ| <= atol + rtol·|want|.  θ' is held through
+    the update θ - θ' it carries, not through |θ|, which is orders larger:
+    |Δθ'| <= update_rtol · `update_mag` (Σ_k |w_k·scale_k·g_k|, the size
+    of the update's terms) + two ulps of θ' for its rounding in each
+    version.  The line shows the worst share of that allowance used.
+    """
+    import torch
+    ulp = 2.0 ** (-7 if got[0].dtype == torch.bfloat16 else -23)
+    want_p = want[0].double()
+    d = (got[0].double() - want_p).abs()
+    allowed = update_rtol * update_mag.double() + 2 * ulp * want_p.abs()
+    share = float((d / allowed.clamp(min=1e-300)).max())
+    if share > 1.0:
+        fail(f"{tag} θ: max|Δ|={float(d.max()):.3e}, {share:.3g}× the "
+             f"allowance (rtol {update_rtol:g} of the update + 2 ulp)")
+    errs = [f"θ {float(d.max()):.2e} ({share:.3f} of the allowance)"]
+    for x, y, nm, tol in zip(got[1:], want[1:], "nbv", stat_tols):
+        e = (x.float() - y.float()).abs()
+        if not bool(torch.all(e <= tol["atol"] + tol["rtol"] * y.float().abs())):
+            fail(f"{tag} {nm}: max|Δ|={float(e.max()):.3e} outside rtol "
+                 f"{tol['rtol']:g} atol {tol['atol']:g}")
+        errs.append(f"{nm} {float(e.max()):.2e}")
+    tol_txt = " / ".join(f"{t['rtol']:g},{t['atol']:g}" for t in stat_tols)
+    print(f"  {tag}: max|Δ| {', '.join(errs)} (θ: rtol {update_rtol:g} of "
+          f"Σ|update terms| + 2 ulp; rtol,atol n/b/v {tol_txt}) ok")
+    return float(d.max())
+
+
+def time_ms(fn, flush, reps=50):
+    """(device ms, host-inclusive ms) of `fn`: medians of CUDA-event times
+    with the L2 flushed before each run.
+
+    Device time: the stream is held by a spin kernel (`torch.cuda._sleep`)
+    long enough for the host to enqueue all of `fn`, so the events enclose
+    only the device's work.  Host-inclusive time: no spin, so the wrapper's
+    host work between launches shows too.
+    """
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    spin = int(2e9 * (2 * host_s + 1e-4))          # cycles at about 2 GHz
+    out = []
+    for hold in (True, False):
+        times = []
+        for _ in range(reps):
+            flush.zero_()
+            if hold:
+                torch.cuda._sleep(spin)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out.append(statistics.median(times))
+    return tuple(out)
+
+
+def stats_inputs(shape, gen, dev, dtype):
+    """θ, g (in `dtype`) and n, b, v (fp32) of one leaf, from `gen`."""
+    import torch
+    rnd = lambda: torch.randn(shape, generator=gen, device=dev)
+    return (rnd().to(dtype), (0.1 * rnd()).to(dtype), (0.01 * rnd()).abs(),
+            0.05 * rnd(), 1.0 + 0.1 * rnd())
+
+
+def fused_inputs(shape, K, gen, dev, dtype, has_push):
+    """One leaf's K-event window: θ, g [K, ...], n, b, v, the push mask as
+    weights, wmean, τ [K] and has_push, from `gen`."""
+    import torch
+    p, _, n, b, v = stats_inputs(shape, gen, dev, dtype)
+    g = (0.1 * torch.randn((K,) + shape, generator=gen, device=dev)).to(dtype)
+    mask = (torch.rand(K, generator=gen, device=dev) < 0.8).float()
+    mask[0] = 1.0
+    wmean = mask / mask.sum()
+    taus = torch.randint(1, 257, (K,), generator=gen, device=dev).float()
+    hp = torch.tensor(float(has_push), device=dev)
+    return p, g, n, b, v, mask, wmean, taus, hp
+
+
+def phase_kernels(ops, ref, dev):
+    """Phase 2; returns each kernel's max |Δθ'| at the main path's shapes.
+
+    Every case runs twice: on its θ, and on θ = 0, where θ' is minus the
+    update itself, so the update is held at its own tolerance with no
+    rounding of a larger θ to hide in.
+    """
+    import torch
+    print("phase 2: kernels against their plain versions on the card")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kw = dict(gamma=0.9, beta=0.9, eps=1e-8)
+    errs = {"fasgd_update": 0.0, "fused_event_apply": 0.0}
+    for shape in MLP_SHAPES + ((1 << 24,),):
+        for dtype in (torch.float32, torch.bfloat16):
+            for variant in ("intent", "literal"):
+                p0, g, n, b, v = stats_inputs(shape, gen, dev, dtype)
+                tau = torch.tensor(3.0, device=dev)
+                # the update's size follows v', so it has v''s tolerance
+                vtol = LITERAL_V_TOL if variant == "literal" else FP32_TOL
+                urtol = BF16_RTOL if dtype == torch.bfloat16 else vtol["rtol"]
+                for p, what in ((p0, ""), (torch.zeros_like(p0), " θ=0")):
+                    got = ops.fasgd_update_leaf(p, g, n, b, v, 0.01, tau,
+                                                variant=variant, **kw)
+                    torch.cuda.synchronize()
+                    want = ref.fasgd_update_ref(p, g, n, b, v, 0.01, tau,
+                                                variant=variant, **kw)
+                    mag = (0.01 / (want[3] * tau + 1e-8)) * g.float().abs()
+                    tag = (f"fasgd_update {tuple(shape)} {str(dtype)[6:]} "
+                           f"{variant}{what}")
+                    e = check(tag, got, want, mag, urtol,
+                              (FP32_TOL, FP32_TOL, vtol))
+                    if dtype == torch.float32 and variant == "intent" \
+                            and shape in MLP_SHAPES and not what:
+                        errs["fasgd_update"] = max(errs["fasgd_update"], e)
+    cases = [(K, mode, hp, track, torch.float32)
+             for K in (1, 16, 128) for mode in ("coeff", "fasgd")
+             for hp in (0, 1) for track in (True, False)]
+    cases.append((16, "fasgd", 1, True, torch.bfloat16))
+    lr = 0.0025
+    for K, mode, hp, track, dtype in cases:
+        args = dict(mode=mode, track_stats=track, **kw)
+        leaves_in = [fused_inputs(s, K, gen, dev, dtype, hp)
+                     for s in MLP_SHAPES]
+        for zero in (False, True):
+            got, want, mags = [], [], []
+            for p, g, n, b, v, w, wm, t, hpt in leaves_in:   # the 4 leaves
+                if zero:
+                    p = torch.zeros_like(p)
+                got.append(ops.fused_event_apply_leaf(
+                    p, g, n, b, v, w, wm, t, hpt, lr=lr, **args))
+                torch.cuda.synchronize()
+                want.append(ref.fused_event_apply_ref(
+                    p, g, n, b, v, w, wm, t, lr, hpt, **args))
+                ax = (-1,) + (1,) * p.dim()
+                scale = (lr / (want[-1][3][None] * t.reshape(ax) + 1e-8)
+                         if mode == "fasgd" else 1.0)
+                mags.append((w.abs().reshape(ax) * scale
+                             * g.float().abs()).sum(0))
+            cat = lambda outs: [torch.cat([o[i].reshape(-1) for o in outs])
+                                for i in range(4)]
+            tag = (f"fused_event_apply K={K} {mode} has_push={hp} "
+                   f"track={track} MLP leaves {str(dtype)[6:]}"
+                   f"{' θ=0' if zero else ''}")
+            urtol = (BF16_RTOL if dtype == torch.bfloat16
+                     else KSUM_TOL["rtol"])
+            e = check(tag, cat(got), cat(want),
+                      torch.cat([m.reshape(-1) for m in mags]), urtol,
+                      (KSUM_TOL, KSUM_TOL, KSUM_TOL))
+            if K == 128 and mode == "fasgd" and hp and track \
+                    and dtype == torch.float32 and not zero:
+                errs["fused_event_apply"] = max(errs["fused_event_apply"], e)
+    return errs
+
+
+def run_main_path(label, cfg, ds, params, num_steps, eval_every, kernel,
+                  other):
+    """One run of `run_simulation` on the card with the launch counts set
+    to 0 just before it; `kernel` must run and `other` must not.  Returns
+    (launches of `kernel`, events/s)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.mlp import nll_loss
+    from repro_torch.sim.fred import run_simulation
+    from repro_torch.utils.rng import NativeDraws
+    from repro_torch.utils.trees import leaves
+    # warm-up (first use of each CUDA kernel, cuBLAS), not timed or counted
+    warm = cfg.events_per_step * (1 if cfg.apply_mode == "fused" else 20)
+    run_simulation(cfg, nll_loss, params, ds.x_train, ds.y_train, warm)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = run_simulation(
+        cfg, nll_loss, params, ds.x_train, ds.y_train, num_steps,
+        eval_every=eval_every,
+        eval_fn=lambda p: nll_loss(p, ds.x_valid, ds.y_valid))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    c = out["counters"]
+    curve = " ".join(f"{x:.4f}" for x in out["val_cost"])
+    print(f"  {label}: {num_steps} events in {secs:.3f} s = "
+          f"{num_steps / secs:.1f} events/s (evaluations included); "
+          f"val cost {curve}; T={out['final_timestamp']}; "
+          f"push {c['push_actual']:.0f}/{c['push_potential']:.0f}, fetch "
+          f"{c['fetch_actual']:.0f}/{c['fetch_potential']:.0f}; "
+          f"launches {launches}; counters.kernel_launches "
+          f"{c['kernel_launches']:.0f}")
+    if not launches[kernel] == c["kernel_launches"] > 0:
+        fail(f"{label}: ops.LAUNCHES[{kernel!r}]={launches[kernel]} vs "
+             f"kernel_launches={c['kernel_launches']}")
+    if launches[other] != 0:
+        fail(f"{label}: {other} ran on a path that should not")
+    vals = out["val_cost"]
+    if not all(math.isfinite(x) for x in vals):
+        fail(f"{label}: non-finite validation cost {vals}")
+    if not all(bool(torch.isfinite(l).all())
+               for l in leaves(out["state"].server.params)):
+        fail(f"{label}: non-finite server parameters")
+    if not vals[-1] < vals[0]:
+        fail(f"{label}: validation cost did not fall: {vals}")
+    # the run's draws, made again as run_simulation made them (one
+    # `NativeDraws.events` call per evaluation span, a host loop per event)
+    rng = NativeDraws(cfg.seed, cfg.num_clients, cfg.batch_size,
+                      ds.x_train.shape[0], cfg.dispatcher, cfg.het_skew)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start in range(0, num_steps, eval_every):
+        rng.events(start, min(eval_every, num_steps - start), ds.x_train.device)
+    torch.cuda.synchronize()
+    draw_secs = time.perf_counter() - t0
+    print(f"  {label}: of which the draws (NativeDraws.events) "
+          f"{1e6 * draw_secs / num_steps:.1f} us/event, "
+          f"{draw_secs / secs:.3f} of the run's time")
+    return launches[kernel], num_steps / secs
+
+
+def breakdown(label, cfg, ds, params, n_events):
+    """Drive `n_events` events of the main path three times after a warm
+    window: under ``set_sync_debug_mode('error')`` (any host sync in the
+    event loop raises), timed on the host clock, and under `torch.profiler`
+    to print the device's busy and idle share and its top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.mlp import nll_loss
+    from repro_torch.sim.fred import build_step_fn, init_sim
+    from repro_torch.utils.rng import NativeDraws
+    dev = ds.x_train.device
+    state = init_sim(cfg, params)
+    step = build_step_fn(cfg, nll_loss, ds.x_train, ds.y_train)
+    rng = NativeDraws(cfg.seed, cfg.num_clients, cfg.batch_size,
+                      ds.x_train.shape[0], cfg.dispatcher, cfg.het_skew)
+    K = cfg.events_per_step
+    # the draws are made here, outside the loops below; run_simulation
+    # makes them inside its timed run (run_main_path prints their share)
+    draws = rng.events(0, 4 * n_events, dev)
+
+    def drive(first):
+        nonlocal state
+        for lo in range(first, first + n_events, K):
+            state, _ = step(state, draws.window(lo, lo + K))
+
+    drive(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    drive(n_events)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drive(2 * n_events)
+    torch.cuda.synchronize()
+    plain_us = 1e6 * (time.perf_counter() - t0)
+    print(f"  {label}: {n_events} events ran with no host sync; "
+          f"{plain_us / n_events:.1f} us/event on the host clock unprofiled")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        drive(3 * n_events)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    out = ROOT / "build" / "traces"
+    out.mkdir(parents=True, exist_ok=True)
+    trace = out / f"trace_{label}.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    dev_ev = [e for e in events if e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    if not dev_ev:
+        print(f"  {label}: device time not measured (the profiler "
+              f"recorded no device events)")
+        return
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in dev_ev)
+    busy, end = 0.0, -math.inf
+    for s, e in spans:                      # union of device intervals
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    by_name = {}
+    for e in dev_ev:
+        n, d = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, d + float(e["dur"]))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"  {label}: profiled {wall_us / n_events:.1f} us/event on the "
+          f"host clock, device busy {busy / n_events:.1f} us/event: idle "
+          f"share {1 - busy / wall_us:.3f} profiled, "
+          f"{1 - busy / plain_us:.3f} against the unprofiled clock; "
+          f"{len(dev_ev) / n_events:.1f} device ops/event; trace in "
+          f"{trace.relative_to(ROOT)}")
+    for n, (cnt, d) in top:
+        print(f"    {d / n_events:8.2f} us/event  x{cnt / n_events:5.2f}  "
+              f"{n[:90]}")
+
+
+def main() -> int:
+    """Run the phases in order; 0 when every one passed."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run it from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.bandwidth import BandwidthConfig
+    from repro_torch.core.rules import ServerConfig
+    from repro_torch.data.mnist import make_synth_mnist
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.models.mlp import init_mlp
+    from repro_torch.sim.fred import SimConfig
+
+    dev = torch.device("cuda")
+    # --- phase 1: the card and the build ---
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    bw, flops = card_rates(name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("phase 1: the card (nvidia-smi name, power.limit):")
+    print(smi)
+    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} card(s); TF32 off for matmul and "
+          f"cuDNN; rates used for bounds: {bw / 1e12:g} TB/s, "
+          f"{flops / 1e12:g} TFLOP/s fp32")
+    secs = build.build_all()
+    print(f"  kernel build: {secs:.2f} s (nvcc, sm_90a, one process per "
+          f"source, in parallel)")
+    for src, log in build.BUILD_LOG.items():
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = sum(map(int, re.findall(r"(\d+) bytes spill", log)))
+        print(f"    {src}: registers per instantiation {', '.join(regs)}; "
+              f"spill bytes {spills}")
+
+    # --- phase 2 ---
+    errs = phase_kernels(ops, ref, dev)
+
+    # --- phases 3 and 4: the main path ---
+    ds = make_synth_mnist(seed=0, device=dev)
+    params = init_mlp(torch.Generator().manual_seed(0), device=dev)
+    print("phase 3: main path, serial (fasgd_update)")
+    quick = dict(num_clients=16, batch_size=8, seed=0)
+    server = ServerConfig(rule="fasgd", lr=0.0025, use_fused_kernel=True)
+    n_serial, eps_serial = run_main_path(
+        "serial", SimConfig(server=server, **quick), ds, params, 2000, 500,
+        "fasgd_update", "fused_event_apply")
+    n_gated, eps_gated = run_main_path(
+        "serial gated", SimConfig(
+            server=server, bandwidth=BandwidthConfig(
+                c_push=0.02, c_fetch=0.1, drop_policy="cache"), **quick),
+        ds, params, 2000, 500, "fasgd_update", "fused_event_apply")
+    print("phase 4: main path, fused (fused_event_apply)")
+    K = 128
+    n_fused, eps_fused = run_main_path(
+        "fused", SimConfig(num_clients=256, batch_size=4, seed=0,
+                           events_per_step=K, apply_mode="fused",
+                           server=server),
+        ds, params, 40 * K, 10 * K, "fused_event_apply", "fasgd_update")
+
+    # --- phase 5: times at the main path's shapes ---
+    print(f"phase 5: times on {smi} (median of 50, L2 flushed; device = "
+          f"kernels only, host-incl. = with the wrapper's host work)")
+    flush = torch.empty(64 << 20, device=dev)    # 256 MB > the 50 MB L2
+    gen = torch.Generator(device=dev).manual_seed(1)
+    leaves_in = [stats_inputs(s, gen, dev, torch.float32) for s in MLP_SHAPES]
+    tau = torch.tensor(3.0, device=dev)
+    P = sum(x[0].numel() for x in leaves_in)
+    kw = dict(gamma=0.9, beta=0.9, eps=1e-8)
+    upd = lambda f: lambda: [f(p, g, n, b, v, 0.0025, tau, **kw)
+                             for p, g, n, b, v in leaves_in]
+    fu_ms, fu_host = time_ms(upd(ops.fasgd_update_leaf), flush)
+    fu_plain, fu_plain_host = time_ms(upd(ref.fasgd_update_ref), flush)
+    w0 = leaves_in[1]
+    fu_w0, fu_w0_host = time_ms(
+        lambda: ops.fasgd_update_leaf(*w0, 0.0025, tau, **kw), flush)
+    fu_bytes, fu_ops = 36 * P, 20 * P
+    fu_bound = 1e3 * max(fu_bytes / bw, fu_ops / flops)
+    us = lambda ms: f"{ms * 1e3:.2f} us"
+    print(f"  fasgd_update, one event = 4 leaf launches, P={P}: device "
+          f"{us(fu_ms)} (host-incl. {us(fu_host)}); bound {us(fu_bound)} "
+          f"({fu_bytes / 1e6:.2f} MB); plain device {us(fu_plain)} "
+          f"(host-incl. {us(fu_plain_host)}); w0 alone device {us(fu_w0)} "
+          f"(host-incl. {us(fu_w0_host)}), bound "
+          f"{us(1e3 * 36 * w0[0].numel() / bw)}")
+    fe_in = [fused_inputs(s, K, gen, dev, torch.float32, 1)
+             for s in MLP_SHAPES]
+    fe_kw = dict(mode="fasgd", track_stats=True, **kw)
+    fe = lambda: [ops.fused_event_apply_leaf(*x, lr=0.0025, **fe_kw)
+                  for x in fe_in]
+    fe_ref = lambda: [ref.fused_event_apply_ref(*x[:8], 0.0025, x[8],
+                                                **fe_kw) for x in fe_in]
+    fe_ms, fe_host = time_ms(fe, flush)
+    fe_plain, fe_plain_host = time_ms(fe_ref, flush, reps=20)
+    fe_bytes, fe_ops = (K + 8) * 4 * P, (9 * K + 20) * P
+    fe_bound = 1e3 * max(fe_bytes / bw, fe_ops / flops)
+    print(f"  fused_event_apply, one window K={K} = 4 leaf launches: device "
+          f"{us(fe_ms)} (host-incl. {us(fe_host)}); bound {us(fe_bound)} "
+          f"({fe_bytes / 1e6:.2f} MB; {(2 * K + 8) * 4 * P / 1e6:.2f} MB "
+          f"with the gradients read twice); plain device {us(fe_plain)} "
+          f"(host-incl. {us(fe_plain_host)})")
+    print("  library yardstick: none — no single PyTorch call computes "
+          "either function")
+    print(f"  events/s: serial {eps_serial:.1f}, serial gated "
+          f"{eps_gated:.1f}, fused K={K} {eps_fused:.1f}")
+
+    # --- phase 6: where the time goes, and no host sync in the loop ---
+    print("phase 6: where the time goes (torch.profiler; the event loop "
+          "run under torch.cuda.set_sync_debug_mode('error'))")
+    breakdown("serial", SimConfig(server=server, **quick), ds, params, 50)
+    breakdown("fused", SimConfig(num_clients=256, batch_size=4, seed=0,
+                                 events_per_step=K, apply_mode="fused",
+                                 server=server), ds, params, 4 * K)
+    kernels = [
+        dict(name="fasgd_update", route="cuda",
+             source="src/repro_torch/kernels/csrc/fasgd_update.cu",
+             replaces="src/repro/kernels/fasgd_update.py:50",
+             launches=n_serial + n_gated,
+             max_abs_err=errs["fasgd_update"], ms=fu_ms, plain_ms=fu_plain,
+             bound_ms=fu_bound,
+             bound_by="bytes" if fu_bytes / bw >= fu_ops / flops
+             else "operations", library_ms=None),
+        dict(name="fused_event_apply", route="cuda",
+             source="src/repro_torch/kernels/csrc/fused_event_apply.cu",
+             replaces="src/repro/kernels/fused_event_apply.py:89",
+             launches=n_fused, max_abs_err=errs["fused_event_apply"],
+             ms=fe_ms, plain_ms=fe_plain, bound_ms=fe_bound,
+             bound_by="bytes" if fe_bytes / bw >= fe_ops / flops
+             else "operations", library_ms=None),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

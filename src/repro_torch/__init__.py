@@ -1,0 +1,21 @@
+"""FASGD on PyTorch and CUDA: a port of the `repro` JAX package for NVIDIA Hopper.
+
+The layout mirrors the JAX package: `repro_torch/<sub>/<mod>.py` ports
+`repro/<sub>/<mod>.py`.  This package imports `torch` and never `jax`.
+
+- `core.rules`     — the update-rule registry (asgd / sasgd / exp / poly /
+                     fasgd), `ServerState`, eqs. 4–8
+- `core.bandwidth` — the eq. 9 B-FASGD transmit probability
+- `core.engine`    — gates, gated / serial / fused application, counters
+- `sim.fred`       — the FRED simulator (`run_simulation`)
+- `kernels.ops`    — the two server-update kernels, hand-written in CUDA
+                     for `sm_90a`; a CPU tensor takes their plain PyTorch
+                     version (`kernels.ref`), a CUDA tensor launches the
+                     kernel or raises
+- `models.mlp`, `data.mnist` — the paper's 784-200-10 MLP and the
+                     synthetic MNIST stand-in
+- `utils.trees`, `utils.convert`, `utils.rng` — parameter trees in JAX's
+                     leaf order, numpy round trips, and the RNG seam
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
+"""

@@ -1,0 +1,115 @@
+"""Build and load the CUDA kernels: `nvcc` into a shared library, `ctypes`.
+
+Each source under ``csrc/`` is compiled at first use, for Hopper only
+(``-gencode arch=compute_90a,code=sm_90a``), into its own shared library
+with a plain C interface under ``build/repro_torch_kernels/`` at the root of
+the checkout.  The sources include no PyTorch header, so a build takes
+seconds.  All stale sources build at once, one `nvcc` each, in parallel.
+A library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source is rebuilt and an
+unchanged one is reused.
+
+A build failure raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Any, Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("fasgd_update", "fused_event_apply")
+# -fmad=false: every multiply and add rounds on its own, as PyTorch's
+# separate elementwise ops do, so a kernel computes what its plain version
+# computes.  A fused n - b·b moves the literal variant's ill-conditioned
+# (1-β)/√(max(n - b², 0) + ε) by percents where n ≈ b².  The kernels are
+# bound by bytes, so the lost FMAs should cost little; a build with
+# contraction on has not been timed against this one.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+# C entry point of each source, with its argument types (pointers and the
+# stream as c_void_p: ctypes would otherwise pass them as 32-bit ints).
+SIGNATURES = {
+    "fasgd_update": ("repro_fasgd_update", [
+        _I, _I, _P, _P, _P, _P, _P, _P,           # dtype, literal, p g n b v τ
+        _F, _F, _F, _F, _F, _F,                   # lr γ 1-γ β 1-β ε
+        _I64, _P, _P, _P, _P, _P]),               # size, outputs, stream
+    "fused_event_apply": ("repro_fused_event_apply", [
+        _I, _I, _I, _I,                           # dtype, fasgd, track, literal
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,       # p g n b v w wmean τ has_push
+        _F, _F, _F, _F, _F, _F,                   # lr γ 1-γ β 1-β ε
+        _I, _I64, _P, _P, _P, _P, _P]),           # K, size, outputs, stream
+}
+
+# what the last build printed (ptxas register and spill report), by source
+BUILD_LOG: Dict[str, str] = {}
+_FUNCS: Dict[str, Any] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler PyTorch was set up with (raises if none)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    cand = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    cand.append(shutil.which("nvcc") or "")
+    for c in cand:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build_all() -> float:
+    """Compile every stale source at once; returns the wall seconds spent
+    (0.0 when all were built already).  Raises on any failure."""
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compiler = nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    for name in todo:
+        out = _lib_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def kernel(name: str):
+    """The C entry point of source `name`, built and loaded at first use."""
+    fn = _FUNCS.get(name)
+    if fn is None:
+        build_all()
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCS[name] = fn
+    return fn

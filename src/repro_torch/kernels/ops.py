@@ -1,0 +1,200 @@
+"""Public wrappers of the two server-update kernels, over trees of leaves.
+
+Ported from `repro.kernels.ops`.  Dispatch is by the tensors' device, leaf
+by leaf:
+
+* a CPU tensor takes the kernel's plain PyTorch version (`kernels.ref`);
+* a CUDA tensor launches the hand-written Hopper kernel
+  (``csrc/<name>.cu``, built by `kernels.build`) or raises.
+
+There is no switch and no fallback.  The kernels take each leaf flat and
+contiguous and mask its tail, so unlike the TPU wrappers there is no
+padding to (R, 128) tiles.  A launch runs on PyTorch's current stream,
+does not synchronise, and writes out-of-place outputs allocated here with
+`torch.empty_like`.
+
+`LAUNCHES` counts leaf dispatches per kernel on either device: on a CUDA
+tensor every dispatch is one kernel launch, so on the card it counts
+launches, and on the CPU the tests hold it against the simulator's
+``Counters.kernel_launches``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.utils.trees import leaves, unflatten
+
+LAUNCHES = {"fasgd_update": 0, "fused_event_apply": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _device_kind(t: torch.Tensor) -> str:
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel or plain version for device {t.device}")
+    return kind
+
+
+def _check(name, t, *, device, numel, dtype=None):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.numel() != numel:
+        raise ValueError(f"{name} has {t.numel()} elements, expected {numel}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name} is {t.dtype}, expected {dtype}")
+
+
+def _scalar_f32(x, device) -> torch.Tensor:
+    """A float32 device scalar; a tensor already there is not copied."""
+    return torch.as_tensor(x, device=device).to(torch.float32).reshape(())
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _fasgd_update_cuda(p, g, n, b, v, lr, tau, gamma, beta, eps, variant):
+    from repro_torch.kernels.build import kernel
+    dev, size = p.device, p.numel()
+    if p.dtype not in _DTYPE_CODE:
+        raise ValueError(f"params dtype {p.dtype} not supported by the kernel")
+    _check("grads", g, device=dev, numel=size, dtype=p.dtype)
+    _check("params", p, device=dev, numel=size)
+    for nm, t in (("n", n), ("b", b), ("v", v)):
+        _check(nm, t, device=dev, numel=size, dtype=torch.float32)
+    tau = _scalar_f32(tau, dev)
+    po, no = torch.empty_like(p), torch.empty_like(n)
+    bo, vo = torch.empty_like(b), torch.empty_like(v)
+    with torch.cuda.device(dev):
+        rc = kernel("fasgd_update")(
+            _DTYPE_CODE[p.dtype], int(variant == "literal"),
+            p.data_ptr(), g.data_ptr(), n.data_ptr(), b.data_ptr(),
+            v.data_ptr(), tau.data_ptr(), lr, gamma, 1.0 - gamma, beta,
+            1.0 - beta, eps, size, po.data_ptr(), no.data_ptr(),
+            bo.data_ptr(), vo.data_ptr(), _stream(dev))
+    _raise_on(rc, "fasgd_update")
+    return po, no, bo, vo
+
+
+def fasgd_update_leaf(p, g, n, b, v, lr, tau, *, gamma=0.9, beta=0.9,
+                      eps=1e-8, variant="intent"):
+    """One FASGD push on one leaf: (θ', n', b', v'), statistics float32.
+
+    `tau` is a float or a float32 device scalar; `lr` and the constants are
+    floats.
+    """
+    if variant not in ("intent", "literal"):
+        raise ValueError(f"unknown variant {variant!r}")
+    LAUNCHES["fasgd_update"] += 1
+    if _device_kind(p) == "cpu":
+        return ref.fasgd_update_ref(p, g, n, b, v, lr, tau, gamma=gamma,
+                                    beta=beta, eps=eps, variant=variant)
+    return _fasgd_update_cuda(p, g, n, b, v, lr, tau, gamma, beta, eps,
+                              variant)
+
+
+def _unzip(params, outs):
+    return tuple(unflatten(params, [o[i] for o in outs]) for i in range(4))
+
+
+def fasgd_update(params: Any, grads: Any, n: Any, b: Any, v: Any, lr, tau,
+                 *, gamma=0.9, beta=0.9, eps=1e-8, variant="intent"):
+    """Fused FASGD update over trees (one dispatch per leaf).
+
+    Returns (params', n', b', v') trees; the statistics are float32.
+    """
+    outs = [fasgd_update_leaf(p, g, nn, bb, vv, lr, tau, gamma=gamma,
+                              beta=beta, eps=eps, variant=variant)
+            for p, g, nn, bb, vv in zip(leaves(params), leaves(grads),
+                                        leaves(n), leaves(b), leaves(v))]
+    return _unzip(params, outs)
+
+
+def _fused_event_apply_cuda(p, g, n, b, v, w, wm, t, lr, hp, gamma, beta, eps,
+                            variant, mode, track_stats):
+    from repro_torch.kernels.build import kernel
+    dev, size, K = p.device, p.numel(), g.shape[0]
+    if p.dtype not in _DTYPE_CODE:
+        raise ValueError(f"params dtype {p.dtype} not supported by the kernel")
+    _check("params", p, device=dev, numel=size)
+    _check("grads", g, device=dev, numel=K * size, dtype=p.dtype)
+    for nm, x in (("n", n), ("b", b), ("v", v)):
+        _check(nm, x, device=dev, numel=size, dtype=torch.float32)
+    vecs = [torch.as_tensor(x, device=dev).to(torch.float32).contiguous()
+            for x in (w, wm, t)]
+    for nm, x in zip(("weights", "wmean", "taus"), vecs):
+        _check(nm, x, device=dev, numel=K)
+    hp = _scalar_f32(hp, dev)
+    po, no = torch.empty_like(p), torch.empty_like(n)
+    bo, vo = torch.empty_like(b), torch.empty_like(v)
+    with torch.cuda.device(dev):
+        rc = kernel("fused_event_apply")(
+            _DTYPE_CODE[p.dtype], int(mode == "fasgd"), int(track_stats),
+            int(variant == "literal"), p.data_ptr(), g.data_ptr(),
+            n.data_ptr(), b.data_ptr(), v.data_ptr(), vecs[0].data_ptr(),
+            vecs[1].data_ptr(), vecs[2].data_ptr(), hp.data_ptr(), lr, gamma,
+            1.0 - gamma, beta, 1.0 - beta, eps, K, size, po.data_ptr(),
+            no.data_ptr(), bo.data_ptr(), vo.data_ptr(), _stream(dev))
+    _raise_on(rc, "fused_event_apply")
+    return po, no, bo, vo
+
+
+def fused_event_apply_leaf(p, g, n, b, v, weights, wmean, taus, has_push, *,
+                           lr, gamma=0.9, beta=0.9, eps=1e-8,
+                           variant="intent", mode="fasgd", track_stats=True):
+    """One K-event server apply on one leaf: (θ', n', b', v').
+
+    `g` is [K, *p.shape]; `weights`/`wmean`/`taus` are [K] and `has_push` a
+    scalar, all allowed to live on the device.
+    """
+    if mode not in ("coeff", "fasgd"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if variant not in ("intent", "literal"):
+        raise ValueError(f"unknown variant {variant!r}")
+    LAUNCHES["fused_event_apply"] += 1
+    if _device_kind(p) == "cpu":
+        return ref.fused_event_apply_ref(
+            p, g, n, b, v, weights, wmean, taus, lr, has_push, gamma=gamma,
+            beta=beta, eps=eps, variant=variant, mode=mode,
+            track_stats=track_stats)
+    return _fused_event_apply_cuda(p, g, n, b, v, weights, wmean, taus, lr,
+                                   has_push, gamma, beta, eps, variant, mode,
+                                   track_stats)
+
+
+def fused_event_apply(params: Any, grads: Any, n: Any, b: Any, v: Any,
+                      weights, wmean, taus, has_push, *, lr, gamma=0.9,
+                      beta=0.9, eps=1e-8, variant="intent", mode="fasgd",
+                      track_stats=True):
+    """One-kernel K-event server apply over trees (one dispatch per leaf).
+
+    `grads` leaves carry a leading [K] event axis; `weights`/`wmean`/`taus`
+    ([K]) and `has_push` (scalar) are shared by every leaf (per-leaf
+    vectors belong to per-tensor gating, which is not ported yet).
+    `n`/`b`/`v` must be float32.  Returns (params', n', b', v') with the
+    statistics in float32.
+    """
+    outs = [fused_event_apply_leaf(
+        p, g, nn, bb, vv, weights, wmean, taus, has_push, lr=lr, gamma=gamma,
+        beta=beta, eps=eps, variant=variant, mode=mode,
+        track_stats=track_stats)
+        for p, g, nn, bb, vv in zip(leaves(params), leaves(grads), leaves(n),
+                                    leaves(b), leaves(v))]
+    return _unzip(params, outs)

@@ -1,0 +1,75 @@
+"""Plain PyTorch versions of the two server-update kernels.
+
+Ported from `repro.kernels.ref`.  `kernels.ops` takes these for tensors
+that lie on the CPU; the tests hold them against the interpreted Pallas
+kernels, and `chip_smoke.py` holds the CUDA kernels against them on the
+card.  Nothing on the main path runs them when a card is present.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def fasgd_update_ref(params, grads, n, b, v, lr, tau,
+                     *, gamma=0.9, beta=0.9, eps=1e-8, variant="intent"):
+    """Unfused FASGD server update (paper eqs. 4–8) on one leaf.
+
+    Returns (new_params, new_n, new_b, new_v); `tau` is a float or a device
+    scalar (no host sync).
+    """
+    g = grads.float()
+    n_new = gamma * n + (1.0 - gamma) * g * g
+    b_new = gamma * b + (1.0 - gamma) * g
+    std = torch.sqrt(torch.clamp(n_new - b_new ** 2, min=0.0) + eps)
+    if variant == "intent":
+        v_new = beta * v + (1.0 - beta) * std
+    else:
+        v_new = beta * v + (1.0 - beta) / std
+    tau = torch.as_tensor(tau, dtype=torch.float32, device=g.device)
+    scale = lr / (v_new * tau + eps)
+    p_new = (params.float() - scale * g).to(params.dtype)
+    return p_new, n_new, b_new, v_new
+
+
+def fused_event_apply_ref(params, grads, n, b, v, weights, wmean, taus, lr,
+                          has_push, *, gamma=0.9, beta=0.9, eps=1e-8,
+                          variant="intent", mode="fasgd", track_stats=True):
+    """One K-event server apply on one leaf: the mean-gradient statistics
+    step (eqs. 4-6, held still when nothing pushed), then the weighted delta
+    against the POST-stats v.
+
+    `grads` is [K, *shape]; `weights`/`wmean`/`taus` are [K] and `has_push`
+    a scalar, all possibly on the device.  Like the reference, the event
+    axis is contracted with einsum for ḡ and for the 'coeff' delta, and
+    walked in order for fasgd's elementwise eq. 7 scale.  Returns
+    (params', n', b', v') with the statistics in float32.
+    """
+    g32 = grads.float()
+    w = torch.as_tensor(weights, dtype=torch.float32, device=g32.device)
+    t = torch.as_tensor(taus, dtype=torch.float32, device=g32.device)
+    if track_stats:
+        wm = torch.as_tensor(wmean, dtype=torch.float32, device=g32.device)
+        gbar = torch.einsum("k,k...->...", wm, g32)
+        n1 = gamma * n + (1.0 - gamma) * gbar * gbar
+        b1 = gamma * b + (1.0 - gamma) * gbar
+        std = torch.sqrt(torch.clamp(n1 - b1 * b1, min=0.0) + eps)
+        if variant == "intent":
+            v1 = beta * v + (1.0 - beta) * std
+        else:
+            v1 = beta * v + (1.0 - beta) / std
+        keep = torch.as_tensor(has_push, device=g32.device).to(torch.bool)
+        n1 = torch.where(keep, n1, n)
+        b1 = torch.where(keep, b1, b)
+        v1 = torch.where(keep, v1, v)
+    else:
+        n1, b1, v1 = n, b, v
+    if mode == "coeff":
+        delta = torch.einsum("k,k...->...", w, g32)
+    else:
+        delta = torch.zeros(g32.shape[1:], dtype=torch.float32,
+                            device=g32.device)
+        for k in range(g32.shape[0]):
+            scale = lr / (v1 * t[k] + eps)
+            delta = delta + w[k] * scale * g32[k]
+    p1 = (params.float() - delta).to(params.dtype)
+    return p1, n1, b1, v1

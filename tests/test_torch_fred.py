@@ -1,0 +1,285 @@
+"""The port's FRED simulator against a live run of the JAX reference.
+
+Both packages start from the same 784-200-10 MLP weights and the same
+synthetic data (the JAX generator's arrays, through numpy), and the port
+replays the exact draws `jax.random` made for the reference run (its
+`ReplayDraws` provider).  The reference runs its Pallas kernels in
+interpret mode; the port, on the CPU, runs their plain versions.
+
+Tolerances: τ, the counters and the final timestamp match exactly; losses,
+parameters and the n/b/v statistics within rtol 1e-4 / atol 1e-5 (float32
+sums and BLAS products taken in another order by each framework, over 48
+events).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.bandwidth import BandwidthConfig as JBandwidthConfig
+from repro.core.rules import ServerConfig as JServerConfig
+from repro.data.mnist import make_synth_mnist as j_make_synth_mnist
+from repro.models.mlp import init_mlp as j_init_mlp
+from repro.models.mlp import nll_loss as j_nll_loss
+from repro.sim.fred import SimConfig as JSimConfig
+from repro.sim.fred import run_simulation as j_run_simulation
+
+from repro_torch.core.bandwidth import BandwidthConfig
+from repro_torch.core.engine import init_counters
+from repro_torch.core.rules import ServerConfig
+from repro_torch.data.mnist import make_synth_mnist
+from repro_torch.kernels import ops
+from repro_torch.models.mlp import init_mlp, nll_loss
+from repro_torch.sim.fred import SimConfig, run_simulation
+from repro_torch.utils.convert import (params_from_numpy,
+                                       server_state_from_numpy, to_numpy)
+from repro_torch.utils.rng import NativeDraws, ReplayDraws
+from repro_torch.utils.trees import leaves
+
+EVENTS = 48
+EVAL_EVERY = 24
+RTOL, ATOL = 1e-4, 1e-5
+
+
+@pytest.fixture(scope="module")
+def setup():
+    params = jax.tree.map(np.array, j_init_mlp(jax.random.PRNGKey(0)))
+    ds = j_make_synth_mnist(n_train=512, n_valid=256)
+    return params, jax.tree.map(np.array, ds._asdict())
+
+
+def replay_of(cfg, n_data, num_steps=EVENTS, eval_every=EVAL_EVERY):
+    """The draws the reference makes for `cfg`, window by window, exactly
+    as `repro.sim.fred.run_simulation` derives them."""
+    base = jax.random.PRNGKey(cfg["seed"])
+    lam, mu, K = cfg["num_clients"], cfg["batch_size"], cfg.get(
+        "events_per_step", 1)
+    fused = cfg.get("apply_mode") == "fused"
+    out = {"clients": [], "idx": [], "push_u": [], "fetch_u": []}
+    done = 0
+    while done < num_steps:
+        span = min(eval_every, num_steps - done)
+        n_batches, rem = divmod(span, K)
+        windows = [K] * n_batches + ([rem] if rem else [])
+        for k in windows:
+            keys = jax.vmap(lambda i: jax.random.fold_in(base, i))(
+                done + jnp.arange(k))
+            ks = jax.vmap(lambda kk: jax.random.split(kk, 4))(keys)
+            out["clients"].append(jax.vmap(
+                lambda kk: jax.random.randint(kk, (), 0, lam))(ks[:, 0]))
+            out["idx"].append(jax.vmap(
+                lambda kk: jax.random.randint(kk, (mu,), 0, n_data))(ks[:, 1]))
+            if fused:   # one key draws the whole window's gates
+                out["push_u"].append(jax.random.uniform(ks[0, 2], (k,)))
+                out["fetch_u"].append(jax.random.uniform(ks[0, 3], (k,)))
+            else:
+                out["push_u"].append(jax.vmap(jax.random.uniform)(ks[:, 2]))
+                out["fetch_u"].append(jax.vmap(jax.random.uniform)(ks[:, 3]))
+            done += k
+    return ReplayDraws(**{k: np.concatenate([np.asarray(a) for a in v])
+                          for k, v in out.items()})
+
+
+CASES = {
+    "fasgd_serial_kernel": dict(
+        sim=dict(num_clients=4, batch_size=8, seed=3),
+        server=dict(rule="fasgd", lr=0.01, use_fused_kernel=True)),
+    "fasgd_serial_plain": dict(
+        sim=dict(num_clients=4, batch_size=8, seed=3),
+        server=dict(rule="fasgd", lr=0.01)),
+    "gated_cache": dict(
+        sim=dict(num_clients=4, batch_size=8, seed=7),
+        server=dict(rule="fasgd", lr=0.01, use_fused_kernel=True),
+        bandwidth=dict(c_push=2.0, c_fetch=2.0, drop_policy="cache")),
+    "gated_skip": dict(
+        sim=dict(num_clients=4, batch_size=8, seed=7),
+        server=dict(rule="fasgd", lr=0.01, use_fused_kernel=True),
+        bandwidth=dict(c_push=2.0, c_fetch=2.0, drop_policy="skip")),
+}
+
+
+def _close(a, b, what, worst):
+    """Assert within tolerance; keep the largest |Δ| per kind in `worst`."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=what)
+    kind = what.split()[0]
+    worst[kind] = max(worst.get(kind, 0.0), float(np.max(np.abs(a - b))))
+
+
+def check_against_reference(setup, name, case):
+    """Run `case` through both packages (the port replaying the reference's
+    draws) and hold the port to the reference."""
+    params, ds = setup
+    bw = case.get("bandwidth", {})
+    j_cfg = JSimConfig(
+        server=JServerConfig(**case["server"], kernel_interpret=True),
+        bandwidth=JBandwidthConfig(**bw), **case["sim"])
+    cfg = SimConfig(server=ServerConfig(**case["server"]),
+                    bandwidth=BandwidthConfig(**bw), **case["sim"])
+    j_out = j_run_simulation(
+        j_cfg, j_nll_loss, jax.tree.map(jnp.asarray, params),
+        jnp.asarray(ds["x_train"]), jnp.asarray(ds["y_train"]), EVENTS,
+        eval_every=EVAL_EVERY,
+        eval_fn=lambda p: j_nll_loss(p, ds["x_valid"], ds["y_valid"]),
+        collect_step_metrics=True)
+
+    xv = torch.as_tensor(ds["x_valid"])
+    yv = torch.as_tensor(ds["y_valid"]).long()
+    ops.reset_launches()
+    out = run_simulation(
+        cfg, nll_loss, params_from_numpy(params, device="cpu"), ds["x_train"],
+        ds["y_train"], EVENTS, eval_every=EVAL_EVERY,
+        eval_fn=lambda p: nll_loss(p, xv, yv), collect_step_metrics=True,
+        rng=replay_of(case["sim"], ds["x_train"].shape[0]), device="cpu")
+
+    np.testing.assert_array_equal(out["tau"].numpy(), np.asarray(j_out["tau"]))
+    assert out["counters"] == j_out["counters"]
+    assert out["final_timestamp"] == j_out["final_timestamp"]
+    assert out["steps"] == j_out["steps"]
+    worst = {}
+    _close(out["train_loss"].numpy(), j_out["train_loss"], "train_loss",
+           worst)
+    _close(out["val_cost"], j_out["val_cost"], "val_cost", worst)
+    j_srv, srv = j_out["state"].server, to_numpy(out["state"].server)
+    for field in ("params", "n", "b", "v"):
+        for i, (a, b) in enumerate(zip(leaves(getattr(srv, field)),
+                                       jax.tree.leaves(getattr(j_srv, field)))):
+            _close(a, b, f"{field} leaf {i}", worst)
+    for i, (a, b) in enumerate(zip(
+            leaves(to_numpy(out["state"].client_params)),
+            jax.tree.leaves(j_out["state"].client_params))):
+        _close(a, b, f"client_params leaf {i}", worst)
+    np.testing.assert_array_equal(out["state"].client_ts.numpy(),
+                                  np.asarray(j_out["state"].client_ts))
+    # `pytest -s` shows the parity reached (recorded in PERF.md)
+    print(f"\nPARITY fred/{name} max|Δ| " + " ".join(
+        f"{k}={v:.3e}" for k, v in sorted(worst.items())))
+
+    launches = ops.LAUNCHES["fasgd_update"] + ops.LAUNCHES["fused_event_apply"]
+    assert launches == out["counters"].get("kernel_launches", 0.0)
+    if case["server"].get("use_fused_kernel"):
+        assert launches > 0
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_run_simulation_matches_reference(setup, name):
+    check_against_reference(setup, name, CASES[name])
+
+
+def test_serial_native_draws_are_k_invariant(setup):
+    """Draws keyed by global event index: the serial trajectory does not
+    depend on the window size."""
+    params, ds = setup
+    outs = []
+    for k in (1, 5):
+        cfg = SimConfig(num_clients=4, batch_size=8, seed=1,
+                        events_per_step=k,
+                        server=ServerConfig(rule="fasgd", lr=0.01))
+        outs.append(run_simulation(
+            cfg, nll_loss, params_from_numpy(params, device="cpu"), ds["x_train"],
+            ds["y_train"], 12, eval_every=12, collect_step_metrics=True,
+            device="cpu"))
+    assert torch.equal(outs[0]["train_loss"], outs[1]["train_loss"])
+    for a, b in zip(leaves(outs[0]["state"].server.params),
+                    leaves(outs[1]["state"].server.params)):
+        assert torch.equal(a, b)
+
+
+def test_native_draws_depend_only_on_seed_and_event():
+    rng = NativeDraws(seed=4, num_clients=8, batch_size=3, n_data=100)
+    whole = rng.events(0, 10, "cpu")
+    part = rng.events(6, 4, "cpu")
+    for a, b in zip(whole.window(6, 10), part):
+        assert torch.equal(a, b)
+    other = NativeDraws(seed=5, num_clients=8, batch_size=3, n_data=100)
+    assert not torch.equal(other.events(0, 10, "cpu").idx, whole.idx)
+
+
+def test_heterogeneous_dispatch_follows_the_speed_logits():
+    rng = NativeDraws(seed=2, num_clients=8, batch_size=1, n_data=10,
+                      dispatcher="heterogeneous", het_skew=1.5)
+    clients = rng.events(0, 4000, "cpu").clients
+    share = torch.bincount(clients, minlength=8).float() / 4000
+    assert torch.allclose(share, rng.probs, atol=0.03)
+    assert share.max() > 2 * share.min()        # skewed, not uniform
+
+
+def test_run_simulation_needs_a_device_without_cuda(setup):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    params, ds = setup
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_simulation(SimConfig(), nll_loss, params_from_numpy(params, device="cpu"),
+                       ds["x_train"], ds["y_train"], 4)
+
+
+ZEROS = [{"w": np.zeros((3, 2), np.float32), "b": np.zeros(2, np.float32)}]
+ENTRY_POINTS = {
+    "make_synth_mnist": lambda **kw: make_synth_mnist(
+        n_train=8, n_valid=4, **kw),
+    "init_mlp": lambda **kw: init_mlp(torch.Generator().manual_seed(0),
+                                      (3, 2), **kw),
+    "params_from_numpy": lambda **kw: params_from_numpy(ZEROS, **kw),
+    "server_state_from_numpy": lambda **kw: server_state_from_numpy(
+        ZEROS, 0, ZEROS, ZEROS, ZEROS, **kw),
+    "init_counters": lambda **kw: init_counters(**kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_run_on_the_card_unless_asked(name):
+    """Without `device=` an entry point puts its tensors on the card, and
+    raises where there is none; ``device="cpu"`` puts them on the CPU."""
+    make = ENTRY_POINTS[name]
+    out = leaves(list(make(device="cpu")))
+    assert out and all(t.device.type == "cpu" for t in out)
+    if torch.cuda.is_available():
+        assert all(t.device.type == "cuda" for t in leaves(list(make())))
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+
+
+def test_port_native_data_and_init_match_the_reference_geometry():
+    """The port's own generators: the reference's shapes and scales, and
+    the same output for the same seed."""
+    ds = make_synth_mnist(seed=3, n_train=256, n_valid=64, device="cpu")
+    again = make_synth_mnist(seed=3, n_train=256, n_valid=64, device="cpu")
+    assert ds.x_train.shape == (256, 784) and ds.x_valid.shape == (64, 784)
+    assert ds.y_train.dtype == torch.int64
+    assert int(ds.y_train.min()) >= 0 and int(ds.y_train.max()) <= 9
+    assert all(torch.equal(a, b) for a, b in zip(ds, again))
+    # feature std is the reference's 0.3 (means and noise both rescaled)
+    assert abs(float(ds.x_train.std()) - 0.3) < 0.02
+    params = init_mlp(torch.Generator().manual_seed(0), device="cpu")
+    assert [tuple(l.shape) for l in leaves(params)] == [
+        (200,), (784, 200), (10,), (200, 10)]
+    w0 = params[0]["w"]
+    assert abs(float(w0.std()) - (2.0 / 784) ** 0.5) < 2e-3
+    loss = nll_loss(params, ds.x_valid, ds.y_valid)
+    assert torch.isfinite(loss) and abs(float(loss) - np.log(10)) < 1.5
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(queue_capacity=4),
+    dict(scenario=object()),
+    dict(server_shards=2),
+    dict(apply_mode="fused", fused_mode="cotangent"),
+    # 'auto' resolves to the cotangent path for a v-independent rule with
+    # the kernel off: refused, never silently materialized
+    dict(apply_mode="fused", server=ServerConfig(rule="sasgd")),
+])
+def test_unported_configurations_raise(kwargs):
+    with pytest.raises(NotImplementedError):
+        SimConfig(**kwargs)
+
+
+def test_per_tensor_gating_and_mesh_raise(setup):
+    with pytest.raises(NotImplementedError):
+        BandwidthConfig(c_fetch=0.1, per_tensor_fetch=True)
+    params, ds = setup
+    with pytest.raises(NotImplementedError):
+        run_simulation(SimConfig(), nll_loss, params_from_numpy(params, device="cpu"),
+                       ds["x_train"], ds["y_train"], 4, mesh=object(),
+                       device="cpu")

@@ -1,0 +1,144 @@
+"""The port's update-rule registry against `repro.core.rules`.
+
+The same server state and gradient, made with numpy, go through both
+packages for each of the five ported rules, with the kernel path off and
+on (the JAX package runs its Pallas kernel in interpret mode, the port its
+plain version on the CPU).  Tolerance: fp32 rtol 1e-5 / atol 1e-6, as
+tests/test_rules.py holds the reference.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import rules as jrules
+
+from repro_torch.core import rules
+from repro_torch.utils.convert import (params_from_numpy,
+                                      server_state_from_numpy, to_numpy)
+from repro_torch.utils.trees import leaves
+
+PORTED = ("asgd", "exp", "fasgd", "poly", "sasgd")
+TOL = dict(rtol=1e-5, atol=1e-6)
+SIZES = (30, 12, 5)
+
+
+def _params(seed):
+    rng = np.random.default_rng(seed)
+    return [{"w": rng.standard_normal((i, o)).astype(np.float32),
+             "b": rng.standard_normal(o).astype(np.float32)}
+            for i, o in zip(SIZES[:-1], SIZES[1:])]
+
+
+def _state_pair(jcfg, cfg, seed=0, T=7):
+    """The same non-trivial server state in both packages."""
+    p, n, b, v = (_params(seed + i) for i in range(4))
+    n = jax.tree.map(lambda x: np.abs(0.01 * x), n)
+    b = jax.tree.map(lambda x: 0.05 * x, b)
+    v = jax.tree.map(lambda x: 1.0 + 0.1 * x, v)
+    js = jrules.init(jcfg, jax.tree.map(jnp.asarray, p))._replace(
+        n=jax.tree.map(jnp.asarray, n), b=jax.tree.map(jnp.asarray, b),
+        v=jax.tree.map(jnp.asarray, v), timestamp=jnp.int32(T))
+    return js, server_state_from_numpy(p, T, n, b, v, device="cpu")
+
+
+def _assert_tree_close(got, want, **tol):
+    gl, wl = leaves(to_numpy(got)), jax.tree.leaves(want)
+    assert len(gl) == len(wl)
+    for a, e in zip(gl, wl):
+        np.testing.assert_allclose(a, np.asarray(e), **(tol or TOL))
+
+
+def _configs(rule, kernel, **kw):
+    jcfg = jrules.ServerConfig(rule=rule, lr=0.03, use_fused_kernel=kernel,
+                               kernel_interpret=True if kernel else None, **kw)
+    return jcfg, rules.ServerConfig(rule=rule, lr=0.03,
+                                    use_fused_kernel=kernel, **kw)
+
+
+def test_registry_lists_the_ported_rules():
+    assert rules.registered_rules() == PORTED
+
+
+@pytest.mark.parametrize("name", ["gap", "ssgd", "kasync"])
+def test_unported_rules_raise(name):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        rules.get_rule(name)
+    with pytest.raises(NotImplementedError):
+        rules.ServerConfig(rule=name)
+    with pytest.raises(KeyError):
+        rules.get_rule("no-such-rule")
+
+
+@pytest.mark.parametrize("rule", PORTED)
+def test_init_matches(rule):
+    jcfg, cfg = _configs(rule, False)
+    p = _params(0)
+    js = jrules.init(jcfg, jax.tree.map(jnp.asarray, p))
+    ts = rules.init(cfg, params_from_numpy(p, device="cpu"))
+    for field in ("params", "n", "b", "v"):
+        _assert_tree_close(getattr(ts, field), getattr(js, field))
+    assert int(ts.timestamp) == int(js.timestamp) == 0
+    assert ts.timestamp.dtype == torch.int32
+    assert all(float(l.min()) == 1.0 for l in leaves(ts.v))   # v starts at 1
+
+
+@pytest.mark.parametrize("variant", ["intent", "literal"])
+def test_shared_stats_matches(variant):
+    jcfg, cfg = _configs("fasgd", False, variant=variant)
+    js, ts = _state_pair(jcfg, cfg)
+    g = _params(9)
+    jn = jrules._shared_stats(jcfg, js, jax.tree.map(jnp.asarray, g))
+    tn = rules._shared_stats(cfg, ts, params_from_numpy(g, device="cpu"))
+    vtol = TOL if variant == "intent" else dict(rtol=2e-3, atol=1e-6)
+    _assert_tree_close(tn.n, jn.n)
+    _assert_tree_close(tn.b, jn.b)
+    _assert_tree_close(tn.v, jn.v, **vtol)
+
+
+@pytest.mark.parametrize("rule", PORTED)
+@pytest.mark.parametrize("kernel", [False, True])
+@pytest.mark.parametrize("grad_ts", [7, 3])
+def test_apply_update_matches(rule, kernel, grad_ts):
+    jcfg, cfg = _configs(rule, kernel)
+    js, ts = _state_pair(jcfg, cfg)
+    g = _params(11)
+    jnew, jaux = jrules.apply_update(jcfg, js, jax.tree.map(jnp.asarray, g),
+                                     jnp.int32(grad_ts))
+    tnew, taux = rules.apply_update(cfg, ts, params_from_numpy(g, device="cpu"),
+                                    torch.tensor(grad_ts, dtype=torch.int32))
+    for field in ("params", "n", "b", "v"):
+        _assert_tree_close(getattr(tnew, field), getattr(jnew, field))
+    assert int(tnew.timestamp) == int(jnew.timestamp) == 8
+    assert float(taux["tau"]) == float(jaux["tau"]) == max(7 - grad_ts, 1)
+    np.testing.assert_allclose(float(taux["mean_scale"]),
+                               float(jaux["mean_scale"]), **TOL)
+
+
+@pytest.mark.parametrize("rule", PORTED)
+def test_effective_scale_and_fused_coeffs_match(rule):
+    jcfg, cfg = _configs(rule, False)
+    js, ts = _state_pair(jcfg, cfg)
+    _assert_tree_close(rules.effective_scale(cfg, ts, torch.tensor(4.0)),
+                       jrules.effective_scale(jcfg, js, jnp.float32(4.0)))
+    taus = np.array([1.0, 2.0, 9.0], np.float32)
+    np.testing.assert_allclose(
+        rules.get_rule(rule).fused_coeffs(cfg, torch.from_numpy(taus)).numpy(),
+        np.asarray(jrules.get_rule(rule).fused_coeffs(jcfg, taus)), **TOL)
+
+
+def test_vbar_matches():
+    jcfg, cfg = _configs("fasgd", False)
+    js, ts = _state_pair(jcfg, cfg)
+    np.testing.assert_allclose(float(rules.vbar(ts)), float(jrules.vbar(js)),
+                               **TOL)
+
+
+def test_kernel_path_keeps_stat_dtypes_and_advances_T():
+    _, cfg = _configs("fasgd", True)
+    ts = rules.init(cfg, params_from_numpy(_params(0), device="cpu"))
+    new, _ = rules.apply_update(cfg, ts, params_from_numpy(_params(1), device="cpu"),
+                                torch.tensor(0, dtype=torch.int32))
+    assert int(new.timestamp) == 1
+    assert all(l.dtype == torch.float32 for l in leaves(new.v))
