@@ -29,6 +29,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    fails the script) and once under `torch.profiler`, which gives the
    device's busy and idle share and its top kernels (traces are written to
    ``build/traces/``).
+7. `flash_attention` against its plain version on the card: the main
+   path's prefill and decode shapes (permuted views and cache slices, as
+   the model passes them) in bf16 and fp32, GQA groupings, windows, a
+   ragged tail, non-causal, queries at the end of a longer kv axis, rows
+   with no visible key, D in {32, 64, 128}.  fp32 within atol 1e-5 / rtol
+   1e-5; bf16 within one bf16 ulp (plus 1e-5) of the plain version computed
+   in fp32 and rounded once.  The check must reject the plain version with
+   the scale 1% off and with the window one key wider.
+8. Main path, LM serving: `tinyllama-1.1b` at full width (22 layers, bf16,
+   random weights from seed 0) serves batch 4 x 2048 prompt tokens and 32
+   generated tokens, greedy, through `repro_torch.launch.serve.serve`; the
+   kernel must run 22 + 22·31 = 704 times, the logits must be finite, and
+   the prefill logits must agree with the same weights run through the
+   plain attention on the card (max |Δ| printed against the logits' spread;
+   the decoded tokens' agreement is printed, not gated: random weights give
+   near-ties under bf16).
+9. Times of `flash_attention` at the two main-path shapes (as in phase 5)
+   beside its bound, its plain version and `scaled_dot_product_attention`
+   (the library yardstick, never called by the port).
+10. Where serving's time goes: one prefill and the 31 decode steps under
+   `torch.profiler` (device busy and idle share, top kernels).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -47,9 +68,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # Published H100 rates (NVIDIA data sheets, dense, at the full power limit)
-# by the words of the card's name: memory bytes/s and fp32 (non-tensor) op/s.
-CARD_RATES = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-              ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
+# by the words of the card's name: memory bytes/s, fp32 (non-tensor) op/s and
+# bf16 tensor-core op/s.
+CARD_RATES = (("H100 PCIe", 2.0e12, 51e12, 756e12),
+              ("H100 NVL", 3.9e12, 60e12, 835e12),
+              ("H200", 4.8e12, 67e12, 989e12), ("H100", 3.35e12, 67e12, 989e12))
 MLP_SHAPES = ((200,), (784, 200), (10,), (200, 10))   # b0 w0 b1 w1 (JAX order)
 FP32_TOL = dict(rtol=1e-5, atol=1e-6)     # as tests/test_kernels_fasgd.py
 KSUM_TOL = dict(rtol=1e-4, atol=1e-6)     # K-sums: einsum vs in-order loop
@@ -63,10 +86,11 @@ def fail(msg: str):
 
 
 def card_rates(name: str):
-    """(bytes/s, fp32 op/s) published for the card named `name`."""
-    for words, bw, flops in CARD_RATES:
+    """(bytes/s, fp32 op/s, bf16 tensor op/s) published for the card named
+    `name`."""
+    for words, *rates in CARD_RATES:
         if all(w in name for w in words.split()):
-            return bw, flops
+            return rates
     fail(f"no published rates for card {name!r}")
 
 
@@ -301,7 +325,6 @@ def breakdown(label, cfg, ds, params, n_events):
     event loop raises), timed on the host clock, and under `torch.profiler`
     to print the device's busy and idle share and its top kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.mlp import nll_loss
     from repro_torch.sim.fred import build_step_fn, init_sim
     from repro_torch.utils.rng import NativeDraws
@@ -332,10 +355,21 @@ def breakdown(label, cfg, ds, params, n_events):
     plain_us = 1e6 * (time.perf_counter() - t0)
     print(f"  {label}: {n_events} events ran with no host sync; "
           f"{plain_us / n_events:.1f} us/event on the host clock unprofiled")
+    profiled(label, lambda: drive(3 * n_events), plain_us, n_events, "event")
+
+
+def profiled(label, run, plain_us, per, unit):
+    """Run `run()` once under `torch.profiler` and print the device's busy
+    time and idle share per `unit` (the run holds `per` of them), against the
+    profiled host clock and against `plain_us`, the same work's unprofiled
+    host time, then the top device kernels; the trace goes to
+    ``build/traces/``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        drive(3 * n_events)
+        run()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     out = ROOT / "build" / "traces"
@@ -361,15 +395,289 @@ def breakdown(label, cfg, ds, params, n_events):
         n, d = by_name.get(e["name"], (0, 0.0))
         by_name[e["name"]] = (n + 1, d + float(e["dur"]))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-    print(f"  {label}: profiled {wall_us / n_events:.1f} us/event on the "
-          f"host clock, device busy {busy / n_events:.1f} us/event: idle "
+    print(f"  {label}: profiled {wall_us / per:.1f} us/{unit} on the "
+          f"host clock, device busy {busy / per:.1f} us/{unit}: idle "
           f"share {1 - busy / wall_us:.3f} profiled, "
           f"{1 - busy / plain_us:.3f} against the unprofiled clock; "
-          f"{len(dev_ev) / n_events:.1f} device ops/event; trace in "
+          f"{len(dev_ev) / per:.1f} device ops/{unit}; trace in "
           f"{trace.relative_to(ROOT)}")
-    for n, (cnt, d) in top:
-        print(f"    {d / n_events:8.2f} us/event  x{cnt / n_events:5.2f}  "
-              f"{n[:90]}")
+    for name, (cnt, d) in top:
+        print(f"    {d / per:8.2f} us/{unit}  x{cnt / per:5.2f}  "
+              f"{name[:90]}")
+
+
+# (label, B, Hq, Hkv, Lq, Lk, D, causal, window, layout) — see attention_inputs
+ATTN_CASES = (
+    ("prefill (main path)", 4, 32, 4, 2048, 2048, 64, True, 0, "model"),
+    ("decode (main path)", 4, 32, 4, 1, 2079, 64, True, 0, "cache"),
+    ("decode, ring window", 4, 32, 4, 1, 512, 64, False, 0, "cache"),
+    ("GQA 8/1, ragged 200", 2, 8, 1, 200, 200, 64, True, 0, "bhld"),
+    ("MHA 4/4", 2, 4, 4, 256, 256, 64, True, 0, "bhld"),
+    ("window 64", 1, 8, 2, 256, 256, 64, True, 64, "bhld"),
+    ("window 200, D=128", 1, 4, 4, 256, 256, 128, True, 200, "bhld"),
+    ("non-causal, D=32", 2, 8, 2, 256, 256, 32, False, 0, "bhld"),
+    ("Lq < Lk", 2, 8, 2, 128, 384, 64, True, 0, "bhld"),
+    ("Lq > Lk: rows with no key", 1, 8, 2, 100, 60, 64, True, 0, "bhld"),
+    ("Lq=3, window 40", 2, 8, 2, 3, 300, 64, True, 40, "bhld"),
+    ("Lq=16 (rows kernel)", 2, 8, 2, 16, 100, 64, True, 0, "model"),
+    ("Lq=17 (tile kernel)", 2, 8, 2, 17, 100, 64, True, 0, "model"),
+)
+
+
+def attention_inputs(B, Hq, Hkv, Lq, Lk, D, dtype, gen, dev, layout):
+    """q, k, v of one case from `gen`: 'bhld' contiguous [B, H, L, D];
+    'model', permuted views of [B, L, H, D] tensors (as the model passes
+    prefill); 'cache', q a view of [B, Lq, H, D] and k, v views of the first
+    Lk slots of a [B, Lk + 31, Hkv, D] cache (as decode passes them)."""
+    import torch
+    rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                     device=dev).to(dtype)
+    if layout == "bhld":
+        return rnd(B, Hq, Lq, D), rnd(B, Hkv, Lk, D), rnd(B, Hkv, Lk, D)
+    q = rnd(B, Lq, Hq, D).permute(0, 2, 1, 3)
+    slots = Lk + (31 if layout == "cache" else 0)
+    k, v = (rnd(B, slots, Hkv, D)[:, :Lk].permute(0, 2, 1, 3)
+            for _ in range(2))
+    return q, k, v
+
+
+def attention_check(got, want32):
+    """(within tolerance, max |Δ|, worst share of the allowance) of a kernel
+    output against the plain version computed in fp32: fp32 outputs within
+    1e-5 + 1e-5·|want|; bf16 outputs within one bf16 ulp of `want32`
+    rounded once to bf16, plus 1e-5 (near 0 the fp32 sums' own noise is
+    larger than an ulp)."""
+    import torch
+    if got.dtype == torch.float32:
+        want = want32
+        allowed = 1e-5 + 1e-5 * want.abs()
+    else:
+        want = want32.to(got.dtype).float()
+        mag = want.abs().clamp(min=torch.finfo(torch.float32).tiny)
+        allowed = torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5
+    d = (got.float() - want).abs()
+    share = float((d / allowed).max())
+    return share <= 1.0, float(d.max()), share
+
+
+def phase_attention(ops, ref, dev):
+    """Phase 7; returns the max |Δ| of the main path's two bf16 shapes."""
+    import torch
+    print("phase 7: flash_attention against its plain version on the card "
+          "(fp32: 1e-5 + 1e-5·|o|; bf16: 1 ulp of the fp32 plain version "
+          "rounded once, + 1e-5)")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    main_err = 0.0
+    for label, B, Hq, Hkv, Lq, Lk, D, causal, window, layout in ATTN_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = attention_inputs(B, Hq, Hkv, Lq, Lk, D, dtype, gen,
+                                       dev, layout)
+            kw = dict(causal=causal, window=window)
+            got = ops.attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if got.shape != q.shape or got.dtype != dtype:
+                fail(f"attention {label}: output {tuple(got.shape)} "
+                     f"{got.dtype}")
+            q32, k32, v32 = q.float(), k.float(), v.float()
+            want = ref.attention_ref(q32, k32, v32, **kw)
+            ok, err, share = attention_check(got, want)
+            tag = (f"attention {label} [{B},{Hq}/{Hkv},{Lq}x{Lk},{D}] "
+                   f"{str(dtype)[6:]} causal={causal} window={window} "
+                   f"{layout}")
+            if not ok:
+                fail(f"{tag}: max|Δ|={err:.3e}, {share:.3g}x the allowance")
+            print(f"  {tag}: max|Δ| {err:.3e} ({share:.3f} of the "
+                  f"allowance) ok")
+            if "main path" in label and dtype == torch.bfloat16:
+                main_err = max(main_err, err)
+            if Lq > Lk and causal and not bool(
+                    (got[:, :, :Lq - Lk] == 0).all()):
+                fail(f"{tag}: rows with no visible key are not 0")
+            # the check bites: a 1% wrong scale, a window one key wider
+            wrong = [("scale 1% off", dict(sm_scale=1.01 / D ** 0.5))]
+            if window:
+                wrong.append(("window one key wider",
+                              dict(window=window + 1)))
+            if "main path" in label or window:
+                for what, change in wrong:
+                    bad = ref.attention_ref(q32, k32, v32, **{**kw, **change})
+                    if attention_check(got, bad)[0]:
+                        fail(f"{tag}: the check passes a plain version "
+                             f"with the {what}")
+                    print(f"    the check rejects the plain version with "
+                          f"the {what}")
+    return main_err
+
+
+def phase_serving(ops, ref, dev):
+    """Phase 8: serve tinyllama-1.1b at full width; returns what phases 9
+    and 10 reuse and the kernel's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.api import make_batch, param_count
+    from repro_torch.models.transformer import init_model
+    cfg = get_config("tinyllama-1.1b")
+    B, S, GEN = 4, 2048, 32
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    tokens = make_batch(cfg, B, S, torch.Generator(device=dev).manual_seed(
+        1))["tokens"]
+    B, S = tokens.shape
+    torch.cuda.synchronize()
+    print(f"phase 8: main path, serving {cfg.name} ({param_count(params):,} "
+          f"params, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd}, "
+          f"{cfg.param_dtype}) at batch {B}, prompt {S}, gen {GEN}, greedy; "
+          f"init {time.perf_counter() - t0:.2f} s")
+    # warm-up (cuBLAS, first launches), not timed or counted
+    serve(cfg, params, tokens[:, :128], 3, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    res = serve(cfg, params, tokens, GEN, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    want = cfg.num_layers + cfg.num_layers * (GEN - 1)
+    print(f"  launches {launches} (want flash_attention = {want})")
+    if launches["flash_attention"] != want:
+        fail(f"serving: flash_attention ran {launches['flash_attention']} "
+             f"times, want {want}")
+    if launches["fasgd_update"] or launches["fused_event_apply"]:
+        fail("serving: a server-update kernel ran on the serving path")
+    for nm in ("prefill_logits", "last_logits"):
+        if not bool(torch.isfinite(res[nm].float()).all()):
+            fail(f"serving: non-finite {nm}")
+    out = res["tokens"]
+    if out.shape != (B, GEN) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        fail(f"serving: generated tokens {tuple(out.shape)} out of range")
+    pre_tps = B * S / res["prefill_s"]
+    dec_tps = B * (GEN - 1) / res["decode_s"]
+    step_ms = 1e3 * res["decode_s"] / (GEN - 1)
+    print(f"  prefill {B * S} tokens in {res['prefill_s']:.4f} s = "
+          f"{pre_tps:.1f} tokens/s; decode {GEN - 1} steps x {B} in "
+          f"{res['decode_s']:.4f} s = {dec_tps:.1f} tokens/s, "
+          f"{step_ms:.3f} ms per step (host clock, ending in a sync)")
+    # the same weights and prompts through the plain attention on the card
+    # (`attention_ref` has `ops.attention`'s signature)
+    real = ops.attention
+    ops.attention = ref.attention_ref
+    try:
+        plain = serve(cfg, params, tokens, GEN, device=dev)
+    finally:
+        ops.attention = real
+    got, ref_logits = res["prefill_logits"].float(), \
+        plain["prefill_logits"].float()
+    d = (got - ref_logits).abs()
+    spread = float(ref_logits.std())
+    print(f"  prefill logits against the plain attention: max|Δ| "
+          f"{float(d.max()):.4f}, mean|Δ| {float(d.mean()):.5f}; logits' "
+          f"std {spread:.4f}, range [{float(ref_logits.min()):.3f}, "
+          f"{float(ref_logits.max()):.3f}]; last-position arg-max agrees on "
+          f"{int((got[:, -1].argmax(-1) == ref_logits[:, -1].argmax(-1)).sum())}/{B} rows")
+    # bf16 rounds each layer's attention output once in either version; a
+    # one-ulp difference there moves the logits by a small share of their
+    # spread, while a wrong kernel moves them by the spread itself
+    if not float(d.max()) <= 0.25 * spread:
+        fail(f"serving: prefill logits differ from the plain attention's by "
+             f"{float(d.max()):.4f}, above a quarter of their std {spread:.4f}")
+    agree = float((res["tokens"] == plain["tokens"]).float().mean())
+    print(f"  decoded tokens agree with the plain attention's on {agree:.3f} "
+          f"of {B * GEN} (not gated: near-ties under bf16 with random "
+          f"weights)")
+    return dict(cfg=cfg, params=params, tokens=tokens, gen=GEN,
+                launches=launches["flash_attention"], prefill_tps=pre_tps,
+                decode_tps=dec_tps, step_ms=step_ms)
+
+
+def phase_attention_times(ops, ref, dev, flush, bw, bf16_flops):
+    """Phase 9: times at the main path's two shapes; returns the JSON
+    fields of the flash_attention entry (prefill's as the entry's own,
+    decode's under ``decode_*``)."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, Hq, Hkv, S, D, GEN = 4, 32, 4, 2048, 64, 32
+    out = {}
+    us = lambda ms: f"{ms * 1e3:.2f} us"
+    for shape, Lq, Lk, layout, causal in (
+            ("prefill", S, S, "model", True),
+            ("decode", 1, S + GEN - 1, "cache", True)):
+        q, k, v = attention_inputs(B, Hq, Hkv, Lq, Lk, D, torch.bfloat16,
+                                   gen, dev, layout)
+        # SDPA aligns a causal mask to the top left; a single query at the
+        # end of the kv axis sees every key, so decode's call is non-causal
+        lib = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal and Lq == Lk, enable_gqa=True)
+        lib_err = float((lib().float() - ref.attention_ref(
+            q.float(), k.float(), v.float(), causal=causal)).abs().max())
+        ms, host = time_ms(lambda: ops.attention(q, k, v, causal=causal),
+                           flush)
+        plain, _ = time_ms(lambda: ref.attention_ref(q, k, v, causal=causal),
+                           flush, reps=20)
+        lib_ms, _ = time_ms(lib, flush)
+        pairs = Lq * (Lq + 1) // 2 + Lq * (Lk - Lq) if causal else Lq * Lk
+        flops = 4 * B * Hq * D * pairs
+        nbytes = 2 * (2 * B * Hq * Lq * D + 2 * B * Hkv * Lk * D)
+        bound = 1e3 * max(flops / bf16_flops, nbytes / bw)
+        by = "operations" if flops / bf16_flops >= nbytes / bw else "bytes"
+        print(f"  flash_attention {shape} q [{B},{Hq},{Lq},{D}] k/v "
+              f"[{B},{Hkv},{Lk},{D}] bf16: device {us(ms)} (host-incl. "
+              f"{us(host)}); bound {us(bound)} ({by}: {flops / 1e9:.3f} "
+              f"GFLOP at the bf16 tensor rate, {nbytes / 1e6:.2f} MB); plain "
+              f"{us(plain)}; scaled_dot_product_attention {us(lib_ms)} "
+              f"(its max|Δ| from the fp32 plain version {lib_err:.2e}); "
+              f"kernel / bound {ms / bound:.1f}x, kernel / SDPA "
+              f"{ms / lib_ms:.1f}x")
+        pre = "" if shape == "prefill" else "decode_"
+        out.update({f"{pre}ms": ms, f"{pre}plain_ms": plain,
+                    f"{pre}bound_ms": bound, f"{pre}bound_by": by,
+                    f"{pre}library_ms": lib_ms})
+    return out
+
+
+def serving_breakdown(serving):
+    """Phase 10: one prefill and the decode steps, each timed on the host
+    clock and then under `torch.profiler`; the decode loop also runs under
+    ``set_sync_debug_mode('error')`` (a host sync in it fails the
+    script)."""
+    import torch
+    from repro_torch.models.serving import decode_step, grow_cache, prefill
+    cfg, params, tokens, gen = (serving[k] for k in
+                                ("cfg", "params", "tokens", "gen"))
+    S = tokens.shape[1]
+    batch = {"tokens": tokens}
+    run_prefill = lambda: prefill(params, cfg, batch)
+    logits, cache = run_prefill()
+    cache = grow_cache(cfg, cache, S + gen)
+    first = logits[:, -1:].argmax(-1)
+    del logits
+
+    def run_decode():
+        tok = first
+        for i in range(gen - 1):
+            logits_t, _ = decode_step(params, cfg, tok, cache, S + i)
+            tok = logits_t.argmax(-1)
+
+    for label, run, per, unit in (("serve_prefill", run_prefill, 1, "prefill"),
+                                  ("serve_decode", run_decode, gen - 1,
+                                   "step")):
+        run()
+        torch.cuda.synchronize()
+        if unit == "step":
+            torch.cuda.set_sync_debug_mode("error")
+            run()
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            print(f"  {label}: {per} steps ran with no host sync")
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        plain_us = 1e6 * (time.perf_counter() - t0)
+        print(f"  {label}: {plain_us / per:.1f} us/{unit} on the host clock "
+              f"unprofiled")
+        profiled(label, run, plain_us, per, unit)
 
 
 def main() -> int:
@@ -397,7 +705,7 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    bw, flops = card_rates(name)
+    bw, flops, bf16_flops = card_rates(name)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("phase 1: the card (nvidia-smi name, power.limit):")
@@ -405,7 +713,8 @@ def main() -> int:
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} card(s); TF32 off for matmul and "
           f"cuDNN; rates used for bounds: {bw / 1e12:g} TB/s, "
-          f"{flops / 1e12:g} TFLOP/s fp32")
+          f"{flops / 1e12:g} TFLOP/s fp32, {bf16_flops / 1e12:g} TFLOP/s "
+          f"bf16 (tensor cores)")
     secs = build.build_all()
     print(f"  kernel build: {secs:.2f} s (nvcc, sm_90a, one process per "
           f"source, in parallel)")
@@ -493,6 +802,18 @@ def main() -> int:
     breakdown("fused", SimConfig(num_clients=256, batch_size=4, seed=0,
                                  events_per_step=K, apply_mode="fused",
                                  server=server), ds, params, 4 * K)
+    # --- phases 7-10: LM serving and flash_attention ---
+    attn_err = phase_attention(ops, ref, dev)
+    serving = phase_serving(ops, ref, dev)
+    print(f"phase 9: flash_attention times on {smi} (median of 50, L2 "
+          f"flushed; plain median of 20)")
+    attn_times = phase_attention_times(ops, ref, dev, flush, bw, bf16_flops)
+    print(f"  serving: prefill {serving['prefill_tps']:.1f} tokens/s, decode "
+          f"{serving['decode_tps']:.1f} tokens/s, "
+          f"{serving['step_ms']:.3f} ms per decode step")
+    print("phase 10: where serving's time goes (torch.profiler)")
+    serving_breakdown(serving)
+
     kernels = [
         dict(name="fasgd_update", route="cuda",
              source="src/repro_torch/kernels/csrc/fasgd_update.cu",
@@ -509,6 +830,11 @@ def main() -> int:
              ms=fe_ms, plain_ms=fe_plain, bound_ms=fe_bound,
              bound_by="bytes" if fe_bytes / bw >= fe_ops / flops
              else "operations", library_ms=None),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:98",
+             launches=serving["launches"], max_abs_err=attn_err,
+             **attn_times),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,12 +8,16 @@ The layout mirrors the JAX package: `repro_torch/<sub>/<mod>.py` ports
 - `core.bandwidth` — the eq. 9 B-FASGD transmit probability
 - `core.engine`    — gates, gated / serial / fused application, counters
 - `sim.fred`       — the FRED simulator (`run_simulation`)
-- `kernels.ops`    — the two server-update kernels, hand-written in CUDA
-                     for `sm_90a`; a CPU tensor takes their plain PyTorch
-                     version (`kernels.ref`), a CUDA tensor launches the
-                     kernel or raises
+- `kernels.ops`    — the two server-update kernels and flash attention,
+                     hand-written in CUDA for `sm_90a`; a CPU tensor takes
+                     their plain PyTorch version (`kernels.ref`), a CUDA
+                     tensor launches the kernel or raises
 - `models.mlp`, `data.mnist` — the paper's 784-200-10 MLP and the
                      synthetic MNIST stand-in
+- `configs`, `models.{layers,attention,transformer,serving,api}` — the
+                     dense GQA decoders (tinyllama-1.1b, llama3-8b, yi-9b,
+                     yi-34b): forward, prefill and decode
+- `launch.serve`   — batched LM serving (`serve`, and its CLI)
 - `utils.trees`, `utils.convert`, `utils.rng` — parameter trees in JAX's
                      leaf order, numpy round trips, and the RNG seam
 

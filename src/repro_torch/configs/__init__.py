@@ -1,0 +1,49 @@
+"""Architecture registry: `get_config(name)` / `get_smoke_config(name)`.
+
+Ported from `repro.configs`: one module per architecture, each exporting
+FULL (the published configuration, bfloat16) and SMOKE (2 layers, d_model
+256, float32, for the CPU tests).  Only the dense family is ported; the
+reference's other architectures raise `NotImplementedError`, naming what
+they still need.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.configs.base import NOT_PORTED, ModelConfig
+
+ARCH_NAMES = ["tinyllama-1.1b", "llama3-8b", "yi-9b", "yi-34b"]
+
+# the reference's other architectures, by the families they wait for
+NOT_PORTED_ARCHS = {
+    "phi-3-vision-4.2b": ("vlm",),
+    "grok-1-314b": ("moe",),
+    "mamba2-1.3b": ("ssm",),
+    "zamba2-7b": ("hybrid",),
+    "hubert-xlarge": ("audio",),
+    "deepseek-v2-236b": ("moe", "mla"),
+}
+
+_MODULES = {n: "repro_torch.configs." + n.replace("-", "_").replace(".", "_")
+            for n in ARCH_NAMES}
+
+
+def _module(name: str):
+    if name in NOT_PORTED_ARCHS:
+        missing = " and ".join(NOT_PORTED[f] for f in NOT_PORTED_ARCHS[name])
+        raise NotImplementedError(f"{name} is not ported yet: it needs "
+                                  f"{missing}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown architecture {name!r}")
+    return importlib.import_module(_MODULES[name])
+
+
+def get_config(name: str, **overrides) -> ModelConfig:
+    """The published configuration of `name`, with `overrides` applied."""
+    return dataclasses.replace(_module(name).FULL, **overrides)
+
+
+def get_smoke_config(name: str, **overrides) -> ModelConfig:
+    """The reduced same-family configuration of `name` (CPU tests)."""
+    return dataclasses.replace(_module(name).SMOKE, **overrides)

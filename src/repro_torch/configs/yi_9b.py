@@ -1,0 +1,30 @@
+"""yi-9b [dense] — llama-arch GQA [arXiv:2403.04652]."""
+import dataclasses
+
+from repro_torch.configs.base import ModelConfig
+
+FULL = ModelConfig(
+    name="yi-9b",
+    arch_type="dense",
+    num_layers=48,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=4,
+    d_ff=11008,
+    vocab_size=64000,
+    head_dim=128,
+    param_dtype="bfloat16",
+    citation="arXiv:2403.04652",
+)
+
+SMOKE = dataclasses.replace(
+    FULL,
+    num_layers=2,
+    d_model=256,
+    num_heads=8,
+    num_kv_heads=2,
+    d_ff=512,
+    vocab_size=512,
+    head_dim=32,
+    param_dtype="float32",
+)

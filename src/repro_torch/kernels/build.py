@@ -1,9 +1,9 @@
 """Build and load the CUDA kernels: `nvcc` into a shared library, `ctypes`.
 
 Each source under ``csrc/`` is compiled at first use, for Hopper only
-(``-gencode arch=compute_90a,code=sm_90a``), into its own shared library
-with a plain C interface under ``build/repro_torch_kernels/`` at the root of
-the checkout.  The sources include no PyTorch header, so a build takes
+(``-gencode arch=compute_90a,code=sm_90a``, plus the source's own flags),
+into its own shared library with a plain C interface under
+``build/repro_torch_kernels/`` at the root of the checkout.  The sources include no PyTorch header, so a build takes
 seconds.  All stale sources build at once, one `nvcc` each, in parallel.
 A library's file name carries a hash of its source, the shared headers
 (``csrc/*.cuh``) and the flags, so a changed source is rebuilt and an
@@ -24,15 +24,22 @@ from typing import Any, Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("fasgd_update", "fused_event_apply")
-# -fmad=false: every multiply and add rounds on its own, as PyTorch's
-# separate elementwise ops do, so a kernel computes what its plain version
-# computes.  A fused n - b·b moves the literal variant's ill-conditioned
-# (1-β)/√(max(n - b², 0) + ε) by percents where n ≈ b².  The kernels are
-# bound by bytes, so the lost FMAs should cost little; a build with
-# contraction on has not been timed against this one.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Each source with its own flags.  -fmad=false for the server updates: every
+# multiply and add rounds on its own, as PyTorch's separate elementwise ops
+# do, so a kernel computes what its plain version computes.  A fused
+# n - b·b moves the literal variant's ill-conditioned (1-β)/√(max(n - b², 0)
+# + ε) by percents where n ≈ b².  Those kernels are bound by bytes, so the
+# lost FMAs should cost little; a build with contraction on has not been
+# timed against this one.  flash_attention keeps contraction on: its sums are
+# well-conditioned and it is bound by its operations (see its source note).
+SOURCE_FLAGS = {
+    "fasgd_update": ("-fmad=false",),
+    "fused_event_apply": ("-fmad=false",),
+    "flash_attention": (),
+}
+SOURCES = tuple(SOURCE_FLAGS)
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C entry point of each source, with its argument types (pointers and the
@@ -47,6 +54,11 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P,       # p g n b v w wmean τ has_push
         _F, _F, _F, _F, _F, _F,                   # lr γ 1-γ β 1-β ε
         _I, _I64, _P, _P, _P, _P, _P]),           # K, size, outputs, stream
+    "flash_attention": ("repro_flash_attention", [
+        _I, _I, _P, _P, _P, _P,                   # dtype, head_dim, q k v o
+        _I, _I, _I, _I, _I,                       # B Hq Hkv Lq Lk
+        ctypes.POINTER(_I64),                     # strides (host, 12)
+        _I, _I, _F, _P]),                         # causal window scale stream
 }
 
 # what the last build printed (ptxas register and spill report), by source
@@ -65,10 +77,14 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _flags(name: str):
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
@@ -85,7 +101,8 @@ def build_all() -> float:
     for name in todo:
         out = _lib_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [compiler, *_flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)

@@ -1,25 +1,27 @@
-"""Public wrappers of the two server-update kernels, over trees of leaves.
+"""Public wrappers of the kernels: the two server updates (over trees of
+leaves) and attention.
 
-Ported from `repro.kernels.ops`.  Dispatch is by the tensors' device, leaf
-by leaf:
+Ported from `repro.kernels.ops`.  Dispatch is by the tensors' device:
 
 * a CPU tensor takes the kernel's plain PyTorch version (`kernels.ref`);
 * a CUDA tensor launches the hand-written Hopper kernel
   (``csrc/<name>.cu``, built by `kernels.build`) or raises.
 
-There is no switch and no fallback.  The kernels take each leaf flat and
-contiguous and mask its tail, so unlike the TPU wrappers there is no
-padding to (R, 128) tiles.  A launch runs on PyTorch's current stream,
-does not synchronise, and writes out-of-place outputs allocated here with
-`torch.empty_like`.
+There is no switch and no fallback.  The server-update kernels take each
+leaf flat and contiguous and mask its tail, so unlike the TPU wrappers there
+is no padding to (R, 128) tiles; the attention kernel takes each tensor's
+strides and masks its ragged tails, so it needs neither padding nor
+contiguous copies.  A launch runs on PyTorch's current stream, does not
+synchronise, and writes out-of-place outputs allocated here.
 
-`LAUNCHES` counts leaf dispatches per kernel on either device: on a CUDA
-tensor every dispatch is one kernel launch, so on the card it counts
-launches, and on the CPU the tests hold it against the simulator's
-``Counters.kernel_launches``.
+`LAUNCHES` counts dispatches per kernel on either device: on a CUDA tensor
+every dispatch is one kernel launch, so on the card it counts launches, and
+on the CPU the tests hold it against the simulator's
+``Counters.kernel_launches`` and the model's layer count.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Any
 
 import torch
@@ -27,7 +29,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.utils.trees import leaves, unflatten
 
-LAUNCHES = {"fasgd_update": 0, "fused_event_apply": 0}
+LAUNCHES = {"fasgd_update": 0, "fused_event_apply": 0, "flash_attention": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -198,3 +200,59 @@ def fused_event_apply(params: Any, grads: Any, n: Any, b: Any, v: Any,
         for p, g, nn, bb, vv in zip(leaves(params), leaves(grads), leaves(n),
                                     leaves(b), leaves(v))]
     return _unzip(params, outs)
+
+
+_HEAD_DIMS = (32, 64, 128)
+
+
+def _attention_cuda(q, k, v, causal, window, sm_scale):
+    from repro_torch.kernels.build import kernel
+    B, Hq, Lq, D = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
+            or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    Hkv, Lk = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"{Hq} q heads do not group over {Hkv} kv heads")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {_HEAD_DIMS}")
+    if min(B, Hq, Lq, Lk) < 1:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"dtype {q.dtype} not supported by the kernel")
+    for nm, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{nm} is {t.dtype} on {t.device}, expected "
+                             f"{q.dtype} on {q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{nm}'s last dimension must be contiguous")
+    o = torch.empty_like(q)          # q's layout where q is dense, else packed
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *o.stride()[:3])
+    with torch.cuda.device(q.device):
+        rc = kernel("flash_attention")(
+            _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), B, Hq, Hkv, Lq, Lk, strides, int(causal),
+            int(window), sm_scale, _stream(q.device))
+    _raise_on(rc, "flash_attention")
+    return o
+
+
+def attention(q, k, v, *, causal=True, window=0, sm_scale=None):
+    """Exact GQA attention: q [B, Hq, Lq, D], k/v [B, Hkv, Lk, D] → o like q.
+
+    Causal and sliding-window (`window` > 0) masks; the queries are the last
+    Lq positions of the kv axis; a row with no visible key outputs 0;
+    `sm_scale` defaults to 1/√D.  On the card the tensors may be strided
+    views (permuted heads, cache slices) as long as their last dimension is
+    contiguous; the output keeps q's layout.
+    """
+    LAUNCHES["flash_attention"] += 1
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if _device_kind(q) == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 sm_scale=sm_scale)
+    return _attention_cuda(q, k, v, causal, window, sm_scale)

@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the two server-update kernels.
+"""Plain PyTorch versions of the kernels: the two server updates and
+attention.
 
 Ported from `repro.kernels.ref`.  `kernels.ops` takes these for tensors
 that lie on the CPU; the tests hold them against the interpreted Pallas
 kernels, and `chip_smoke.py` holds the CUDA kernels against them on the
-card.  Nothing on the main path runs them when a card is present.
+card.  Nothing on a main path runs them when a card is present.
 """
 from __future__ import annotations
 
@@ -73,3 +74,35 @@ def fused_event_apply_ref(params, grads, n, b, v, weights, wmean, taus, lr,
             delta = delta + w[k] * scale * g32[k]
     p1 = (params.float() - delta).to(params.dtype)
     return p1, n1, b1, v1
+
+
+def attention_ref(q, k, v, *, causal=True, window=0, sm_scale=None):
+    """Exact GQA attention with causal / sliding-window masks.
+
+    q: [B, Hq, Lq, D]; k, v: [B, Hkv, Lk, D]; q head h reads kv head
+    h // (Hq/Hkv).  When Lk > Lq the queries are the *last* Lq positions
+    of the kv axis (decode / prefill-with-cache semantics).  Scores, softmax
+    and the weighted sum in float32; a row with no visible key outputs 0;
+    the output is in q's dtype.
+    """
+    B, Hq, Lq, D = q.shape
+    _, Hkv, Lk, _ = k.shape
+    group = Hq // Hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / (D ** 0.5)
+    kk = torch.repeat_interleave(k, group, dim=1).float()
+    vv = torch.repeat_interleave(v, group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * sm_scale
+    q_pos = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
+    k_pos = torch.arange(Lk, device=q.device)[None, :]
+    mask = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window > 0:
+        mask = mask & (k_pos > q_pos - window)
+    s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vv)
+    any_visible = mask.any(dim=-1)[:, None]               # [Lq, 1]
+    out = torch.where(any_visible, out, torch.zeros((), device=q.device))
+    return out.to(q.dtype)

@@ -1,0 +1,126 @@
+"""LM serving: batched prefill, then token-by-token decode.
+
+Ported from `repro.launch.serve` (dense decoders):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --batch 4 --prompt-len 2048 --gen 32 --temperature 0
+
+It runs on the card unless given ``--device cpu`` (use ``--smoke`` there:
+the reduced configuration).  Weights are random, from ``--seed``, at the
+reference's scales; prompts are uniform random tokens from ``--seed + 1``.
+Prints prefill and decode tokens/s.  `serve` is the loop itself, for
+callers that bring their own weights and prompts.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.api import make_batch, param_count
+from repro_torch.models.serving import decode_step, grow_cache, prefill
+from repro_torch.models.transformer import init_model
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.trees import leaves
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _next_token(logits, temperature: float, generator):
+    """[B, 1] next tokens from the last position's logits [B, 1, V]:
+    arg-max at temperature 0, else a draw from softmax(logits / T)."""
+    last = logits[:, -1, :]
+    if temperature > 0:
+        probs = torch.softmax(last.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)
+    return torch.argmax(last, dim=-1, keepdim=True)
+
+
+def serve(cfg: ModelConfig, params, tokens, gen: int, *,
+          temperature: float = 0.0, seed: int = 0, device=None):
+    """Prefill `tokens` [B, S], then generate `gen` tokens per row.
+
+    The prefill's cache grows to S + gen slots (`grow_cache`), then gen − 1
+    decode steps follow (the first token comes from the prefill's logits).
+    Sampling draws from a generator seeded with `seed` on `device`.  Runs on
+    `device` (the card unless the caller passes another), where `params`
+    must already be.  Returns a dict: ``tokens`` [B, gen] (the generated
+    tokens), ``prefill_logits`` [B, S, V], ``last_logits`` [B, 1, V] (those
+    the last token was chosen from), ``prefill_s`` and ``decode_s`` (host
+    clock, ending in a device synchronise).
+    """
+    device = resolve_device(device)
+    if gen < 1:
+        raise ValueError(f"gen must be at least 1, got {gen}")
+    for t in leaves(params):
+        if t.device.type != device.type:
+            raise ValueError(f"params are on {t.device}, serving on {device}")
+    tokens = tokens.to(device)
+    B, S = tokens.shape
+    generator = torch.Generator(device=device).manual_seed(seed)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, {"tokens": tokens})
+    tok = _next_token(logits, temperature, generator)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+
+    cache = grow_cache(cfg, cache, S + gen)
+    out, last = [tok], logits[:, -1:]
+    _sync(device)
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        last, cache = decode_step(params, cfg, tok, cache, S + i)
+        tok = _next_token(last, temperature, generator)
+        out.append(tok)
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    return {"tokens": torch.cat(out, dim=1), "prefill_logits": logits,
+            "last_logits": last, "prefill_s": prefill_s,
+            "decode_s": decode_s}
+
+
+def main(argv=None):
+    """CLI entry point (see the module docstring)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="'cpu' to run there; default: the card")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    device = resolve_device(args.device)
+    params = init_model(torch.Generator(device=device).manual_seed(args.seed),
+                        cfg, device=device)
+    B, S = args.batch, args.prompt_len
+    print(f"[serve] {cfg.name}: {param_count(params):,} params, "
+          f"batch={B} prompt={S} gen={args.gen} on {device}")
+    batch = make_batch(cfg, B, S, torch.Generator(device=device).manual_seed(
+        args.seed + 1))
+    res = serve(cfg, params, batch["tokens"], args.gen,
+                temperature=args.temperature, seed=args.seed + 2,
+                device=device)
+    print(f"  prefill: {B * S} tokens in {res['prefill_s']:.3f}s "
+          f"({B * S / res['prefill_s']:.0f} tok/s)")
+    n_dec = B * (args.gen - 1)
+    print(f"  decode: {B}×{args.gen - 1} steps in {res['decode_s']:.3f}s "
+          f"({n_dec / max(res['decode_s'], 1e-9):.0f} tok/s)")
+    print(f"  sample[0]: {res['tokens'][0].tolist()}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,10 @@
 """Weights carried across: numpy in, tensors out, and back.
 
-Both packages hold the MLP as a list of ``{"w", "b"}`` dicts, so a state
-written out of one with numpy starts the other from the same point.
+Both packages hold the MLP as a list of ``{"w", "b"}`` dicts and the LM as
+a dict with stacked [L, ...] layer leaves, so a state written out of one with
+numpy starts the other from the same point.  bfloat16 crosses as its bits:
+numpy holds it as ml_dtypes' ``bfloat16`` (the JAX package's arrays carry
+that type), which torch cannot read directly.
 """
 from __future__ import annotations
 
@@ -14,7 +17,14 @@ from repro_torch.utils.trees import tree_map
 
 
 def _tensor(a, device):
-    return torch.as_tensor(np.array(a)).to(device)
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.as_tensor(a).to(device)
+
+
+LM_KEYS = {"embed", "final_norm", "unembed", "layers"}
+LM_LAYER_KEYS = {"ln1", "attn", "ln2", "mlp"}
 
 
 def params_from_numpy(params, device=None):
@@ -44,3 +54,32 @@ def to_numpy(tree):
             t = t.float()
         return t.detach().cpu().numpy()
     return tree_map(one, tree)
+
+
+def _check_lm(params):
+    if set(params) != LM_KEYS or set(params["layers"]) != LM_LAYER_KEYS:
+        raise ValueError(f"not a dense LM parameter tree: keys "
+                         f"{sorted(params)} / layers "
+                         f"{sorted(params.get('layers', {}))}")
+
+
+def lm_params_from_numpy(params, device=None):
+    """A dense LM's parameters (numpy, the JAX package's structure with
+    stacked [L, ...] layer leaves) as tensors on `device` (the card unless
+    the caller passes another), dtypes kept, bfloat16 included."""
+    _check_lm(params)
+    return params_from_numpy(params, device)
+
+
+def lm_params_to_numpy(params):
+    """The port's dense LM parameters as numpy, dtypes kept: bfloat16 comes
+    back as ml_dtypes' ``bfloat16``, which numpy knows once ml_dtypes (a
+    JAX dependency) is imported."""
+    _check_lm(params)
+
+    def one(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("bfloat16")
+        return t.numpy()
+    return tree_map(one, params)

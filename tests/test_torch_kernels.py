@@ -146,14 +146,16 @@ def test_tree_wrappers_follow_jax_leaf_order_and_count_launches():
     ops.reset_launches()
     out = ops.fasgd_update(params, params, params, params, params, 0.01,
                            torch.tensor(2.0))
-    assert ops.LAUNCHES == {"fasgd_update": 4, "fused_event_apply": 0}
+    assert ops.LAUNCHES == {"fasgd_update": 4, "fused_event_apply": 0,
+                            "flash_attention": 0}
     assert list(out[0][0]) == ["b", "w"]
     grads = [{k: x[None].expand((3,) + x.shape) for k, x in l.items()}
              for l in params]
     w = torch.ones(3)
     ops.fused_event_apply(params, grads, params, params, params, w, w / 3,
                           w, torch.tensor(True), lr=0.01)
-    assert ops.LAUNCHES == {"fasgd_update": 4, "fused_event_apply": 4}
+    assert ops.LAUNCHES == {"fasgd_update": 4, "fused_event_apply": 4,
+                            "flash_attention": 0}
 
 
 def test_other_devices_raise():
@@ -168,11 +170,14 @@ def test_other_devices_raise():
 
 
 def test_build_flags_target_hopper():
-    """The kernels build for sm_90a only, without FMA contraction."""
+    """The kernels build for sm_90a only; the server updates without FMA
+    contraction, flash attention (bound by its operations) with it."""
     from repro_torch.kernels import build
-    flags = " ".join(build.NVCC_FLAGS)
-    assert "arch=compute_90a,code=sm_90a" in flags
-    assert "-fmad=false" in flags
     for name in build.SOURCES:
+        flags = " ".join(build._flags(name))
+        assert "arch=compute_90a,code=sm_90a" in flags
+        assert ("-fmad=false" in flags) == (name != "flash_attention")
         assert (build.CSRC / f"{name}.cu").exists()
         assert name in build.SIGNATURES
+    assert set(build.SOURCES) == {"fasgd_update", "fused_event_apply",
+                                  "flash_attention"}
