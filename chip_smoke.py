@@ -50,6 +50,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    (the library yardstick, never called by the port).
 10. Where serving's time goes: one prefill and the 31 decode steps under
    `torch.profiler` (device busy and idle share, top kernels).
+11. `batched_scale_apply` through its tree entry point
+   (`ops.batched_scale_apply`): over the 784-200-10 leaves at K in {1, 16,
+   128} x both modes x no mask, a shared mask, or per-leaf masks and τ, in
+   fp32 and bf16, and on a 2M-element leaf at K=16, each held against the
+   plain version (fp32: rtol 1e-5 of the update's terms + 2 ulp; bf16: one
+   ulp of the fp32 plain version rounded once) and against the
+   `fused_event_apply` kernel with track_stats off and weights m·c (fp32:
+   rtol 1e-4), on its θ and at θ = 0.  The check must reject the plain
+   version with lr 1% off and with one event's mask flipped.  Then the
+   entry point as a user drives it: 8 windows of K=128 with θ carried,
+   under ``set_sync_debug_mode('error')``, counted; then times at the fused
+   main path's window and the 2M leaf beside the bound, the plain version,
+   `fused_event_apply` and, in 'coeff' mode, `torch.addmv` (the library
+   yardstick, never called by the port).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -105,15 +119,11 @@ def check(tag, got, want, update_mag, update_rtol, stat_tols) -> float:
     version.  The line shows the worst share of that allowance used.
     """
     import torch
-    ulp = 2.0 ** (-7 if got[0].dtype == torch.bfloat16 else -23)
-    want_p = want[0].double()
-    d = (got[0].double() - want_p).abs()
-    allowed = update_rtol * update_mag.double() + 2 * ulp * want_p.abs()
-    share = float((d / allowed.clamp(min=1e-300)).max())
+    err, share = theta_share(got[0], want[0], update_mag, update_rtol)
     if share > 1.0:
-        fail(f"{tag} θ: max|Δ|={float(d.max()):.3e}, {share:.3g}× the "
+        fail(f"{tag} θ: max|Δ|={err:.3e}, {share:.3g}× the "
              f"allowance (rtol {update_rtol:g} of the update + 2 ulp)")
-    errs = [f"θ {float(d.max()):.2e} ({share:.3f} of the allowance)"]
+    errs = [f"θ {err:.2e} ({share:.3f} of the allowance)"]
     for x, y, nm, tol in zip(got[1:], want[1:], "nbv", stat_tols):
         e = (x.float() - y.float()).abs()
         if not bool(torch.all(e <= tol["atol"] + tol["rtol"] * y.float().abs())):
@@ -123,7 +133,19 @@ def check(tag, got, want, update_mag, update_rtol, stat_tols) -> float:
     tol_txt = " / ".join(f"{t['rtol']:g},{t['atol']:g}" for t in stat_tols)
     print(f"  {tag}: max|Δ| {', '.join(errs)} (θ: rtol {update_rtol:g} of "
           f"Σ|update terms| + 2 ulp; rtol,atol n/b/v {tol_txt}) ok")
-    return float(d.max())
+    return err
+
+
+def theta_share(got, want, update_mag, update_rtol):
+    """(max |Δ|, worst share of the allowance) of θ' against `want`: the
+    allowance is `update_rtol` of `update_mag` (Σ_k |w_k·scale_k·g_k|) + two
+    ulps of θ' in its dtype."""
+    import torch
+    ulp = 2.0 ** (-7 if got.dtype == torch.bfloat16 else -23)
+    want_p = want.double()
+    d = (got.double() - want_p).abs()
+    allowed = update_rtol * update_mag.double() + 2 * ulp * want_p.abs()
+    return float(d.max()), float((d / allowed.clamp(min=1e-300)).max())
 
 
 def time_ms(fn, flush, reps=50):
@@ -680,6 +702,325 @@ def serving_breakdown(serving):
         profiled(label, run, plain_us, per, unit)
 
 
+BATCHED_LR = 0.0025
+LEAF_2M = ((1 << 21,),)      # benchmarks/kernels.py's --rows 16384 x 128
+# mask case -> (key of the push masks, key of τ) in a batched_window
+BATCHED_VECTORS = dict(none=(None, "taus"), shared=("mask", "taus"),
+                       per_leaf=("leaf_masks", "leaf_taus"))
+
+
+def mlp_tree(xs):
+    """The MLP's tree from its leaves in JAX order (b0, w0, b1, w1)."""
+    return [{"b": xs[0], "w": xs[1]}, {"b": xs[2], "w": xs[3]}]
+
+
+def flat_mlp(tree):
+    """The MLP tree's leaves in JAX order: b0, w0, b1, w1."""
+    return [tree[0]["b"], tree[0]["w"], tree[1]["b"], tree[1]["w"]]
+
+
+def batched_window(shapes, K, gen, dev, dtype):
+    """One K-event window over leaves of `shapes`, from `gen`: θ, g [K, ...]
+    (in `dtype`) and v per leaf; shared coeffs, τ and push mask [K]; and a
+    push mask and τ per leaf (event 0 always pushed)."""
+    import torch
+    rnd = lambda shape: torch.randn(shape, generator=gen, device=dev)
+
+    def events():
+        mask = (torch.rand(K, generator=gen, device=dev) < 0.8).float()
+        mask[0] = 1.0
+        return mask, torch.randint(1, 257, (K,), generator=gen,
+                                   device=dev).float()
+
+    mask, taus = events()
+    per_leaf = [events() for _ in shapes]
+    return dict(
+        p=[rnd(s).to(dtype) for s in shapes],
+        g=[(0.1 * rnd((K,) + s)).to(dtype) for s in shapes],
+        v=[1.0 + 0.1 * rnd(s) for s in shapes],
+        coeffs=0.5 + torch.rand(K, generator=gen, device=dev),
+        taus=taus, mask=mask, leaf_masks=[m for m, _ in per_leaf],
+        leaf_taus=[t for _, t in per_leaf])
+
+
+def ulp_share(got, want32):
+    """(max |Δ|, worst share of the allowance) of a bf16 θ' against the
+    fp32 plain version rounded once to bf16: one bf16 ulp of that value."""
+    import torch
+    want = want32.to(got.dtype).float()
+    mag = want.abs().clamp(min=torch.finfo(torch.float32).tiny)
+    d = (got.float() - want).abs()
+    return float(d.max()), float((d / torch.exp2(torch.floor(
+        torch.log2(mag)) - 7)).max())
+
+
+def batched_update_mag(g, v, w, t, mode):
+    """Σ_k |w_k·scale_k·g_k| of one leaf, the size of the update's terms."""
+    ax = (-1,) + (1,) * v.dim()
+    scale = (BATCHED_LR / (v[None] * t.reshape(ax) + 1e-8)
+             if mode == "fasgd" else 1.0)
+    return (w.abs().reshape(ax) * scale * g.float().abs()).sum(0)
+
+
+def cat_flat(xs):
+    import torch
+    return torch.cat([x.reshape(-1) for x in xs])
+
+
+def batched_case(ops, ref, win, K, mode, masking, tally):
+    """One phase-11 case through `ops.batched_scale_apply`, on its θ and
+    at θ = 0, held against the plain version and `fused_event_apply`; the
+    mutated plain versions must fail the same check at θ = 0.  Counts go
+    into `tally`."""
+    import torch
+    n, dtype, lr = len(win["p"]), win["p"][0].dtype, BATCHED_LR
+    mkey, tkey = BATCHED_VECTORS[masking]
+    per_leaf = lambda key: (win[key] if key.startswith("leaf_")
+                            else [win[key]] * n)
+    masks = [None] * n if mkey is None else per_leaf(mkey)
+    taus = per_leaf(tkey)
+    # the MLP as its tree, the 2M leaf as a bare tensor (a tree of one);
+    # a shared [K] vector goes as it is, per-leaf vectors as a tree
+    tree = mlp_tree if n == 4 else (lambda xs: xs[0])
+    arg = lambda key: (None if key is None else tree(win[key])
+                       if key.startswith("leaf_") else win[key])
+    ws = [win["coeffs"] if m is None else m * win["coeffs"] for m in masks]
+    hp = torch.zeros((), device=win["coeffs"].device)
+    for zero in (False, True):
+        ps = [torch.zeros_like(p) if zero else p for p in win["p"]]
+        got = ops.batched_scale_apply(
+            tree(ps), tree(win["g"]), tree(win["v"]), win["coeffs"],
+            arg(tkey), masks=arg(mkey), lr=lr, mode=mode)
+        got = cat_flat(flat_mlp(got) if n == 4 else [got])
+        torch.cuda.synchronize()
+        plain = lambda lr_, masks_: cat_flat([
+            ref.batched_scale_apply_ref(p.float(), g.float(), v,
+                                        win["coeffs"], t, lr_, masks=m,
+                                        mode=mode)
+            for p, g, v, m, t in zip(ps, win["g"], win["v"], masks_, taus)])
+        want = plain(lr, masks)
+        fused = cat_flat([ops.fused_event_apply_leaf(
+            p, g, v, v, v, w, w, t, hp, lr=lr, mode=mode,
+            track_stats=False)[0]
+            for p, g, v, w, t in zip(ps, win["g"], win["v"], ws, taus)])
+        mag = cat_flat([batched_update_mag(g, v, w, t, mode)
+                        for g, v, w, t in zip(win["g"], win["v"], ws, taus)])
+        tag = (f"batched_scale_apply K={K} {mode} mask={masking} "
+               f"{'MLP leaves' if n == 4 else '2M leaf'} "
+               f"{str(dtype)[6:]}{' θ=0' if zero else ''}")
+        # against fused_event_apply: rtol 1e-4 of the update's terms + 2
+        # ulps of θ' in its dtype, as phase 2 holds θ'
+        ferr, fshare = theta_share(got, fused, mag, KSUM_TOL["rtol"])
+        if dtype == torch.float32:
+            err, share = theta_share(got, want, mag, FP32_TOL["rtol"])
+            how = (f"rtol {FP32_TOL['rtol']:g} / {KSUM_TOL['rtol']:g} of "
+                   f"Σ|update terms| + 2 ulp")
+        else:
+            err, share = ulp_share(got, want)
+            how = (f"1 bf16 ulp of the fp32 plain version rounded once / "
+                   f"rtol {KSUM_TOL['rtol']:g} of Σ|update terms| + 2 ulp")
+        if share > 1.0 or fshare > 1.0:
+            fail(f"{tag}: max|Δ| {err:.3e} against the plain version "
+                 f"({share:.3g} of the allowance), {ferr:.3e} against "
+                 f"fused_event_apply ({fshare:.3g}) ({how})")
+        same = (bool(torch.equal(got.float(), want.to(dtype).float()))
+                and bool(torch.equal(got, fused)))
+        tally["bitwise"] += same
+        tally["cases"] += 1
+        print(f"  {tag}: max|Δ| {err:.2e} against the plain version "
+              f"({share:.3f} of the allowance), {ferr:.2e} against "
+              f"fused_event_apply ({fshare:.3f}); {how}"
+              f"{'; bitwise equal to both' if same else ''} ok")
+        if (K, mode, masking, dtype, n, zero) == (
+                128, "fasgd", "shared", torch.float32, 4, False):
+            tally["main_err"] = err
+        if dtype != torch.float32:
+            continue
+        # the check bites: lr 1% off; event 0's push mask flipped, in every
+        # leaf for a shared mask, in w0 alone for per-leaf masks
+        wrong = [("lr 1% off", lr * 1.01, masks)] if mode == "fasgd" else []
+        if mkey is not None:
+            leaf = 1 if mkey == "leaf_masks" else 0
+            flip = masks[leaf].clone()
+            flip[0] = 1.0 - flip[0]
+            wrong.append(("event 0's mask flipped", lr, [
+                flip if mkey == "mask" or i == leaf else m
+                for i, m in enumerate(masks)]))
+        for what, lr_bad, masks_bad in wrong:
+            caught = theta_share(got, plain(lr_bad, masks_bad), mag,
+                                 FP32_TOL["rtol"])[1] > 1.0
+            tally["rejections"] += caught
+            tally["mutations"] += 1
+            if zero and not caught:
+                fail(f"{tag}: the check passes a plain version with {what}")
+
+
+def batched_drive(ops, ref, gen, dev, W=8, K=128):
+    """The entry point as a user drives it: W windows of K events
+    ('fasgd', per-leaf masks and τ) applied in turn to the MLP, θ carried,
+    under ``set_sync_debug_mode('error')`` with the launch counts set to 0
+    just before; each window is then held against the plain version
+    applied to the same θ.  Returns the kernel's launches."""
+    import torch
+    wins = [batched_window(MLP_SHAPES, K, gen, dev, torch.float32)
+            for _ in range(W)]
+    vs = wins[0]["v"]                 # one v for every window
+    thetas = [mlp_tree(wins[0]["p"])]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for win in wins:
+            thetas.append(ops.batched_scale_apply(
+                thetas[-1], mlp_tree(win["g"]), mlp_tree(vs), win["coeffs"],
+                mlp_tree(win["leaf_taus"]),
+                masks=mlp_tree(win["leaf_masks"]), lr=BATCHED_LR,
+                mode="fasgd"))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    print(f"  main path: {W} windows of K={K} ('fasgd', per-leaf masks and "
+          f"τ) through ops.batched_scale_apply over the MLP, θ carried, "
+          f"under set_sync_debug_mode('error'): no host sync; launches "
+          f"{launches}")
+    if launches["batched_scale_apply"] != 4 * W or \
+            sum(launches.values()) != 4 * W:
+        fail(f"batched_scale_apply main path: launches {launches}, want "
+             f"{4 * W} of batched_scale_apply and no other")
+    worst = 0.0
+    for w, win in enumerate(wins):
+        before, after = flat_mlp(thetas[w]), flat_mlp(thetas[w + 1])
+        if not all(bool(torch.isfinite(q).all()) and q.shape == p.shape
+                   for p, q in zip(before, after)):
+            fail(f"batched_scale_apply main path: window {w} gave a wrong "
+                 f"shape or non-finite values")
+        vecs = list(zip(before, win["g"], vs, win["leaf_taus"],
+                        win["leaf_masks"]))
+        err, share = theta_share(
+            cat_flat(after),
+            cat_flat([ref.batched_scale_apply_ref(
+                p, g, v, win["coeffs"], t, BATCHED_LR, masks=m)
+                for p, g, v, t, m in vecs]),
+            cat_flat([batched_update_mag(g, v, m * win["coeffs"], t, "fasgd")
+                      for p, g, v, t, m in vecs]), FP32_TOL["rtol"])
+        if share > 1.0:
+            fail(f"batched_scale_apply main path: window {w} max|Δ| "
+                 f"{err:.3e}, {share:.3g} of the allowance")
+        worst = max(worst, share)
+    print(f"  main path: every window within {worst:.3f} of its allowance "
+          f"against the plain version applied to the same θ")
+    return launches["batched_scale_apply"]
+
+
+def batched_times(ops, ref, gen, dev, flush, bw, flops):
+    """Phase 11's times at the fused main path's window and the 2M leaf;
+    returns the JSON fields (the window's 'fasgd' time as the entry's own,
+    'coeff' under ``coeff_*``, the 2M leaf under ``leaf2m_*``)."""
+    import torch
+    print("  times (median of 50, L2 flushed; plain median of 20):")
+    us = lambda ms: f"{ms * 1e3:.2f} us"
+    lr, out = BATCHED_LR, {}
+    hp = torch.zeros((), device=dev)
+    for label, shapes, K, pre in (
+            ("fused main path's window, 4 leaf launches", MLP_SHAPES, 128, ""),
+            ("2M leaf", LEAF_2M, 16, "leaf2m_")):
+        win = batched_window(shapes, K, gen, dev, torch.float32)
+        P = sum(p.numel() for p in win["p"])
+        w = win["mask"] * win["coeffs"]
+        leaves = list(zip(win["p"], win["g"], win["v"]))
+        for mode in ("fasgd", "coeff"):
+            # 'fasgd' with the shared mask; 'coeff' with the mask folded
+            # into its weights (masks=None), as the JAX engine dispatched it
+            c, m = (win["coeffs"], win["mask"]) if mode == "fasgd" \
+                else (w, None)
+            kern1 = lambda p, g, v: ops.batched_scale_apply_leaf(
+                p, g, v, c, win["taus"], masks=m, lr=lr, mode=mode)
+            fused1 = lambda p, g, v: ops.fused_event_apply_leaf(
+                p, g, v, v, v, w, w, win["taus"], hp, lr=lr, mode=mode,
+                track_stats=False)
+            kern = lambda: [kern1(*x) for x in leaves]
+            ms, host = time_ms(kern, flush)
+            plain, _ = time_ms(lambda: [ref.batched_scale_apply_ref(
+                p, g, v, c, win["taus"], lr, masks=m, mode=mode)
+                for p, g, v in leaves], flush, reps=20)
+            fused, _ = time_ms(lambda: [fused1(*x) for x in leaves], flush)
+            nbytes = (K + (3 if mode == "fasgd" else 2)) * 4 * P
+            nops = (6 if mode == "fasgd" else 2) * K * P
+            bound = 1e3 * max(nbytes / bw, nops / flops)
+            by = "bytes" if nbytes / bw >= nops / flops else "operations"
+            line = (f"    {label} (P={P}, K={K}) {mode} fp32: device "
+                    f"{us(ms)} (host-incl. {us(host)}); bound {us(bound)} "
+                    f"({by}: {nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} M "
+                    f"operations); plain {us(plain)}; fused_event_apply "
+                    f"(track_stats=False) {us(fused)}; kernel / bound "
+                    f"{ms / bound:.2f}x")
+            if mode == "fasgd":
+                line += ("; library yardstick: none, no single PyTorch call "
+                         "computes the 'fasgd' scale")
+                out.update({f"{pre}ms": ms, f"{pre}plain_ms": plain,
+                            f"{pre}bound_ms": bound, f"{pre}bound_by": by,
+                            f"{pre}fused_event_apply_ms": fused})
+            else:
+                lib = lambda: [torch.addmv(p.reshape(-1), g.reshape(K, -1).t(),
+                                           w, alpha=-1) for p, g, v in leaves]
+                mag = cat_flat([batched_update_mag(g, v, w, win["taus"],
+                                                   "coeff")
+                                for p, g, v in leaves])
+                err, share = theta_share(cat_flat(kern()), cat_flat(lib()),
+                                         mag, KSUM_TOL["rtol"])
+                if share > 1.0:
+                    fail(f"batched_scale_apply {label} coeff: torch.addmv "
+                         f"differs by {err:.3e}, {share:.3g} of the "
+                         f"allowance")
+                lib_ms, _ = time_ms(lib, flush)
+                line += (f"; torch.addmv (TF32 off) {us(lib_ms)}, max|Δ| "
+                         f"{err:.2e} from the kernel ({share:.3f} of rtol "
+                         f"{KSUM_TOL['rtol']:g} of Σ|update terms| + 2 ulp)")
+                out.update({f"{pre}coeff_ms": ms,
+                            f"{pre}coeff_bound_ms": bound,
+                            f"{pre}library_ms": lib_ms})
+            if len(leaves) > 1:       # each leaf's launch alone
+                leaf_ms = lambda f: " ".join(
+                    us(time_ms(lambda: f(*x), flush)[0]) for x in leaves)
+                line += (f"\n      per leaf (b0 w0 b1 w1): kernel "
+                         f"{leaf_ms(kern1)}; fused_event_apply "
+                         f"(track_stats=False) {leaf_ms(fused1)}")
+            print(line)
+    return out
+
+
+def phase_batched(ops, ref, dev, flush, bw, flops):
+    """Phase 11: `batched_scale_apply`; returns its JSON entry."""
+    import torch
+    print("phase 11: batched_scale_apply against its plain version and "
+          "against fused_event_apply (track_stats=False, weights m·c) on "
+          "the card")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tally = dict(bitwise=0, cases=0, rejections=0, mutations=0, main_err=0.0)
+    for shapes, Ks, maskings in ((MLP_SHAPES, (1, 16, 128),
+                                  tuple(BATCHED_VECTORS)),
+                                 (LEAF_2M, (16,), ("shared",))):
+        for K in Ks:
+            for dtype in (torch.float32, torch.bfloat16):
+                win = batched_window(shapes, K, gen, dev, dtype)
+                for mode in ("coeff", "fasgd"):
+                    for masking in maskings:
+                        batched_case(ops, ref, win, K, mode, masking, tally)
+    print(f"  {tally['bitwise']} of {tally['cases']} cases bitwise equal to "
+          f"both the plain version and fused_event_apply; the check rejected "
+          f"{tally['rejections']} of {tally['mutations']} mutated plain "
+          f"versions (lr 1% off, one event's mask flipped), every one at "
+          f"θ = 0")
+    launches = batched_drive(ops, ref, gen, dev)
+    out = dict(name="batched_scale_apply", route="cuda",
+               source="src/repro_torch/kernels/csrc/batched_update.cu",
+               replaces="src/repro/kernels/batched_update.py:71",
+               launches=launches, max_abs_err=tally["main_err"])
+    out.update(batched_times(ops, ref, gen, dev, flush, bw, flops))
+    return out
+
+
 def main() -> int:
     """Run the phases in order; 0 when every one passed."""
     import torch
@@ -813,6 +1154,8 @@ def main() -> int:
           f"{serving['step_ms']:.3f} ms per decode step")
     print("phase 10: where serving's time goes (torch.profiler)")
     serving_breakdown(serving)
+    # --- phase 11: batched_scale_apply and its tree entry point ---
+    batched = phase_batched(ops, ref, dev, flush, bw, flops)
 
     kernels = [
         dict(name="fasgd_update", route="cuda",
@@ -835,6 +1178,7 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:98",
              launches=serving["launches"], max_abs_err=attn_err,
              **attn_times),
+        batched,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

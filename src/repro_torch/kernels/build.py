@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 SOURCE_FLAGS = {
     "fasgd_update": ("-fmad=false",),
     "fused_event_apply": ("-fmad=false",),
+    "batched_update": ("-fmad=false",),
     "flash_attention": (),
 }
 SOURCES = tuple(SOURCE_FLAGS)
@@ -54,6 +55,10 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P,       # p g n b v w wmean τ has_push
         _F, _F, _F, _F, _F, _F,                   # lr γ 1-γ β 1-β ε
         _I, _I64, _P, _P, _P, _P, _P]),           # K, size, outputs, stream
+    "batched_update": ("repro_batched_scale_apply", [
+        _I, _I, _I,                               # dtype, fasgd, has_mask
+        _P, _P, _P, _P, _P, _P,                   # p g v coeffs τ masks
+        _F, _F, _I, _I64, _P, _P]),               # lr ε K size output stream
     "flash_attention": ("repro_flash_attention", [
         _I, _I, _P, _P, _P, _P,                   # dtype, head_dim, q k v o
         _I, _I, _I, _I, _I,                       # B Hq Hkv Lq Lk

@@ -1,4 +1,4 @@
-"""Public wrappers of the kernels: the two server updates (over trees of
+"""Public wrappers of the kernels: the three server updates (over trees of
 leaves) and attention.
 
 Ported from `repro.kernels.ops`.  Dispatch is by the tensors' device:
@@ -27,9 +27,10 @@ from typing import Any
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.utils.trees import leaves, unflatten
+from repro_torch.utils.trees import leaves, same_structure, unflatten
 
-LAUNCHES = {"fasgd_update": 0, "fused_event_apply": 0, "flash_attention": 0}
+LAUNCHES = {"fasgd_update": 0, "fused_event_apply": 0,
+            "batched_scale_apply": 0, "flash_attention": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -200,6 +201,90 @@ def fused_event_apply(params: Any, grads: Any, n: Any, b: Any, v: Any,
         for p, g, nn, bb, vv in zip(leaves(params), leaves(grads), leaves(n),
                                     leaves(b), leaves(v))]
     return _unzip(params, outs)
+
+
+# The most events `csrc/batched_update.cu` stages in shared memory
+# (its kMaxEvents).
+MAX_BATCHED_EVENTS = 4096
+
+
+def _batched_scale_apply_cuda(p, g, v, coeffs, taus, masks, lr, eps, mode):
+    from repro_torch.kernels.build import kernel
+    dev, size = p.device, p.numel()
+    K = g.shape[0] if g.dim() else 0
+    if p.dtype not in _DTYPE_CODE:
+        raise ValueError(f"params dtype {p.dtype} not supported by the kernel")
+    if not 1 <= K <= MAX_BATCHED_EVENTS:
+        raise ValueError(f"{K} events: the kernel takes 1 to "
+                         f"{MAX_BATCHED_EVENTS} (their weights and τ are "
+                         f"staged in shared memory)")
+    _check("params", p, device=dev, numel=size)
+    _check("grads", g, device=dev, numel=K * size, dtype=p.dtype)
+    _check("v", v, device=dev, numel=size, dtype=torch.float32)
+    named = [("coeffs", coeffs), ("taus", taus)]
+    if masks is not None:
+        named.append(("masks", masks))
+    vecs = [torch.as_tensor(x, device=dev).to(torch.float32).contiguous()
+            for _, x in named]
+    for (nm, _), x in zip(named, vecs):
+        _check(nm, x, device=dev, numel=K)
+    mask_ptr = vecs[2].data_ptr() if masks is not None else None
+    po = torch.empty_like(p)
+    with torch.cuda.device(dev):
+        rc = kernel("batched_update")(
+            _DTYPE_CODE[p.dtype], int(mode == "fasgd"), int(masks is not None),
+            p.data_ptr(), g.data_ptr(), v.data_ptr(), vecs[0].data_ptr(),
+            vecs[1].data_ptr(), mask_ptr, lr, eps, K, size, po.data_ptr(),
+            _stream(dev))
+    _raise_on(rc, "batched_scale_apply")
+    return po
+
+
+def batched_scale_apply_leaf(p, g, v, coeffs, taus, *, masks=None, lr,
+                             eps=1e-8, mode="fasgd"):
+    """θ' = θ - Σ_k m_k·c_k·scale_k·g_k on one leaf, in θ's dtype.
+
+    `g` is [K, *p.shape]; `coeffs`, `taus` and `masks` are [K], allowed to
+    live on the device; `masks=None` weighs event k by c_k alone.  scale_k
+    is lr / (v·τ_k + ε) in 'fasgd' mode and 1 in 'coeff' mode, where `v`
+    is not read.
+    """
+    if mode not in ("coeff", "fasgd"):
+        raise ValueError(f"unknown mode {mode!r}")
+    LAUNCHES["batched_scale_apply"] += 1
+    if _device_kind(p) == "cpu":
+        return ref.batched_scale_apply_ref(p, g, v, coeffs, taus, lr,
+                                           masks=masks, eps=eps, mode=mode)
+    return _batched_scale_apply_cuda(p, g, v, coeffs, taus, masks, lr, eps,
+                                     mode)
+
+
+def batched_scale_apply(params: Any, grads: Any, v: Any, coeffs, taus, *,
+                        masks=None, lr, eps=1e-8, mode="fasgd"):
+    """Σ_k m_k·c_k·scale(v,τ_k)·g_k applied over trees (one dispatch per
+    leaf); returns params' in the params' dtypes.
+
+    `grads` leaves carry a leading [K] event axis.  `coeffs`, `taus` and
+    `masks` are each one [K] vector shared by every leaf, or a tree that
+    mirrors `params` with one [K] vector per leaf (per-tensor gating and
+    per-tensor staleness).  `masks=None` means the push decision is already
+    folded into `coeffs`, the same as an all-ones mask.
+    """
+    ps = leaves(params)
+
+    def per_leaf(x):
+        if x is None:
+            return [None] * len(ps)
+        if same_structure(x, params):
+            return leaves(x)
+        return [x] * len(ps)
+
+    outs = [batched_scale_apply_leaf(p, g, vv, c, t, masks=m, lr=lr, eps=eps,
+                                     mode=mode)
+            for p, g, vv, c, t, m in zip(ps, leaves(grads), leaves(v),
+                                         per_leaf(coeffs), per_leaf(taus),
+                                         per_leaf(masks))]
+    return unflatten(params, outs)
 
 
 _HEAD_DIMS = (32, 64, 128)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels: the two server updates and
+"""Plain PyTorch versions of the kernels: the three server updates and
 attention.
 
 Ported from `repro.kernels.ref`.  `kernels.ops` takes these for tensors
@@ -74,6 +74,41 @@ def fused_event_apply_ref(params, grads, n, b, v, weights, wmean, taus, lr,
             delta = delta + w[k] * scale * g32[k]
     p1 = (params.float() - delta).to(params.dtype)
     return p1, n1, b1, v1
+
+
+def batched_scale_apply_ref(params, grads, v, coeffs, taus, lr, *,
+                            masks=None, eps=1e-8, mode="fasgd"):
+    """θ' = θ - Σ_k m_k·c_k·scale_k·g_k on one leaf, with no statistics.
+
+    `grads` is [K, *shape]; `coeffs`, `taus` and `masks` are [K], possibly
+    on the device; `masks=None` weighs event k by c_k alone, which equals
+    an all-ones mask.  scale_k is lr / (v·τ_k + ε) in 'fasgd' mode (`v` is
+    read only there) and 1 in 'coeff' mode.  Like the Pallas body, the
+    events are walked in order from an fp32 zero accumulator, each term
+    grouped as (w_k·scale_k)·g_k with g cast to fp32, and θ' is rounded to
+    θ's dtype once.  `lr` is divided as a tensor: PyTorch computes
+    ``float / tensor`` as ``tensor.reciprocal() * float``, which rounds
+    otherwise than the kernels' division.
+    """
+    if mode not in ("coeff", "fasgd"):
+        raise ValueError(f"unknown mode {mode!r}")
+    dev = params.device
+    w = torch.as_tensor(coeffs, dtype=torch.float32, device=dev)
+    if masks is not None:
+        w = torch.as_tensor(masks, dtype=torch.float32, device=dev) * w
+    if mode == "fasgd":
+        t = torch.as_tensor(taus, dtype=torch.float32, device=dev)
+        lr = (torch.as_tensor(lr, dtype=torch.float32, device=dev)
+              if isinstance(lr, torch.Tensor)
+              else torch.full((), float(lr), dtype=torch.float32, device=dev))
+    acc = torch.zeros(params.shape, dtype=torch.float32, device=dev)
+    for k in range(grads.shape[0]):
+        g = grads[k].float()
+        if mode == "fasgd":
+            acc = acc + w[k] * (lr / (v * t[k] + eps)) * g
+        else:
+            acc = acc + w[k] * g
+    return (params.float() - acc).to(params.dtype)
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, sm_scale=None):

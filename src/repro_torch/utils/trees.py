@@ -23,6 +23,22 @@ def leaves(tree) -> List[Any]:
     return [tree]
 
 
+def same_structure(a, b) -> bool:
+    """Whether `a` and `b` are trees of one structure, as JAX compares tree
+    structures: the same containers and dict keys, leaves in the same
+    places (a leaf's own type and shape are not compared)."""
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and sorted(a) == sorted(b)
+                and all(same_structure(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_structure(x, y) for x, y in zip(a, b)))
+    return True
+
+
 def tree_map(fn: Callable, tree, *rest):
     """Apply `fn` leaf by leaf over trees of one structure."""
     if tree is None:

@@ -147,7 +147,7 @@ def test_tree_wrappers_follow_jax_leaf_order_and_count_launches():
     out = ops.fasgd_update(params, params, params, params, params, 0.01,
                            torch.tensor(2.0))
     assert ops.LAUNCHES == {"fasgd_update": 4, "fused_event_apply": 0,
-                            "flash_attention": 0}
+                            "batched_scale_apply": 0, "flash_attention": 0}
     assert list(out[0][0]) == ["b", "w"]
     grads = [{k: x[None].expand((3,) + x.shape) for k, x in l.items()}
              for l in params]
@@ -155,7 +155,11 @@ def test_tree_wrappers_follow_jax_leaf_order_and_count_launches():
     ops.fused_event_apply(params, grads, params, params, params, w, w / 3,
                           w, torch.tensor(True), lr=0.01)
     assert ops.LAUNCHES == {"fasgd_update": 4, "fused_event_apply": 4,
-                            "flash_attention": 0}
+                            "batched_scale_apply": 0, "flash_attention": 0}
+    out = ops.batched_scale_apply(params, grads, params, w, w, lr=0.01)
+    assert ops.LAUNCHES == {"fasgd_update": 4, "fused_event_apply": 4,
+                            "batched_scale_apply": 4, "flash_attention": 0}
+    assert list(out[0]) == ["b", "w"]
 
 
 def test_other_devices_raise():
@@ -167,6 +171,8 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="device"):
         ops.fused_event_apply_leaf(x, x[None], x, x, x, x[:1], x[:1], x[:1],
                                    x[0], lr=0.01)
+    with pytest.raises(ValueError, match="device"):
+        ops.batched_scale_apply_leaf(x, x[None], x, x[:1], x[:1], lr=0.01)
 
 
 def test_build_flags_target_hopper():
@@ -180,4 +186,4 @@ def test_build_flags_target_hopper():
         assert (build.CSRC / f"{name}.cu").exists()
         assert name in build.SIGNATURES
     assert set(build.SOURCES) == {"fasgd_update", "fused_event_apply",
-                                  "flash_attention"}
+                                  "batched_update", "flash_attention"}
