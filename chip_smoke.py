@@ -33,10 +33,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    path's prefill and decode shapes (permuted views and cache slices, as
    the model passes them) in bf16 and fp32, GQA groupings, windows, a
    ragged tail, non-causal, queries at the end of a longer kv axis, rows
-   with no visible key, D in {32, 64, 128}.  fp32 within atol 1e-5 / rtol
-   1e-5; bf16 within one bf16 ulp (plus 1e-5) of the plain version computed
-   in fp32 and rounded once.  The check must reject the plain version with
-   the scale 1% off and with the window one key wider.
+   with no visible key, D in {32, 64, 128}, a ragged last q block with a
+   window over several kv tiles, views that are not 16-byte aligned, and
+   decode with a GQA group of 8 at Lq in {1, 4, 16} over a key count that
+   is no multiple of a split.  fp32 within atol 1e-5 / rtol 1e-5; bf16
+   within one bf16 ulp (plus 1e-5) of the plain version computed in fp32
+   and rounded once.  The check must reject the plain version with the
+   scale 1% off and with the window one key wider.
 8. Main path, LM serving: `tinyllama-1.1b` at full width (22 layers, bf16,
    random weights from seed 0) serves batch 4 x 2048 prompt tokens and 32
    generated tokens, greedy, through `repro_torch.launch.serve.serve`; the
@@ -47,7 +50,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    near-ties under bf16).
 9. Times of `flash_attention` at the two main-path shapes (as in phase 5)
    beside its bound, its plain version and `scaled_dot_product_attention`
-   (the library yardstick, never called by the port).
+   (the library yardstick, never called by the port; its max |Δ| and its
+   share of the bf16 allowance are printed, not gated).  The built flash
+   library's SASS (`cuobjdump -sass`) must hold `HGMMA` instructions in
+   every instantiation of the bf16 prefill kernel.
 10. Where serving's time goes: one prefill and the 31 decode steps under
    `torch.profiler` (device busy and idle share, top kernels).
 11. `batched_scale_apply` through its tree entry point
@@ -441,8 +447,29 @@ ATTN_CASES = (
     ("Lq < Lk", 2, 8, 2, 128, 384, 64, True, 0, "bhld"),
     ("Lq > Lk: rows with no key", 1, 8, 2, 100, 60, 64, True, 0, "bhld"),
     ("Lq=3, window 40", 2, 8, 2, 3, 300, 64, True, 40, "bhld"),
-    ("Lq=16 (rows kernel)", 2, 8, 2, 16, 100, 64, True, 0, "model"),
-    ("Lq=17 (tile kernel)", 2, 8, 2, 17, 100, 64, True, 0, "model"),
+    ("Lq=16 (decode kernel)", 2, 8, 2, 16, 100, 64, True, 0, "model"),
+    ("Lq=17 (prefill kernels)", 2, 8, 2, 17, 100, 64, True, 0, "model"),
+    # the prefill kernels' edges: a ragged last q block, windows over
+    # several kv tiles, the padded D=32, views that are not 16-byte aligned
+    ("ragged 300, D=128, window 150", 1, 8, 2, 300, 300, 128, True, 150,
+     "model"),
+    ("D=32, Lq=Lk=1000", 1, 4, 2, 1000, 1000, 32, True, 0, "bhld"),
+    ("unaligned views, prefill", 1, 8, 2, 200, 200, 64, True, 0, "odd"),
+    # the decode kernel's edges: group 8, Lq in {1, 4, 16}, a key count
+    # that is no multiple of a split, windows, D=32 and D=128
+    ("decode 8/1, Lq=1", 2, 16, 2, 1, 1001, 64, True, 0, "cache"),
+    ("decode 8/1, Lq=4", 2, 16, 2, 4, 1001, 64, True, 0, "cache"),
+    ("decode 8/1, Lq=16", 2, 16, 2, 16, 1001, 64, True, 0, "cache"),
+    ("decode 8/1, Lq=1, window 300", 2, 16, 2, 1, 1001, 64, True, 300,
+     "cache"),
+    ("decode 8/1, Lq=4, window 300", 2, 16, 2, 4, 1001, 64, True, 300,
+     "cache"),
+    ("decode 8/1, Lq=16, window 300", 2, 16, 2, 16, 1001, 64, True, 300,
+     "cache"),
+    ("decode D=128, Lq=16, window 100", 1, 8, 2, 16, 700, 128, True, 100,
+     "cache"),
+    ("decode D=32, Lq=8", 1, 8, 1, 8, 333, 32, True, 0, "cache"),
+    ("unaligned views, decode", 1, 8, 2, 3, 200, 64, True, 0, "odd"),
 )
 
 
@@ -450,12 +477,17 @@ def attention_inputs(B, Hq, Hkv, Lq, Lk, D, dtype, gen, dev, layout):
     """q, k, v of one case from `gen`: 'bhld' contiguous [B, H, L, D];
     'model', permuted views of [B, L, H, D] tensors (as the model passes
     prefill); 'cache', q a view of [B, Lq, H, D] and k, v views of the first
-    Lk slots of a [B, Lk + 31, Hkv, D] cache (as decode passes them)."""
+    Lk slots of a [B, Lk + 31, Hkv, D] cache (as decode passes them);
+    'odd', views at element offset 1 of [B, H, L, D + 1] tensors, whose base
+    and sequence stride are not 16-byte aligned."""
     import torch
     rnd = lambda *shape: torch.randn(shape, generator=gen,
                                      device=dev).to(dtype)
     if layout == "bhld":
         return rnd(B, Hq, Lq, D), rnd(B, Hkv, Lk, D), rnd(B, Hkv, Lk, D)
+    if layout == "odd":
+        return (rnd(B, Hq, Lq, D + 1)[..., 1:], rnd(B, Hkv, Lk, D + 1)[..., 1:],
+                rnd(B, Hkv, Lk, D + 1)[..., 1:])
     q = rnd(B, Lq, Hq, D).permute(0, 2, 1, 3)
     slots = Lk + (31 if layout == "cache" else 0)
     k, v = (rnd(B, slots, Hkv, D)[:, :Lk].permute(0, 2, 1, 3)
@@ -632,8 +664,8 @@ def phase_attention_times(ops, ref, dev, flush, bw, bf16_flops):
         # end of the kv axis sees every key, so decode's call is non-causal
         lib = lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal and Lq == Lk, enable_gqa=True)
-        lib_err = float((lib().float() - ref.attention_ref(
-            q.float(), k.float(), v.float(), causal=causal)).abs().max())
+        _, lib_err, lib_share = attention_check(lib(), ref.attention_ref(
+            q.float(), k.float(), v.float(), causal=causal))
         ms, host = time_ms(lambda: ops.attention(q, k, v, causal=causal),
                            flush)
         plain, _ = time_ms(lambda: ref.attention_ref(q, k, v, causal=causal),
@@ -649,7 +681,8 @@ def phase_attention_times(ops, ref, dev, flush, bw, bf16_flops):
               f"{us(host)}); bound {us(bound)} ({by}: {flops / 1e9:.3f} "
               f"GFLOP at the bf16 tensor rate, {nbytes / 1e6:.2f} MB); plain "
               f"{us(plain)}; scaled_dot_product_attention {us(lib_ms)} "
-              f"(its max|Δ| from the fp32 plain version {lib_err:.2e}); "
+              f"(its max|Δ| from the fp32 plain version {lib_err:.2e}, "
+              f"{lib_share:.3f} of the bf16 allowance, not gated); "
               f"kernel / bound {ms / bound:.1f}x, kernel / SDPA "
               f"{ms / lib_ms:.1f}x")
         pre = "" if shape == "prefill" else "decode_"
@@ -657,6 +690,32 @@ def phase_attention_times(ops, ref, dev, flush, bw, bf16_flops):
                     f"{pre}bound_ms": bound, f"{pre}bound_by": by,
                     f"{pre}library_ms": lib_ms})
     return out
+
+
+def sass_hgmma(build):
+    """Phase 9: count `HGMMA` instructions per flash kernel in the built
+    library's SASS; fail unless every bf16 prefill instantiation
+    (`flash_wgmma_kernel`) has some."""
+    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build._lib_path("flash_attention"))],
+                          check=True, capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    wg = {f: n for f, n in counts.items() if "flash_wgmma_kernel" in f}
+    for f, n in counts.items():
+        m = re.search(r"\d(flash_(?:wgmma|tile|decode)_(?:kernel|merge))I"
+                      r"(\w+?)EE", f)
+        if m:
+            print(f"  SASS {m.group(1)}<{m.group(2)}>: {n} HGMMA")
+    if not wg or min(wg.values()) == 0:
+        fail(f"flash_attention: the bf16 prefill kernel has no HGMMA in its "
+             f"SASS ({wg})")
 
 
 def serving_breakdown(serving):
@@ -1149,6 +1208,7 @@ def main() -> int:
     print(f"phase 9: flash_attention times on {smi} (median of 50, L2 "
           f"flushed; plain median of 20)")
     attn_times = phase_attention_times(ops, ref, dev, flush, bw, bf16_flops)
+    sass_hgmma(build)
     print(f"  serving: prefill {serving['prefill_tps']:.1f} tokens/s, decode "
           f"{serving['decode_tps']:.1f} tokens/s, "
           f"{serving['step_ms']:.3f} ms per decode step")

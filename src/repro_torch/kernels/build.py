@@ -32,8 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 # n - b·b moves the literal variant's ill-conditioned (1-β)/√(max(n - b², 0)
 # + ε) by percents where n ≈ b².  Those kernels are bound by bytes, so the
 # lost FMAs should cost little; a build with contraction on has not been
-# timed against this one.  flash_attention keeps contraction on: its sums are
-# well-conditioned and it is bound by its operations (see its source note).
+# timed against this one.  flash_attention keeps contraction on and needs no
+# flag of its own: its sums are well-conditioned, and its `wgmma`, `cp.async`
+# and `griddepcontrol` instructions are inline PTX for the sm_90a target
+# above, with no CUTLASS header (see its source note).
 SOURCE_FLAGS = {
     "fasgd_update": ("-fmad=false",),
     "fused_event_apply": ("-fmad=false",),
@@ -63,7 +65,8 @@ SIGNATURES = {
         _I, _I, _P, _P, _P, _P,                   # dtype, head_dim, q k v o
         _I, _I, _I, _I, _I,                       # B Hq Hkv Lq Lk
         ctypes.POINTER(_I64),                     # strides (host, 12)
-        _I, _I, _F, _P]),                         # causal window scale stream
+        _I, _I, _F,                               # causal window scale
+        _P, _I64, _P]),                           # scratch, its floats, stream
 }
 
 # what the last build printed (ptxas register and spill report), by source

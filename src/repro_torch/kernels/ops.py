@@ -288,6 +288,11 @@ def batched_scale_apply(params: Any, grads: Any, v: Any, coeffs, taus, *,
 
 
 _HEAD_DIMS = (32, 64, 128)
+# Lq up to this takes the decode kernel, which splits the keys across at
+# most _DECODE_MAX_SPLITS blocks and merges their (m, l, acc) from a float32
+# scratch buffer (kRowsMaxLq and kMaxSplits in csrc/flash_attention.cu).
+_DECODE_MAX_LQ = 16
+_DECODE_MAX_SPLITS = 32
 
 
 def _attention_cuda(q, k, v, causal, window, sm_scale):
@@ -316,11 +321,17 @@ def _attention_cuda(q, k, v, causal, window, sm_scale):
     o = torch.empty_like(q)          # q's layout where q is dense, else packed
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *o.stride()[:3])
+    scratch = None
+    if Lq <= _DECODE_MAX_LQ:
+        scratch = torch.empty(B * Hq * Lq * _DECODE_MAX_SPLITS * (D + 2),
+                              dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = kernel("flash_attention")(
             _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), B, Hq, Hkv, Lq, Lk, strides, int(causal),
-            int(window), sm_scale, _stream(q.device))
+            int(window), sm_scale,
+            None if scratch is None else scratch.data_ptr(),
+            0 if scratch is None else scratch.numel(), _stream(q.device))
     _raise_on(rc, "flash_attention")
     return o
 

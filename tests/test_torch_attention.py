@@ -138,3 +138,152 @@ def test_ops_attention_on_the_cpu_is_the_plain_version():
     torch.testing.assert_close(
         got3, ref.attention_ref(q, k, v, causal=False, sm_scale=0.3),
         rtol=0, atol=0)
+
+
+# --- the bf16 tensor-core prefill kernel's numerics, emulated on the CPU ---
+
+def _bf16_round(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16_trunc(x):
+    """x with its low 16 bits cleared: bf16 by truncation, as the kernel's
+    P_hi (integer ops on the fp32 bits)."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _tensor_core_emulation(q, k, v, *, causal, window, split, tile=64):
+    """What `flash_wgmma_kernel` computes, in torch on the CPU: bf16 inputs
+    (given as their fp32 values), fp32 scores, an online softmax over
+    64-key tiles in log2 units, P either split into P_hi = trunc_bf16(P)
+    and P_lo = bf16(P - P_hi) (`split`) or rounded once to bf16, both
+    products accumulated in fp32, one division by l, one rounding to bf16."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    kk = torch.repeat_interleave(k, Hq // Hkv, dim=1)
+    vv = torch.repeat_interleave(v, Hq // Hkv, dim=1)
+    sl2 = (1.0 / D ** 0.5) * 1.4426950408889634
+    qpos = torch.arange(Lq)[:, None] + (Lk - Lq)
+    m = torch.full((B, Hq, Lq, 1), -1e30)
+    l = torch.zeros((B, Hq, Lq, 1))
+    acc = torch.zeros((B, Hq, Lq, D))
+    for kb in range(0, Lk, tile):
+        kpos = torch.arange(kb, min(kb + tile, Lk))[None, :]
+        vis = torch.ones((Lq, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            vis &= kpos <= qpos
+        if window:
+            vis &= kpos > qpos - window
+        s = torch.einsum("bhqd,bhkd->bhqk", q, kk[:, :, kb:kb + tile])
+        s = torch.where(vis, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2((m - m_new) * sl2)
+        msc = torch.where(m_new == -1e30, torch.tensor(0.0), m_new * sl2)
+        p = torch.exp2(s * sl2 - msc)
+        l = corr * l + p.sum(-1, keepdim=True)
+        parts = ((_bf16_trunc(p), _bf16_round(p - _bf16_trunc(p))) if split
+                 else (_bf16_round(p),))
+        acc = acc * corr
+        for part in parts:
+            acc = acc + part @ vv[:, :, kb:kb + tile]
+        m = m_new
+    out = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0),
+                      torch.tensor(0.0))
+    return _bf16_round(out)
+
+
+def _allowance_share(got, want32):
+    """Worst share of `chip_smoke.py`'s bf16 allowance (`attention_check`):
+    one bf16 ulp of the fp32 plain version rounded once, plus 1e-5."""
+    want = _bf16_round(want32)
+    mag = want.abs().clamp(min=torch.finfo(torch.float32).tiny)
+    allowed = torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5
+    return float(((got - want).abs() / allowed).max())
+
+
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("split", [True, False], ids=["P_split", "P_once"])
+def test_tensor_core_numerics_need_p_split(window, split):
+    """Why the bf16 prefill kernel feeds P·V two bf16 parts of P.
+
+    Seeded normal q, k, v rounded to bf16, B=1, Hq=8 over Hkv=2, L=1024,
+    D=64, causal, with and without a window over several 64-key tiles.  The
+    kernel's roundings, emulated, are held to the criterion `chip_smoke.py`
+    holds the card to: within one bf16 ulp of the fp32 plain version rounded
+    once, plus 1e-5.  That allowance is the one-ulp rounding flip that any
+    fp32 reordering may cause where the fp32 value sits near a bf16
+    midpoint.  With P split (P_hi = P truncated to bf16, P_lo = bf16(P −
+    P_hi): ~16 bits of P) the emulation stays within it; with P rounded once
+    to bf16 (8 bits) near-zero outputs carry P's rounding error, which their
+    own ulp cannot absorb, and the criterion fails.
+    """
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 2, 1024, 1024, 64,
+                                                  seed=11))
+    q, k, v = _bf16_round(q), _bf16_round(k), _bf16_round(v)
+    want32 = ref.attention_ref(q, k, v, causal=True, window=window)
+    got = _tensor_core_emulation(q, k, v, causal=True, window=window,
+                                 split=split)
+    share = _allowance_share(got, want32)
+    print(f"\nEMULATION P {'split' if split else 'once'} window={window}: "
+          f"worst share of the bf16 allowance {share:.3f}")
+    if split:
+        assert share <= 1.0
+    else:
+        assert share > 1.0
+
+
+# --- the decode kernel's key splits and merge, emulated on the CPU ---
+
+def _split_decode_emulation(q, k, v, *, causal, window, chunk=128,
+                            splits=17):
+    """What `flash_decode_kernel` + `flash_decode_merge` compute, in fp32:
+    the visible key range cut into `splits` runs of whole `chunk`-key
+    chunks, each run's (m, l, unnormalised acc) from its own softmax, then
+    o = Σ_s acc_s·e^(m_s − M) / Σ_s l_s·e^(m_s − M), 0 where no run saw a
+    key (every m_s is −1e30 and every l_s is 0)."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    kk = torch.repeat_interleave(k, Hq // Hkv, dim=1)
+    vv = torch.repeat_interleave(v, Hq // Hkv, dim=1)
+    qpos = torch.arange(Lq)[:, None] + (Lk - Lq)
+    begin = max(0, Lk - Lq - window + 1) if window else 0
+    nchunks = max(1, -(-(Lk - begin) // chunk))
+    cps = -(-nchunks // min(splits, nchunks))
+    parts = []
+    for lo in range(begin, Lk, cps * chunk):
+        hi = min(lo + cps * chunk, Lk)
+        kpos = torch.arange(lo, hi)[None, :]
+        vis = torch.ones((Lq, hi - lo), dtype=torch.bool)
+        if causal:
+            vis &= kpos <= qpos
+        if window:
+            vis &= kpos > qpos - window
+        s = torch.einsum("bhqd,bhkd->bhqk", q, kk[:, :, lo:hi]) / D ** 0.5
+        s = torch.where(vis, s, torch.tensor(-1e30))
+        m = s.amax(-1, keepdim=True)
+        p = torch.where(vis, torch.exp(s - m), torch.tensor(0.0))
+        parts.append((m, p.sum(-1, keepdim=True), p @ vv[:, :, lo:hi]))
+    mm = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - mm) for m, _, _ in parts]
+    ll = sum(l * x for (_, l, _), x in zip(parts, w))
+    out = sum(a * x for (_, _, a), x in zip(parts, w))
+    return torch.where(ll > 0, out / torch.where(ll > 0, ll, 1.0),
+                       torch.tensor(0.0))
+
+
+@pytest.mark.parametrize("Lq,Lk,window,Hkv", [
+    (1, 2079, 0, 4),      # the main path's decode step
+    (4, 1001, 300, 2),    # a window: the first runs see no key
+    (16, 1001, 300, 2),
+    (8, 5, 0, 1),         # Lq > Lk: rows with no visible key give 0
+])
+def test_decode_key_splits_merge_to_the_plain_version(Lq, Lk, window, Hkv):
+    """The flash-decoding split and merge (`flash_decode_kernel` with
+    `flash_decode_merge`), emulated in fp32, against the plain version:
+    within the fp32 tolerance atol 1e-5 / rtol 1e-5 (`chip_smoke.py`'s), the
+    two differing only in the order of their sums."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, Hkv, Lq, Lk, 64,
+                                                  seed=12))
+    got = _split_decode_emulation(q, k, v, causal=True, window=window)
+    want = ref.attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, want, **F32)
