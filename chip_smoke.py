@@ -8,22 +8,29 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. Card: its name and power limit (`nvidia-smi`), TF32 off, and the build
    of every kernel from ``src/repro_torch/kernels/csrc`` (`nvcc`, sm_90a).
 2. Kernels against their plain PyTorch versions on the card: every leaf of
-   the 784-200-10 MLP plus a 16M-element leaf for `fasgd_update`; K in
-   {1, 16, 128} x both modes x has_push in {0, 1} x track_stats in {T, F}
-   for `fused_event_apply`.  Max |Δ| and the tolerance of each are printed;
+   the 784-200-10 MLP plus a 16M-element leaf for `fasgd_update` (each a
+   one-leaf launch), and a 40-leaf tree of mixed sizes through the tree
+   entry `ops.fasgd_update`, all float32, all bfloat16 and mixed (one
+   launch per dtype and 32 leaves, counted); K in {1, 16, 128} x both
+   modes x has_push in {0, 1} x track_stats in {T, F} for
+   `fused_event_apply`.  Max |Δ| and the tolerance of each are printed;
    θ' is held through the update it carries, and each case runs again at
    θ = 0, where θ' is the update itself.
 3. Main path, serial: the quickstart fleet (λ=16, μ=8, fasgd lr=0.0025,
    kernel on) for 2000 events on the full synthetic set, then the same
-   fleet gated (c_push=0.02, c_fetch=0.1, 'cache').  The launch count of
-   `fasgd_update` must equal the simulator's ``kernel_launches`` and be
-   above 0; the validation cost must fall.  The share of the run's time
-   spent making the draws (`NativeDraws.events`) is printed.
+   fleet gated (c_push=0.02, c_fetch=0.1, 'cache').  The leaf dispatches
+   of `fasgd_update` (`ops.LAUNCHES`) must equal the simulator's
+   ``kernel_launches`` and its kernel launches (`ops.DEVICE_LAUNCHES`) its
+   ``kernel_events``, one per event, both above 0; the validation cost
+   must fall.  The share of the run's time spent making the draws
+   (`NativeDraws.events`) is printed.
 4. Main path, fused: λ=256, K=128, μ=4, fasgd with the kernel, 40 windows.
-   The same checks for `fused_event_apply`.
+   The same checks for `fused_event_apply`, whose kernel launches equal
+   its leaf dispatches (one per leaf).
 5. Times (CUDA events, L2 flushed before each run, median of 50) of each
    kernel at the main path's shapes beside its byte bound and its plain
-   version, and the events/s of phases 3 and 4.
+   version (`fasgd_update` as one launch over the MLP tree and as four
+   one-leaf launches), and the events/s of phases 3 and 4.
 6. Where the time goes: the serial and fused event loops run once under
    ``torch.cuda.set_sync_debug_mode('error')`` (a host sync in the loop
    fails the script) and once under `torch.profiler`, which gives the
@@ -57,19 +64,23 @@ Phases, in order; any failure exits non-zero and prints no result:
 10. Where serving's time goes: one prefill and the 31 decode steps under
    `torch.profiler` (device busy and idle share, top kernels).
 11. `batched_scale_apply` through its tree entry point
-   (`ops.batched_scale_apply`): over the 784-200-10 leaves at K in {1, 16,
-   128} x both modes x no mask, a shared mask, or per-leaf masks and τ, in
-   fp32 and bf16, and on a 2M-element leaf at K=16, each held against the
-   plain version (fp32: rtol 1e-5 of the update's terms + 2 ulp; bf16: one
-   ulp of the fp32 plain version rounded once) and against the
-   `fused_event_apply` kernel with track_stats off and weights m·c (fp32:
-   rtol 1e-4), on its θ and at θ = 0.  The check must reject the plain
-   version with lr 1% off and with one event's mask flipped.  Then the
-   entry point as a user drives it: 8 windows of K=128 with θ carried,
-   under ``set_sync_debug_mode('error')``, counted; then times at the fused
-   main path's window and the 2M leaf beside the bound, the plain version,
-   `fused_event_apply` and, in 'coeff' mode, `torch.addmv` (the library
-   yardstick, never called by the port).
+   (`ops.batched_scale_apply`, one launch per dtype and 32 leaves,
+   counted): over the 784-200-10 leaves at K in {1, 16, 128} x both modes
+   x no mask, a shared mask, or per-leaf masks and τ, in fp32 and bf16, on
+   a 2M-element leaf at K=16, and on the 40-leaf tree (all fp32, all bf16,
+   mixed) at K=16 with a shared mask and K=128 with per-leaf masks and τ,
+   each held against the plain version (fp32: rtol 1e-5 of the update's
+   terms + 2 ulp; bf16: one ulp of the fp32 plain version rounded once)
+   and against the `fused_event_apply` kernel with track_stats off and
+   weights m·c (fp32: rtol 1e-4), on its θ and at θ = 0, and required to
+   be bitwise equal to both.  The check must reject the plain version with
+   lr 1% off and with one event's mask flipped.  Then the entry point as a
+   user drives it: 8 windows of K=128 with θ carried, under
+   ``set_sync_debug_mode('error')``: 8 kernel launches, 32 leaf
+   dispatches; then times at the fused main path's window (one launch, and
+   each leaf as a one-leaf launch) and the 2M leaf beside the bound, the
+   plain version, `fused_event_apply` and, in 'coeff' mode, `torch.addmv`
+   (the library yardstick, never called by the port).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -94,6 +105,11 @@ CARD_RATES = (("H100 PCIe", 2.0e12, 51e12, 756e12),
               ("H100 NVL", 3.9e12, 60e12, 835e12),
               ("H200", 4.8e12, 67e12, 989e12), ("H100", 3.35e12, 67e12, 989e12))
 MLP_SHAPES = ((200,), (784, 200), (10,), (200, 10))   # b0 w0 b1 w1 (JAX order)
+# A tree of 40 flat leaves of the MLP's sizes and ragged ones, run all
+# float32, all bfloat16 and mixed: more leaves than one launch of the tree
+# kernels takes, and a launch per dtype.
+TREE40 = tuple((1, 10, 200, 1023, 2000, 156_800)[i % 6] for i in range(40))
+TREE40_DTYPES = ("float32", "bfloat16", "mixed")
 FP32_TOL = dict(rtol=1e-5, atol=1e-6)     # as tests/test_kernels_fasgd.py
 KSUM_TOL = dict(rtol=1e-4, atol=1e-6)     # K-sums: einsum vs in-order loop
 LITERAL_V_TOL = dict(rtol=2e-3, atol=1e-6)
@@ -245,6 +261,9 @@ def phase_kernels(ops, ref, dev):
                     if dtype == torch.float32 and variant == "intent" \
                             and shape in MLP_SHAPES and not what:
                         errs["fasgd_update"] = max(errs["fasgd_update"], e)
+    for dtypes in TREE40_DTYPES:
+        for variant in ("intent", "literal"):
+            fasgd_tree_case(ops, ref, gen, dev, dtypes, variant, kw)
     cases = [(K, mode, hp, track, torch.float32)
              for K in (1, 16, 128) for mode in ("coeff", "fasgd")
              for hp in (0, 1) for track in (True, False)]
@@ -285,11 +304,71 @@ def phase_kernels(ops, ref, dev):
     return errs
 
 
+def tree40_dtypes(kind):
+    """The dtypes of the 40 leaves: all float32, all bfloat16, or mixed
+    (every third leaf bfloat16, as tests/test_torch_leaf_plan.py has it)."""
+    import torch
+    if kind == "mixed":
+        return [torch.float32 if i % 3 else torch.bfloat16 for i in range(40)]
+    return [getattr(torch, kind)] * 40
+
+
+def by_dtype(dtypes):
+    """{dtype: indices of the leaves of that dtype}."""
+    groups = {}
+    for i, dt in enumerate(dtypes):
+        groups.setdefault(dt, []).append(i)
+    return groups
+
+
+def fasgd_tree_case(ops, ref, gen, dev, kind, variant, kw):
+    """Phase 2: `ops.fasgd_update` over the 40-leaf tree in one dtype or
+    mixed, on its θ and at θ = 0, each dtype's leaves held against the
+    plain version leaf by leaf as phase 2 holds one leaf; the launches
+    must be the plan's (one per dtype and 32 leaves)."""
+    import torch
+    dtypes = tree40_dtypes(kind)
+    ins = [stats_inputs((n,), gen, dev, dt) for n, dt in zip(TREE40, dtypes)]
+    tau = torch.tensor(3.0, device=dev)
+    vtol = LITERAL_V_TOL if variant == "literal" else FP32_TOL
+    cols = [list(c) for c in zip(*ins)]
+    for zero in (False, True):
+        ps = [torch.zeros_like(x[0]) if zero else x[0] for x in ins]
+        before = ops.DEVICE_LAUNCHES["fasgd_update"]
+        got = ops.fasgd_update(ps, *cols[1:], 0.01, tau, variant=variant,
+                               **kw)
+        torch.cuda.synchronize()
+        launches = ops.DEVICE_LAUNCHES["fasgd_update"] - before
+        want_launches = len(ops._leaf_plan(TREE40, ops.FASGD_TILE, dtypes))
+        if launches != want_launches:
+            fail(f"fasgd_update 40-leaf tree {kind}: {launches} launches, "
+                 f"want {want_launches}")
+        for dt, idx in by_dtype(dtypes).items():
+            want = [ref.fasgd_update_ref(ps[i], *ins[i][1:], 0.01, tau,
+                                         variant=variant, **kw) for i in idx]
+            cat = lambda outs: [torch.cat([o[j].reshape(-1) for o in outs])
+                                for j in range(4)]
+            mag = torch.cat([(0.01 / (w[3] * tau + 1e-8)
+                              * ins[i][1].float().abs()).reshape(-1)
+                             for i, w in zip(idx, want)])
+            urtol = BF16_RTOL if dt == torch.bfloat16 else vtol["rtol"]
+            check(f"fasgd_update 40-leaf tree ({kind}: {len(idx)} "
+                  f"{str(dt)[6:]} leaves, {launches} launches) {variant}"
+                  f"{' θ=0' if zero else ''}",
+                  cat([[got[j][i] for j in range(4)] for i in idx]),
+                  cat(want), mag, urtol, (FP32_TOL, FP32_TOL, vtol))
+
+
 def run_main_path(label, cfg, ds, params, num_steps, eval_every, kernel,
-                  other):
+                  other, device_per):
     """One run of `run_simulation` on the card with the launch counts set
-    to 0 just before it; `kernel` must run and `other` must not.  Returns
-    (launches of `kernel`, events/s)."""
+    to 0 just before it; `kernel` must run and `other` must not.  Its leaf
+    dispatches (`ops.LAUNCHES`) must equal the simulator's
+    ``kernel_launches`` and its kernel launches on the card
+    (`ops.DEVICE_LAUNCHES`) the counter named `device_per`:
+    ``kernel_events`` for `fasgd_update` (one launch per event, whatever
+    the leaves), ``kernel_launches`` for `fused_event_apply` (one per
+    leaf).  Returns (kernel launches of `kernel`, events/s)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.mlp import nll_loss
@@ -309,6 +388,7 @@ def run_main_path(label, cfg, ds, params, num_steps, eval_every, kernel,
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    device = dict(ops.DEVICE_LAUNCHES)
     c = out["counters"]
     curve = " ".join(f"{x:.4f}" for x in out["val_cost"])
     print(f"  {label}: {num_steps} events in {secs:.3f} s = "
@@ -316,11 +396,15 @@ def run_main_path(label, cfg, ds, params, num_steps, eval_every, kernel,
           f"val cost {curve}; T={out['final_timestamp']}; "
           f"push {c['push_actual']:.0f}/{c['push_potential']:.0f}, fetch "
           f"{c['fetch_actual']:.0f}/{c['fetch_potential']:.0f}; "
-          f"launches {launches}; counters.kernel_launches "
-          f"{c['kernel_launches']:.0f}")
+          f"leaf dispatches {launches}; kernel launches {device}; "
+          f"counters.kernel_launches {c['kernel_launches']:.0f}, "
+          f"kernel_events {c['kernel_events']:.0f}")
     if not launches[kernel] == c["kernel_launches"] > 0:
         fail(f"{label}: ops.LAUNCHES[{kernel!r}]={launches[kernel]} vs "
              f"kernel_launches={c['kernel_launches']}")
+    if not device[kernel] == c[device_per] > 0:
+        fail(f"{label}: ops.DEVICE_LAUNCHES[{kernel!r}]={device[kernel]} vs "
+             f"{device_per}={c[device_per]}")
     if launches[other] != 0:
         fail(f"{label}: {other} ran on a path that should not")
     vals = out["val_cost"]
@@ -344,7 +428,7 @@ def run_main_path(label, cfg, ds, params, num_steps, eval_every, kernel,
     print(f"  {label}: of which the draws (NativeDraws.events) "
           f"{1e6 * draw_secs / num_steps:.1f} us/event, "
           f"{draw_secs / secs:.3f} of the run's time")
-    return launches[kernel], num_steps / secs
+    return device[kernel], num_steps / secs
 
 
 def breakdown(label, cfg, ds, params, n_events):
@@ -780,10 +864,12 @@ def flat_mlp(tree):
 
 def batched_window(shapes, K, gen, dev, dtype):
     """One K-event window over leaves of `shapes`, from `gen`: θ, g [K, ...]
-    (in `dtype`) and v per leaf; shared coeffs, τ and push mask [K]; and a
-    push mask and τ per leaf (event 0 always pushed)."""
+    (in `dtype`, or in each leaf's own when it is a list) and v per leaf;
+    shared coeffs, τ and push mask [K]; and a push mask and τ per leaf
+    (event 0 always pushed)."""
     import torch
     rnd = lambda shape: torch.randn(shape, generator=gen, device=dev)
+    dtypes = dtype if isinstance(dtype, list) else [dtype] * len(shapes)
 
     def events():
         mask = (torch.rand(K, generator=gen, device=dev) < 0.8).float()
@@ -794,8 +880,8 @@ def batched_window(shapes, K, gen, dev, dtype):
     mask, taus = events()
     per_leaf = [events() for _ in shapes]
     return dict(
-        p=[rnd(s).to(dtype) for s in shapes],
-        g=[(0.1 * rnd((K,) + s)).to(dtype) for s in shapes],
+        p=[rnd(s).to(dt) for s, dt in zip(shapes, dtypes)],
+        g=[(0.1 * rnd((K,) + s)).to(dt) for s, dt in zip(shapes, dtypes)],
         v=[1.0 + 0.1 * rnd(s) for s in shapes],
         coeffs=0.5 + torch.rand(K, generator=gen, device=dev),
         taus=taus, mask=mask, leaf_masks=[m for m, _ in per_leaf],
@@ -826,92 +912,114 @@ def cat_flat(xs):
     return torch.cat([x.reshape(-1) for x in xs])
 
 
-def batched_case(ops, ref, win, K, mode, masking, tally):
-    """One phase-11 case through `ops.batched_scale_apply`, on its θ and
-    at θ = 0, held against the plain version and `fused_event_apply`; the
-    mutated plain versions must fail the same check at θ = 0.  Counts go
-    into `tally`."""
+def batched_case(ops, ref, win, K, mode, masking, what, tally):
+    """One phase-11 case through `ops.batched_scale_apply` over the leaves
+    `what` names (the MLP, the 2M leaf or the 40-leaf tree), on its θ and
+    at θ = 0, each dtype's leaves held against the plain version and
+    `fused_event_apply`; the kernel must launch once per dtype and 32
+    leaves, and the mutated plain versions must fail the same check at θ =
+    0.  Counts go into `tally`."""
     import torch
-    n, dtype, lr = len(win["p"]), win["p"][0].dtype, BATCHED_LR
+    n, lr = len(win["p"]), BATCHED_LR
+    dtypes = [p.dtype for p in win["p"]]
     mkey, tkey = BATCHED_VECTORS[masking]
     per_leaf = lambda key: (win[key] if key.startswith("leaf_")
                             else [win[key]] * n)
     masks = [None] * n if mkey is None else per_leaf(mkey)
     taus = per_leaf(tkey)
-    # the MLP as its tree, the 2M leaf as a bare tensor (a tree of one);
-    # a shared [K] vector goes as it is, per-leaf vectors as a tree
-    tree = mlp_tree if n == 4 else (lambda xs: xs[0])
+    # the MLP as its tree, the 2M leaf as a bare tensor (a tree of one),
+    # the 40 leaves as a list; a shared [K] vector goes as it is, per-leaf
+    # vectors as a tree
+    tree, flat = ((mlp_tree, flat_mlp) if what == "MLP leaves" else
+                  ((lambda xs: xs[0]), (lambda x: [x])) if n == 1 else
+                  (list, list))
     arg = lambda key: (None if key is None else tree(win[key])
                        if key.startswith("leaf_") else win[key])
     ws = [win["coeffs"] if m is None else m * win["coeffs"] for m in masks]
     hp = torch.zeros((), device=win["coeffs"].device)
+    mags = [batched_update_mag(g, v, w, t, mode)
+            for g, v, w, t in zip(win["g"], win["v"], ws, taus)]
+    want_launches = len(ops._batched_plan(K, [p.numel() for p in win["p"]],
+                                          dtypes)[0])
     for zero in (False, True):
         ps = [torch.zeros_like(p) if zero else p for p in win["p"]]
-        got = ops.batched_scale_apply(
+        before = ops.DEVICE_LAUNCHES["batched_scale_apply"]
+        got = flat(ops.batched_scale_apply(
             tree(ps), tree(win["g"]), tree(win["v"]), win["coeffs"],
-            arg(tkey), masks=arg(mkey), lr=lr, mode=mode)
-        got = cat_flat(flat_mlp(got) if n == 4 else [got])
+            arg(tkey), masks=arg(mkey), lr=lr, mode=mode))
         torch.cuda.synchronize()
-        plain = lambda lr_, masks_: cat_flat([
+        launches = ops.DEVICE_LAUNCHES["batched_scale_apply"] - before
+        plain = lambda lr_, masks_: [
             ref.batched_scale_apply_ref(p.float(), g.float(), v,
                                         win["coeffs"], t, lr_, masks=m,
                                         mode=mode)
-            for p, g, v, m, t in zip(ps, win["g"], win["v"], masks_, taus)])
+            for p, g, v, m, t in zip(ps, win["g"], win["v"], masks_, taus)]
         want = plain(lr, masks)
-        fused = cat_flat([ops.fused_event_apply_leaf(
+        fused = [ops.fused_event_apply_leaf(
             p, g, v, v, v, w, w, t, hp, lr=lr, mode=mode,
             track_stats=False)[0]
-            for p, g, v, w, t in zip(ps, win["g"], win["v"], ws, taus)])
-        mag = cat_flat([batched_update_mag(g, v, w, t, mode)
-                        for g, v, w, t in zip(win["g"], win["v"], ws, taus)])
-        tag = (f"batched_scale_apply K={K} {mode} mask={masking} "
-               f"{'MLP leaves' if n == 4 else '2M leaf'} "
-               f"{str(dtype)[6:]}{' θ=0' if zero else ''}")
-        # against fused_event_apply: rtol 1e-4 of the update's terms + 2
-        # ulps of θ' in its dtype, as phase 2 holds θ'
-        ferr, fshare = theta_share(got, fused, mag, KSUM_TOL["rtol"])
-        if dtype == torch.float32:
-            err, share = theta_share(got, want, mag, FP32_TOL["rtol"])
-            how = (f"rtol {FP32_TOL['rtol']:g} / {KSUM_TOL['rtol']:g} of "
-                   f"Σ|update terms| + 2 ulp")
-        else:
-            err, share = ulp_share(got, want)
-            how = (f"1 bf16 ulp of the fp32 plain version rounded once / "
-                   f"rtol {KSUM_TOL['rtol']:g} of Σ|update terms| + 2 ulp")
-        if share > 1.0 or fshare > 1.0:
-            fail(f"{tag}: max|Δ| {err:.3e} against the plain version "
-                 f"({share:.3g} of the allowance), {ferr:.3e} against "
-                 f"fused_event_apply ({fshare:.3g}) ({how})")
-        same = (bool(torch.equal(got.float(), want.to(dtype).float()))
-                and bool(torch.equal(got, fused)))
-        tally["bitwise"] += same
-        tally["cases"] += 1
-        print(f"  {tag}: max|Δ| {err:.2e} against the plain version "
-              f"({share:.3f} of the allowance), {ferr:.2e} against "
-              f"fused_event_apply ({fshare:.3f}); {how}"
-              f"{'; bitwise equal to both' if same else ''} ok")
-        if (K, mode, masking, dtype, n, zero) == (
-                128, "fasgd", "shared", torch.float32, 4, False):
-            tally["main_err"] = err
-        if dtype != torch.float32:
-            continue
-        # the check bites: lr 1% off; event 0's push mask flipped, in every
-        # leaf for a shared mask, in w0 alone for per-leaf masks
-        wrong = [("lr 1% off", lr * 1.01, masks)] if mode == "fasgd" else []
-        if mkey is not None:
-            leaf = 1 if mkey == "leaf_masks" else 0
-            flip = masks[leaf].clone()
-            flip[0] = 1.0 - flip[0]
-            wrong.append(("event 0's mask flipped", lr, [
-                flip if mkey == "mask" or i == leaf else m
-                for i, m in enumerate(masks)]))
-        for what, lr_bad, masks_bad in wrong:
-            caught = theta_share(got, plain(lr_bad, masks_bad), mag,
-                                 FP32_TOL["rtol"])[1] > 1.0
-            tally["rejections"] += caught
-            tally["mutations"] += 1
-            if zero and not caught:
-                fail(f"{tag}: the check passes a plain version with {what}")
+            for p, g, v, w, t in zip(ps, win["g"], win["v"], ws, taus)]
+        tag = (f"batched_scale_apply K={K} {mode} mask={masking} {what}"
+               f"{' θ=0' if zero else ''}")
+        if launches != want_launches:
+            fail(f"{tag}: {launches} launches, want {want_launches}")
+        groups = by_dtype(dtypes)
+        for dt, idx in groups.items():
+            pick = lambda xs: cat_flat([xs[i] for i in idx])
+            g_dt, w_dt, f_dt, m_dt = pick(got), pick(want), pick(fused), \
+                pick(mags)
+            sub = (f"{tag} {str(dt)[6:]}"
+                   f"{f' ({len(idx)} leaves)' if len(groups) > 1 else ''}")
+            # against fused_event_apply: rtol 1e-4 of the update's terms +
+            # 2 ulps of θ' in its dtype, as phase 2 holds θ'
+            ferr, fshare = theta_share(g_dt, f_dt, m_dt, KSUM_TOL["rtol"])
+            if dt == torch.float32:
+                err, share = theta_share(g_dt, w_dt, m_dt, FP32_TOL["rtol"])
+                how = (f"rtol {FP32_TOL['rtol']:g} / {KSUM_TOL['rtol']:g} "
+                       f"of Σ|update terms| + 2 ulp")
+            else:
+                err, share = ulp_share(g_dt, w_dt)
+                how = (f"1 bf16 ulp of the fp32 plain version rounded once "
+                       f"/ rtol {KSUM_TOL['rtol']:g} of Σ|update terms| + "
+                       f"2 ulp")
+            if share > 1.0 or fshare > 1.0:
+                fail(f"{sub}: max|Δ| {err:.3e} against the plain version "
+                     f"({share:.3g} of the allowance), {ferr:.3e} against "
+                     f"fused_event_apply ({fshare:.3g}) ({how})")
+            same = (bool(torch.equal(g_dt.float(), w_dt.to(dt).float()))
+                    and bool(torch.equal(g_dt, f_dt)))
+            tally["bitwise"] += same
+            tally["cases"] += 1
+            print(f"  {sub}: {launches} launch(es); max|Δ| {err:.2e} against "
+                  f"the plain version ({share:.3f} of the allowance), "
+                  f"{ferr:.2e} against fused_event_apply ({fshare:.3f}); "
+                  f"{how}{'; bitwise equal to both' if same else ''} ok")
+            if (K, mode, masking, dt, what, zero) == (
+                    128, "fasgd", "shared", torch.float32, "MLP leaves",
+                    False):
+                tally["main_err"] = err
+            if dt != torch.float32:
+                continue
+            # the check bites: lr 1% off; event 0's push mask flipped, in
+            # every leaf for a shared mask, in leaf 1 (w0 of the MLP) alone
+            # for per-leaf masks
+            wrong = [("lr 1% off", lr * 1.01, masks)] if mode == "fasgd" \
+                else []
+            if mkey is not None:
+                leaf = 1 if mkey == "leaf_masks" else 0
+                flip = masks[leaf].clone()
+                flip[0] = 1.0 - flip[0]
+                wrong.append(("event 0's mask flipped", lr, [
+                    flip if mkey == "mask" or i == leaf else m
+                    for i, m in enumerate(masks)]))
+            for what_bad, lr_bad, masks_bad in wrong:
+                caught = theta_share(g_dt, pick(plain(lr_bad, masks_bad)),
+                                     m_dt, FP32_TOL["rtol"])[1] > 1.0
+                tally["rejections"] += caught
+                tally["mutations"] += 1
+                if zero and not caught:
+                    fail(f"{sub}: the check passes a plain version with "
+                         f"{what_bad}")
 
 
 def batched_drive(ops, ref, gen, dev, W=8, K=128):
@@ -938,15 +1046,19 @@ def batched_drive(ops, ref, gen, dev, W=8, K=128):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
+    launches, device = dict(ops.LAUNCHES), dict(ops.DEVICE_LAUNCHES)
     print(f"  main path: {W} windows of K={K} ('fasgd', per-leaf masks and "
           f"τ) through ops.batched_scale_apply over the MLP, θ carried, "
-          f"under set_sync_debug_mode('error'): no host sync; launches "
-          f"{launches}")
+          f"under set_sync_debug_mode('error'): no host sync; leaf "
+          f"dispatches {launches}; kernel launches {device}")
     if launches["batched_scale_apply"] != 4 * W or \
             sum(launches.values()) != 4 * W:
-        fail(f"batched_scale_apply main path: launches {launches}, want "
-             f"{4 * W} of batched_scale_apply and no other")
+        fail(f"batched_scale_apply main path: leaf dispatches {launches}, "
+             f"want {4 * W} of batched_scale_apply and no other")
+    if device["batched_scale_apply"] != W or sum(device.values()) != W:
+        fail(f"batched_scale_apply main path: kernel launches {device}, "
+             f"want {W} of batched_scale_apply (one per window) and no "
+             f"other")
     worst = 0.0
     for w, win in enumerate(wins):
         before, after = flat_mlp(thetas[w]), flat_mlp(thetas[w + 1])
@@ -969,7 +1081,7 @@ def batched_drive(ops, ref, gen, dev, W=8, K=128):
         worst = max(worst, share)
     print(f"  main path: every window within {worst:.3f} of its allowance "
           f"against the plain version applied to the same θ")
-    return launches["batched_scale_apply"]
+    return device["batched_scale_apply"]
 
 
 def batched_times(ops, ref, gen, dev, flush, bw, flops):
@@ -982,7 +1094,7 @@ def batched_times(ops, ref, gen, dev, flush, bw, flops):
     lr, out = BATCHED_LR, {}
     hp = torch.zeros((), device=dev)
     for label, shapes, K, pre in (
-            ("fused main path's window, 4 leaf launches", MLP_SHAPES, 128, ""),
+            ("fused main path's window", MLP_SHAPES, 128, ""),
             ("2M leaf", LEAF_2M, 16, "leaf2m_")):
         win = batched_window(shapes, K, gen, dev, torch.float32)
         P = sum(p.numel() for p in win["p"])
@@ -995,11 +1107,16 @@ def batched_times(ops, ref, gen, dev, flush, bw, flops):
                 else (w, None)
             kern1 = lambda p, g, v: ops.batched_scale_apply_leaf(
                 p, g, v, c, win["taus"], masks=m, lr=lr, mode=mode)
+            # the whole window in one launch, through the tree entry
+            kern_tree = lambda: ops.batched_scale_apply(
+                *(list(x) for x in zip(*leaves)), c, win["taus"], masks=m,
+                lr=lr, mode=mode)
             fused1 = lambda p, g, v: ops.fused_event_apply_leaf(
                 p, g, v, v, v, w, w, win["taus"], hp, lr=lr, mode=mode,
                 track_stats=False)
             kern = lambda: [kern1(*x) for x in leaves]
-            ms, host = time_ms(kern, flush)
+            ms, host = time_ms(kern_tree, flush)
+            ms_leaves, host_leaves = time_ms(kern, flush)
             plain, _ = time_ms(lambda: [ref.batched_scale_apply_ref(
                 p, g, v, c, win["taus"], lr, masks=m, mode=mode)
                 for p, g, v in leaves], flush, reps=20)
@@ -1009,7 +1126,11 @@ def batched_times(ops, ref, gen, dev, flush, bw, flops):
             bound = 1e3 * max(nbytes / bw, nops / flops)
             by = "bytes" if nbytes / bw >= nops / flops else "operations"
             line = (f"    {label} (P={P}, K={K}) {mode} fp32: device "
-                    f"{us(ms)} (host-incl. {us(host)}); bound {us(bound)} "
+                    f"{us(ms)} (host-incl. {us(host)}) in one launch"
+                    + (f", {us(ms_leaves)} (host-incl. {us(host_leaves)}) "
+                       f"as {len(leaves)} one-leaf launches"
+                       if len(leaves) > 1 else "")
+                    + f"; bound {us(bound)} "
                     f"({by}: {nbytes / 1e6:.2f} MB, {nops / 1e6:.1f} M "
                     f"operations); plain {us(plain)}; fused_event_apply "
                     f"(track_stats=False) {us(fused)}; kernel / bound "
@@ -1026,7 +1147,8 @@ def batched_times(ops, ref, gen, dev, flush, bw, flops):
                 mag = cat_flat([batched_update_mag(g, v, w, win["taus"],
                                                    "coeff")
                                 for p, g, v in leaves])
-                err, share = theta_share(cat_flat(kern()), cat_flat(lib()),
+                err, share = theta_share(cat_flat(kern_tree()),
+                                         cat_flat(lib()),
                                          mag, KSUM_TOL["rtol"])
                 if share > 1.0:
                     fail(f"batched_scale_apply {label} coeff: torch.addmv "
@@ -1035,7 +1157,8 @@ def batched_times(ops, ref, gen, dev, flush, bw, flops):
                 lib_ms, _ = time_ms(lib, flush)
                 line += (f"; torch.addmv (TF32 off) {us(lib_ms)}, max|Δ| "
                          f"{err:.2e} from the kernel ({share:.3f} of rtol "
-                         f"{KSUM_TOL['rtol']:g} of Σ|update terms| + 2 ulp)")
+                         f"{KSUM_TOL['rtol']:g} of Σ|update terms| + 2 "
+                         f"ulp); kernel / torch.addmv {ms / lib_ms:.2f}x")
                 out.update({f"{pre}coeff_ms": ms,
                             f"{pre}coeff_bound_ms": bound,
                             f"{pre}library_ms": lib_ms})
@@ -1057,20 +1180,33 @@ def phase_batched(ops, ref, dev, flush, bw, flops):
           "the card")
     gen = torch.Generator(device=dev).manual_seed(4)
     tally = dict(bitwise=0, cases=0, rejections=0, mutations=0, main_err=0.0)
-    for shapes, Ks, maskings in ((MLP_SHAPES, (1, 16, 128),
-                                  tuple(BATCHED_VECTORS)),
-                                 (LEAF_2M, (16,), ("shared",))):
+    for shapes, what, Ks, maskings in (
+            (MLP_SHAPES, "MLP leaves", (1, 16, 128), tuple(BATCHED_VECTORS)),
+            (LEAF_2M, "2M leaf", (16,), ("shared",))):
         for K in Ks:
             for dtype in (torch.float32, torch.bfloat16):
                 win = batched_window(shapes, K, gen, dev, dtype)
                 for mode in ("coeff", "fasgd"):
                     for masking in maskings:
-                        batched_case(ops, ref, win, K, mode, masking, tally)
+                        batched_case(ops, ref, win, K, mode, masking, what,
+                                     tally)
+    # the 40-leaf tree: two launches for one dtype, one per dtype mixed
+    for K, masking in ((16, "shared"), (128, "per_leaf")):
+        for kind in TREE40_DTYPES:
+            win = batched_window([(n,) for n in TREE40], K, gen, dev,
+                                 tree40_dtypes(kind))
+            for mode in ("coeff", "fasgd"):
+                batched_case(ops, ref, win, K, mode, masking,
+                             f"40-leaf tree ({kind})", tally)
     print(f"  {tally['bitwise']} of {tally['cases']} cases bitwise equal to "
           f"both the plain version and fused_event_apply; the check rejected "
           f"{tally['rejections']} of {tally['mutations']} mutated plain "
           f"versions (lr 1% off, one event's mask flipped), every one at "
           f"θ = 0")
+    if tally["bitwise"] != tally["cases"]:
+        fail(f"batched_scale_apply: {tally['cases'] - tally['bitwise']} "
+             f"cases not bitwise equal to the plain version and "
+             f"fused_event_apply")
     launches = batched_drive(ops, ref, gen, dev)
     out = dict(name="batched_scale_apply", route="cuda",
                source="src/repro_torch/kernels/csrc/batched_update.cu",
@@ -1135,19 +1271,21 @@ def main() -> int:
     server = ServerConfig(rule="fasgd", lr=0.0025, use_fused_kernel=True)
     n_serial, eps_serial = run_main_path(
         "serial", SimConfig(server=server, **quick), ds, params, 2000, 500,
-        "fasgd_update", "fused_event_apply")
+        "fasgd_update", "fused_event_apply", "kernel_events")
     n_gated, eps_gated = run_main_path(
         "serial gated", SimConfig(
             server=server, bandwidth=BandwidthConfig(
                 c_push=0.02, c_fetch=0.1, drop_policy="cache"), **quick),
-        ds, params, 2000, 500, "fasgd_update", "fused_event_apply")
+        ds, params, 2000, 500, "fasgd_update", "fused_event_apply",
+        "kernel_events")
     print("phase 4: main path, fused (fused_event_apply)")
     K = 128
     n_fused, eps_fused = run_main_path(
         "fused", SimConfig(num_clients=256, batch_size=4, seed=0,
                            events_per_step=K, apply_mode="fused",
                            server=server),
-        ds, params, 40 * K, 10 * K, "fused_event_apply", "fasgd_update")
+        ds, params, 40 * K, 10 * K, "fused_event_apply", "fasgd_update",
+        "kernel_launches")
 
     # --- phase 5: times at the main path's shapes ---
     print(f"phase 5: times on {smi} (median of 50, L2 flushed; device = "
@@ -1160,7 +1298,13 @@ def main() -> int:
     kw = dict(gamma=0.9, beta=0.9, eps=1e-8)
     upd = lambda f: lambda: [f(p, g, n, b, v, 0.0025, tau, **kw)
                              for p, g, n, b, v in leaves_in]
-    fu_ms, fu_host = time_ms(upd(ops.fasgd_update_leaf), flush)
+    cols = [list(c) for c in zip(*leaves_in)]
+    fu_ms, fu_host = time_ms(
+        lambda: ops.fasgd_update(*cols, 0.0025, tau, **kw), flush)
+    fu_leaf, fu_leaf_host = time_ms(upd(ops.fasgd_update_leaf), flush)
+    # one launch over b1 alone (10 elements): what a launch costs here
+    fu_tiny, _ = time_ms(lambda: ops.fasgd_update(*(c[2:3] for c in cols),
+                                                  0.0025, tau, **kw), flush)
     fu_plain, fu_plain_host = time_ms(upd(ref.fasgd_update_ref), flush)
     w0 = leaves_in[1]
     fu_w0, fu_w0_host = time_ms(
@@ -1168,9 +1312,13 @@ def main() -> int:
     fu_bytes, fu_ops = 36 * P, 20 * P
     fu_bound = 1e3 * max(fu_bytes / bw, fu_ops / flops)
     us = lambda ms: f"{ms * 1e3:.2f} us"
-    print(f"  fasgd_update, one event = 4 leaf launches, P={P}: device "
-          f"{us(fu_ms)} (host-incl. {us(fu_host)}); bound {us(fu_bound)} "
-          f"({fu_bytes / 1e6:.2f} MB); plain device {us(fu_plain)} "
+    print(f"  fasgd_update, one event = one launch over the MLP tree "
+          f"(ops.fasgd_update), P={P}: device {us(fu_ms)} (host-incl. "
+          f"{us(fu_host)}); as 4 one-leaf launches (fasgd_update_leaf) "
+          f"{us(fu_leaf)} (host-incl. {us(fu_leaf_host)}); one launch over "
+          f"b1 alone (10 elements) {us(fu_tiny)}; bound "
+          f"{us(fu_bound)} ({fu_bytes / 1e6:.2f} MB); plain device "
+          f"{us(fu_plain)} "
           f"(host-incl. {us(fu_plain_host)}); w0 alone device {us(fu_w0)} "
           f"(host-incl. {us(fu_w0_host)}), bound "
           f"{us(1e3 * 36 * w0[0].numel() / bw)}")

@@ -45,22 +45,46 @@ SOURCE_FLAGS = {
 SOURCES = tuple(SOURCE_FLAGS)
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+# The most leaves one launch of a tree kernel takes (kMaxLeaves in
+# csrc/common.cuh).
+MAX_LEAVES = 32
+
+
+def leaf_table(n_ptrs: int):
+    """The ctypes mirror of ``repro::LeafTable<n_ptrs>`` (csrc/common.cuh),
+    passed to the entry points by value."""
+    class LeafTable(ctypes.Structure):
+        _fields_ = [("ptr", (_P * n_ptrs) * MAX_LEAVES),
+                    ("size", _I64 * MAX_LEAVES),
+                    ("first_block", _I64 * (MAX_LEAVES + 1)),
+                    ("num_leaves", ctypes.c_int32),
+                    ("pad", ctypes.c_int32)]
+    return LeafTable
+
+
+FASGD_TABLE = leaf_table(9)       # θ g n b v θ' n' b' v'
+BATCHED_TABLE = leaf_table(7)     # θ g v coeffs τ masks θ'
+# Each tree kernel's table and the entry point that gives its C size; the
+# loader holds the two equal.
+TABLES = {"fasgd_update": (FASGD_TABLE, "repro_fasgd_update_table_bytes"),
+          "batched_update": (BATCHED_TABLE,
+                             "repro_batched_scale_apply_table_bytes")}
 # C entry point of each source, with its argument types (pointers and the
 # stream as c_void_p: ctypes would otherwise pass them as 32-bit ints).
 SIGNATURES = {
     "fasgd_update": ("repro_fasgd_update", [
-        _I, _I, _P, _P, _P, _P, _P, _P,           # dtype, literal, p g n b v τ
+        _I, _I, FASGD_TABLE, _P,                  # dtype, literal, leaves, τ
         _F, _F, _F, _F, _F, _F,                   # lr γ 1-γ β 1-β ε
-        _I64, _P, _P, _P, _P, _P]),               # size, outputs, stream
+        _P]),                                     # stream
     "fused_event_apply": ("repro_fused_event_apply", [
         _I, _I, _I, _I,                           # dtype, fasgd, track, literal
         _P, _P, _P, _P, _P, _P, _P, _P, _P,       # p g n b v w wmean τ has_push
         _F, _F, _F, _F, _F, _F,                   # lr γ 1-γ β 1-β ε
         _I, _I64, _P, _P, _P, _P, _P]),           # K, size, outputs, stream
     "batched_update": ("repro_batched_scale_apply", [
-        _I, _I, _I,                               # dtype, fasgd, has_mask
-        _P, _P, _P, _P, _P, _P,                   # p g v coeffs τ masks
-        _F, _F, _I, _I64, _P, _P]),               # lr ε K size output stream
+        _I, _I, _I, BATCHED_TABLE,                # dtype, fasgd, has_mask, leaves
+        _F, _F, _I, _I, ctypes.c_uint, _P]),      # lr ε K tile, terms leaves,
+                                                  # stream
     "flash_attention": ("repro_flash_attention", [
         _I, _I, _P, _P, _P, _P,                   # dtype, head_dim, q k v o
         _I, _I, _I, _I, _I,                       # B Hq Hkv Lq Lk
@@ -133,7 +157,15 @@ def kernel(name: str):
     if fn is None:
         build_all()
         symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        if name in TABLES:
+            table, size_symbol = TABLES[name]
+            c_bytes = getattr(lib, size_symbol)()
+            if c_bytes != ctypes.sizeof(table):
+                raise RuntimeError(
+                    f"{name}: the leaf table is {c_bytes} bytes in C and "
+                    f"{ctypes.sizeof(table)} in ctypes")
+        fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _FUNCS[name] = fn

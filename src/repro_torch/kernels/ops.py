@@ -14,10 +14,22 @@ strides and masks its ragged tails, so it needs neither padding nor
 contiguous copies.  A launch runs on PyTorch's current stream, does not
 synchronise, and writes out-of-place outputs allocated here.
 
-`LAUNCHES` counts dispatches per kernel on either device: on a CUDA tensor
-every dispatch is one kernel launch, so on the card it counts launches, and
-on the CPU the tests hold it against the simulator's
-``Counters.kernel_launches`` and the model's layer count.
+`fasgd_update` and `batched_scale_apply` take a whole tree in one launch on
+the card: the leaves go to the kernel in a table (`build.leaf_table`,
+``repro::LeafTable`` in ``csrc/common.cuh``) of at most `build.MAX_LEAVES`
+leaves of one dtype, so a longer tree, or one of mixed dtypes, takes one
+launch per such chunk (`_leaf_plan`).  Their per-leaf entries go through
+the same kernel with a one-leaf table.  On the CPU the tree entries take
+the plain versions leaf by leaf.
+
+Two counts per kernel:
+
+* `LAUNCHES` counts leaf dispatches on either device, the meaning of the
+  reference's ``Counters.kernel_launches``: a tree entry adds its number of
+  leaves, a leaf entry one.  On the CPU the tests hold it against the
+  simulator's counter and the model's layer count.
+* `DEVICE_LAUNCHES` counts kernel launches on the card, one where a
+  wrapper launches its kernel and nowhere else; it stays 0 on the CPU.
 """
 from __future__ import annotations
 
@@ -26,19 +38,31 @@ from typing import Any
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 from repro_torch.utils.trees import leaves, same_structure, unflatten
 
 LAUNCHES = {"fasgd_update": 0, "fused_event_apply": 0,
             "batched_scale_apply": 0, "flash_attention": 0}
+DEVICE_LAUNCHES = dict(LAUNCHES)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The elements one block of csrc/fasgd_update.cu owns (its kTile).
+FASGD_TILE = 1024
+# csrc/batched_update.cu: its rows path takes 4 elements a thread up to
+# _WIDE_MAX_K events and 2 above (rows_vec); its terms path's tile bounds
+# (kMinTile, kMaxTile) and the terms it stages per chunk (kTerms).
+_WIDE_MAX_K = 16
+_TERMS_MIN_TILE, _TERMS_MAX_TILE, _TERMS = 32, 256, 4096
+# Leaves below this many rows-path tiles take the terms path when K > 16:
+# the rows path would not give every SM of the card a block.
+_TERMS_BELOW_TILES = 132
 
 
 def reset_launches() -> None:
     """Set every launch count to 0."""
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, DEVICE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -46,6 +70,14 @@ def _device_kind(t: torch.Tensor) -> str:
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"no kernel or plain version for device {t.device}")
     return kind
+
+
+def _tree_kind(ps) -> str:
+    """'cpu' or 'cuda' for leaves that all lie on one device (raises else)."""
+    devices = {p.device for p in ps}
+    if len(devices) > 1:
+        raise ValueError(f"the leaves lie on several devices: {devices}")
+    return _device_kind(ps[0])
 
 
 def _check(name, t, *, device, numel, dtype=None):
@@ -73,27 +105,113 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
-def _fasgd_update_cuda(p, g, n, b, v, lr, tau, gamma, beta, eps, variant):
-    from repro_torch.kernels.build import kernel
-    dev, size = p.device, p.numel()
-    if p.dtype not in _DTYPE_CODE:
-        raise ValueError(f"params dtype {p.dtype} not supported by the kernel")
-    _check("grads", g, device=dev, numel=size, dtype=p.dtype)
-    _check("params", p, device=dev, numel=size)
-    for nm, t in (("n", n), ("b", b), ("v", v)):
-        _check(nm, t, device=dev, numel=size, dtype=torch.float32)
+def _leaf_plan(sizes, elems_per_block, groups=None):
+    """The launches of a tree kernel whose blocks own `elems_per_block`
+    elements of one leaf each (one count for all leaves, or one per leaf):
+    the leaves (by index) grouped by `groups` (their dtypes; one group if
+    None), in the order each group first appears, in chunks of at most
+    `build.MAX_LEAVES`.  Each launch is (leaf indices, first blocks): the
+    first block of every leaf of the chunk, then the launch's block count.
+    A chunk of empty leaves has no blocks and is left out."""
+    groups = [None] * len(sizes) if groups is None else list(groups)
+    per_leaf = (list(elems_per_block) if isinstance(elems_per_block,
+                                                    (list, tuple))
+                else [elems_per_block] * len(sizes))
+    by_group = {}
+    for i, key in enumerate(groups):
+        by_group.setdefault(key, []).append(i)
+    plan = []
+    for idx in by_group.values():
+        for c in range(0, len(idx), build.MAX_LEAVES):
+            chunk = idx[c:c + build.MAX_LEAVES]
+            starts = [0]
+            for i in chunk:
+                starts.append(starts[-1] + -(-sizes[i] // per_leaf[i]))
+            if starts[-1]:
+                plan.append((chunk, starts))
+    return plan
+
+
+def _table(struct, ptrs, sizes, starts):
+    """A leaf table of type `struct`: each leaf's pointers, size and first
+    block, and the launch's block count."""
+    t = struct()
+    t.num_leaves = len(sizes)
+    for l, (row, n) in enumerate(zip(ptrs, sizes)):
+        t.ptr[l][:] = row
+        t.size[l] = n
+    t.first_block[:len(starts)] = starts
+    return t
+
+
+def _flat_outputs(shapes, dtype, copies, device):
+    """`copies` lists of empty leaves of `shapes`, all views of one flat
+    buffer, each leaf starting on a 16-byte boundary: one allocation in
+    place of one per leaf, on a path that is bound by its host work."""
+    layout, total = [], 0
+    for shape in shapes:
+        strides, n = [], 1
+        for d in reversed(shape):
+            strides.append(n)
+            n *= d
+        layout.append((tuple(shape), tuple(reversed(strides)), total))
+        total += -(-n // 4) * 4
+    buf = torch.empty(copies * total, dtype=dtype, device=device)
+    return [[buf.as_strided(shape, strides, c * total + off)
+             for shape, strides, off in layout] for c in range(copies)]
+
+
+def _by_dtype(ps):
+    """{dtype: indices of the leaves of that dtype}, in leaf order."""
+    groups = {}
+    for i, p in enumerate(ps):
+        groups.setdefault(p.dtype, []).append(i)
+    return groups
+
+
+def _fasgd_update_cuda(ps, gs, ns, bs, vs, lr, tau, gamma, beta, eps,
+                       variant):
+    """Launch the tree kernel over the leaves `ps`...; returns one
+    (θ', n', b', v') per leaf."""
+    dev = ps[0].device
+    for p, g, n, b, v in zip(ps, gs, ns, bs, vs):
+        if p.dtype not in _DTYPE_CODE:
+            raise ValueError(f"params dtype {p.dtype} not supported by the "
+                             f"kernel")
+        size = p.numel()
+        _check("params", p, device=dev, numel=size)
+        _check("grads", g, device=dev, numel=size, dtype=p.dtype)
+        for nm, t in (("n", n), ("b", b), ("v", v)):
+            _check(nm, t, device=dev, numel=size, dtype=torch.float32)
+    fn = build.kernel("fasgd_update")
     tau = _scalar_f32(tau, dev)
-    po, no = torch.empty_like(p), torch.empty_like(n)
-    bo, vo = torch.empty_like(b), torch.empty_like(v)
-    with torch.cuda.device(dev):
-        rc = kernel("fasgd_update")(
-            _DTYPE_CODE[p.dtype], int(variant == "literal"),
-            p.data_ptr(), g.data_ptr(), n.data_ptr(), b.data_ptr(),
-            v.data_ptr(), tau.data_ptr(), lr, gamma, 1.0 - gamma, beta,
-            1.0 - beta, eps, size, po.data_ptr(), no.data_ptr(),
-            bo.data_ptr(), vo.data_ptr(), _stream(dev))
-    _raise_on(rc, "fasgd_update")
-    return po, no, bo, vo
+    outs = [None] * len(ps)
+    for dtype, idx in _by_dtype(ps).items():
+        # θ' in θ's dtype and n', b', v' in float32: one buffer for all four
+        # when θ is float32
+        shapes = [ps[i].shape for i in idx]
+        if dtype == torch.float32:
+            new = _flat_outputs(shapes, dtype, 4, dev)
+        else:
+            new = (_flat_outputs(shapes, dtype, 1, dev)
+                   + _flat_outputs(shapes, torch.float32, 3, dev))
+        for j, i in enumerate(idx):
+            outs[i] = tuple(o[j] for o in new)
+    stream = _stream(dev)
+    sizes = [p.numel() for p in ps]
+    for chunk, starts in _leaf_plan(sizes, FASGD_TILE,
+                                    [p.dtype for p in ps]):
+        rows = [[x.data_ptr() for x in (ps[i], gs[i], ns[i], bs[i], vs[i],
+                                        *outs[i])] for i in chunk]
+        table = _table(build.FASGD_TABLE, rows, [sizes[i] for i in chunk],
+                       starts)
+        with torch.cuda.device(dev):
+            rc = fn(_DTYPE_CODE[ps[chunk[0]].dtype], int(variant == "literal"),
+                    table, tau.data_ptr(), lr, gamma, 1.0 - gamma, beta,
+                    1.0 - beta, eps, stream)
+        _raise_on(rc, "fasgd_update")
+        DEVICE_LAUNCHES["fasgd_update"] += 1
+    return outs
 
 
 def fasgd_update_leaf(p, g, n, b, v, lr, tau, *, gamma=0.9, beta=0.9,
@@ -109,8 +227,8 @@ def fasgd_update_leaf(p, g, n, b, v, lr, tau, *, gamma=0.9, beta=0.9,
     if _device_kind(p) == "cpu":
         return ref.fasgd_update_ref(p, g, n, b, v, lr, tau, gamma=gamma,
                                     beta=beta, eps=eps, variant=variant)
-    return _fasgd_update_cuda(p, g, n, b, v, lr, tau, gamma, beta, eps,
-                              variant)
+    return _fasgd_update_cuda([p], [g], [n], [b], [v], lr, tau, gamma, beta,
+                              eps, variant)[0]
 
 
 def _unzip(params, outs):
@@ -119,20 +237,30 @@ def _unzip(params, outs):
 
 def fasgd_update(params: Any, grads: Any, n: Any, b: Any, v: Any, lr, tau,
                  *, gamma=0.9, beta=0.9, eps=1e-8, variant="intent"):
-    """Fused FASGD update over trees (one dispatch per leaf).
+    """Fused FASGD update over trees: one launch on the card for up to
+    `build.MAX_LEAVES` leaves of one dtype, the plain version leaf by leaf
+    on the CPU.
 
     Returns (params', n', b', v') trees; the statistics are float32.
     """
-    outs = [fasgd_update_leaf(p, g, nn, bb, vv, lr, tau, gamma=gamma,
-                              beta=beta, eps=eps, variant=variant)
-            for p, g, nn, bb, vv in zip(leaves(params), leaves(grads),
-                                        leaves(n), leaves(b), leaves(v))]
+    if variant not in ("intent", "literal"):
+        raise ValueError(f"unknown variant {variant!r}")
+    ps = leaves(params)
+    if not ps:
+        return _unzip(params, [])
+    trees = (ps, leaves(grads), leaves(n), leaves(b), leaves(v))
+    if _tree_kind(ps) == "cpu":
+        outs = [fasgd_update_leaf(p, g, nn, bb, vv, lr, tau, gamma=gamma,
+                                  beta=beta, eps=eps, variant=variant)
+                for p, g, nn, bb, vv in zip(*trees)]
+    else:
+        LAUNCHES["fasgd_update"] += len(ps)
+        outs = _fasgd_update_cuda(*trees, lr, tau, gamma, beta, eps, variant)
     return _unzip(params, outs)
 
 
 def _fused_event_apply_cuda(p, g, n, b, v, w, wm, t, lr, hp, gamma, beta, eps,
                             variant, mode, track_stats):
-    from repro_torch.kernels.build import kernel
     dev, size, K = p.device, p.numel(), g.shape[0]
     if p.dtype not in _DTYPE_CODE:
         raise ValueError(f"params dtype {p.dtype} not supported by the kernel")
@@ -148,7 +276,7 @@ def _fused_event_apply_cuda(p, g, n, b, v, w, wm, t, lr, hp, gamma, beta, eps,
     po, no = torch.empty_like(p), torch.empty_like(n)
     bo, vo = torch.empty_like(b), torch.empty_like(v)
     with torch.cuda.device(dev):
-        rc = kernel("fused_event_apply")(
+        rc = build.kernel("fused_event_apply")(
             _DTYPE_CODE[p.dtype], int(mode == "fasgd"), int(track_stats),
             int(variant == "literal"), p.data_ptr(), g.data_ptr(),
             n.data_ptr(), b.data_ptr(), v.data_ptr(), vecs[0].data_ptr(),
@@ -156,6 +284,7 @@ def _fused_event_apply_cuda(p, g, n, b, v, w, wm, t, lr, hp, gamma, beta, eps,
             1.0 - gamma, beta, 1.0 - beta, eps, K, size, po.data_ptr(),
             no.data_ptr(), bo.data_ptr(), vo.data_ptr(), _stream(dev))
     _raise_on(rc, "fused_event_apply")
+    DEVICE_LAUNCHES["fused_event_apply"] += 1
     return po, no, bo, vo
 
 
@@ -203,41 +332,96 @@ def fused_event_apply(params: Any, grads: Any, n: Any, b: Any, v: Any,
     return _unzip(params, outs)
 
 
-# The most events `csrc/batched_update.cu` stages in shared memory
-# (its kMaxEvents).
+# The most events `csrc/batched_update.cu` takes (its kMaxEvents).
 MAX_BATCHED_EVENTS = 4096
 
 
-def _batched_scale_apply_cuda(p, g, v, coeffs, taus, masks, lr, eps, mode):
-    from repro_torch.kernels.build import kernel
-    dev, size = p.device, p.numel()
-    K = g.shape[0] if g.dim() else 0
-    if p.dtype not in _DTYPE_CODE:
-        raise ValueError(f"params dtype {p.dtype} not supported by the kernel")
+def _rows_tile(K: int) -> int:
+    """The elements a rows-path block of csrc/batched_update.cu owns."""
+    return 256 * (4 if K <= _WIDE_MAX_K else 2)
+
+
+def _batched_tiles(K: int, sizes):
+    """The tile of csrc/batched_update.cu's terms path at K events, and
+    which leaves take it: above 16 events, the leaves too small to give
+    the rows path a block per SM (at K = 128 the MLP's b0, b1 and w1, not
+    w0); all leaves take the rows path up to 16.  The tile is the power of
+    two nearest below 4096 / K within the path's bounds (32 at K = 128)."""
+    tile = 1 << max(0, (_TERMS // K).bit_length() - 1)
+    tile = min(_TERMS_MAX_TILE, max(_TERMS_MIN_TILE, tile))
+    terms = [K > _WIDE_MAX_K and n < _TERMS_BELOW_TILES * _rows_tile(K)
+             for n in sizes]
+    return tile, terms
+
+
+def _batched_plan(K: int, sizes, dtypes):
+    """(launches as `_leaf_plan` gives them, the terms path's tile, which
+    leaves take it) of csrc/batched_update.cu over leaves of `sizes` and
+    `dtypes` at K events."""
+    tile, terms = _batched_tiles(K, sizes)
+    plan = _leaf_plan(sizes, [tile if x else _rows_tile(K) for x in terms],
+                      dtypes)
+    return plan, tile, terms
+
+
+def _batched_tree_cuda(ps, gs, vs, cs, ts, ms, lr, eps, mode):
+    """Launch the tree kernel over the leaves `ps`, each with its own [K]
+    coeffs/τ/masks (`ms` all None for no mask); returns θ' per leaf."""
+    dev = ps[0].device
+    K = gs[0].shape[0] if gs[0].dim() else 0
     if not 1 <= K <= MAX_BATCHED_EVENTS:
         raise ValueError(f"{K} events: the kernel takes 1 to "
-                         f"{MAX_BATCHED_EVENTS} (their weights and τ are "
-                         f"staged in shared memory)")
-    _check("params", p, device=dev, numel=size)
-    _check("grads", g, device=dev, numel=K * size, dtype=p.dtype)
-    _check("v", v, device=dev, numel=size, dtype=torch.float32)
-    named = [("coeffs", coeffs), ("taus", taus)]
-    if masks is not None:
-        named.append(("masks", masks))
-    vecs = [torch.as_tensor(x, device=dev).to(torch.float32).contiguous()
-            for _, x in named]
-    for (nm, _), x in zip(named, vecs):
-        _check(nm, x, device=dev, numel=K)
-    mask_ptr = vecs[2].data_ptr() if masks is not None else None
-    po = torch.empty_like(p)
-    with torch.cuda.device(dev):
-        rc = kernel("batched_update")(
-            _DTYPE_CODE[p.dtype], int(mode == "fasgd"), int(masks is not None),
-            p.data_ptr(), g.data_ptr(), v.data_ptr(), vecs[0].data_ptr(),
-            vecs[1].data_ptr(), mask_ptr, lr, eps, K, size, po.data_ptr(),
-            _stream(dev))
-    _raise_on(rc, "batched_scale_apply")
-    return po
+                         f"{MAX_BATCHED_EVENTS}")
+    vecs = {}
+
+    def vec(name, x):
+        # a [K] float32 vector on the card, converted once if shared (x is
+        # kept beside it so that its id is not reused meanwhile)
+        if id(x) not in vecs:
+            t = torch.as_tensor(x, device=dev).to(torch.float32).contiguous()
+            _check(name, t, device=dev, numel=K)
+            vecs[id(x)] = (t, x)
+        return vecs[id(x)][0]
+
+    rows = []
+    for p, g, v, c, t, m in zip(ps, gs, vs, cs, ts, ms):
+        if p.dtype not in _DTYPE_CODE:
+            raise ValueError(f"params dtype {p.dtype} not supported by the "
+                             f"kernel")
+        size = p.numel()
+        _check("params", p, device=dev, numel=size)
+        _check("grads", g, device=dev, numel=K * size, dtype=p.dtype)
+        _check("v", v, device=dev, numel=size, dtype=torch.float32)
+        rows.append([p.data_ptr(), g.data_ptr(), v.data_ptr(),
+                     vec("coeffs", c).data_ptr(), vec("taus", t).data_ptr(),
+                     None if m is None else vec("masks", m).data_ptr()])
+    fn = build.kernel("batched_update")
+    outs = [None] * len(ps)
+    for dtype, idx in _by_dtype(ps).items():
+        for i, o in zip(idx, _flat_outputs([ps[i].shape for i in idx], dtype,
+                                           1, dev)[0]):
+            outs[i] = o
+            rows[i].append(o.data_ptr())
+    sizes = [p.numel() for p in ps]
+    plan, tile, terms = _batched_plan(K, sizes, [p.dtype for p in ps])
+    stream = _stream(dev)
+    for chunk, starts in plan:
+        table = _table(build.BATCHED_TABLE, [rows[i] for i in chunk],
+                       [sizes[i] for i in chunk], starts)
+        terms_leaves = sum(1 << j for j, i in enumerate(chunk) if terms[i])
+        with torch.cuda.device(dev):
+            rc = fn(_DTYPE_CODE[ps[chunk[0]].dtype], int(mode == "fasgd"),
+                    int(ms[0] is not None), table, lr, eps, K, tile,
+                    terms_leaves, stream)
+        _raise_on(rc, "batched_scale_apply")
+        DEVICE_LAUNCHES["batched_scale_apply"] += 1
+    return outs
+
+
+def _batched_scale_apply_cuda(p, g, v, coeffs, taus, masks, lr, eps, mode):
+    """One leaf through the tree kernel, with a one-leaf table."""
+    return _batched_tree_cuda([p], [g], [v], [coeffs], [taus], [masks], lr,
+                              eps, mode)[0]
 
 
 def batched_scale_apply_leaf(p, g, v, coeffs, taus, *, masks=None, lr,
@@ -261,8 +445,9 @@ def batched_scale_apply_leaf(p, g, v, coeffs, taus, *, masks=None, lr,
 
 def batched_scale_apply(params: Any, grads: Any, v: Any, coeffs, taus, *,
                         masks=None, lr, eps=1e-8, mode="fasgd"):
-    """Σ_k m_k·c_k·scale(v,τ_k)·g_k applied over trees (one dispatch per
-    leaf); returns params' in the params' dtypes.
+    """Σ_k m_k·c_k·scale(v,τ_k)·g_k applied over trees: one launch on the
+    card for up to `build.MAX_LEAVES` leaves of one dtype, the plain
+    version leaf by leaf on the CPU; returns params' in the params' dtypes.
 
     `grads` leaves carry a leading [K] event axis.  `coeffs`, `taus` and
     `masks` are each one [K] vector shared by every leaf, or a tree that
@@ -270,6 +455,8 @@ def batched_scale_apply(params: Any, grads: Any, v: Any, coeffs, taus, *,
     per-tensor staleness).  `masks=None` means the push decision is already
     folded into `coeffs`, the same as an all-ones mask.
     """
+    if mode not in ("coeff", "fasgd"):
+        raise ValueError(f"unknown mode {mode!r}")
     ps = leaves(params)
 
     def per_leaf(x):
@@ -279,11 +466,15 @@ def batched_scale_apply(params: Any, grads: Any, v: Any, coeffs, taus, *,
             return leaves(x)
         return [x] * len(ps)
 
-    outs = [batched_scale_apply_leaf(p, g, vv, c, t, masks=m, lr=lr, eps=eps,
-                                     mode=mode)
-            for p, g, vv, c, t, m in zip(ps, leaves(grads), leaves(v),
-                                         per_leaf(coeffs), per_leaf(taus),
-                                         per_leaf(masks))]
+    trees = (ps, leaves(grads), leaves(v), per_leaf(coeffs), per_leaf(taus),
+             per_leaf(masks))
+    if not ps or _tree_kind(ps) == "cpu":
+        outs = [batched_scale_apply_leaf(p, g, vv, c, t, masks=m, lr=lr,
+                                         eps=eps, mode=mode)
+                for p, g, vv, c, t, m in zip(*trees)]
+    else:
+        LAUNCHES["batched_scale_apply"] += len(ps)
+        outs = _batched_tree_cuda(*trees, lr, eps, mode)
     return unflatten(params, outs)
 
 
@@ -296,7 +487,6 @@ _DECODE_MAX_SPLITS = 32
 
 
 def _attention_cuda(q, k, v, causal, window, sm_scale):
-    from repro_torch.kernels.build import kernel
     B, Hq, Lq, D = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != D:
@@ -326,13 +516,14 @@ def _attention_cuda(q, k, v, causal, window, sm_scale):
         scratch = torch.empty(B * Hq * Lq * _DECODE_MAX_SPLITS * (D + 2),
                               dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        rc = kernel("flash_attention")(
+        rc = build.kernel("flash_attention")(
             _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), B, Hq, Hkv, Lq, Lk, strides, int(causal),
             int(window), sm_scale,
             None if scratch is None else scratch.data_ptr(),
             0 if scratch is None else scratch.numel(), _stream(q.device))
     _raise_on(rc, "flash_attention")
+    DEVICE_LAUNCHES["flash_attention"] += 1
     return o
 
 
