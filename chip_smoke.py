@@ -11,11 +11,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    the 784-200-10 MLP plus a 16M-element leaf for `fasgd_update` (each a
    one-leaf launch), and a 40-leaf tree of mixed sizes through the tree
    entry `ops.fasgd_update`, all float32, all bfloat16 and mixed (one
-   launch per dtype and 32 leaves, counted); K in {1, 16, 128} x both
-   modes x has_push in {0, 1} x track_stats in {T, F} for
-   `fused_event_apply`.  Max |Δ| and the tolerance of each are printed;
-   θ' is held through the update it carries, and each case runs again at
-   θ = 0, where θ' is the update itself.
+   launch per dtype and 32 leaves, counted).  `fused_event_apply` through
+   its tree entry: the MLP tree (one launch) at K in {1, 16, 128} x both
+   modes x track_stats in {T, F} x shared vectors with has_push 0 or 1, or
+   per-leaf vectors whose has_push differ (fp32; bf16 at K in {16, 128}
+   with track_stats on and per-leaf vectors), and the 40-leaf tree (all
+   fp32, all bf16, mixed) at K=16 with shared vectors and K=128 with
+   per-leaf ones, both modes, track_stats on and off; launches counted,
+   one per dtype and 32 leaves.  Max |Δ| and the tolerance of each are
+   printed; θ' is held through the update it carries, and each case runs
+   again at θ = 0, where θ' is the update itself and the check must
+   reject the plain version with lr 1% off ('fasgd') and with one leaf's
+   has_push flipped (track_stats on).  Each MLP leaf's one-leaf launch
+   must equal the tree launch bitwise.
 3. Main path, serial: the quickstart fleet (λ=16, μ=8, fasgd lr=0.0025,
    kernel on) for 2000 events on the full synthetic set, then the same
    fleet gated (c_push=0.02, c_fetch=0.1, 'cache').  The leaf dispatches
@@ -25,12 +33,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    must fall.  The share of the run's time spent making the draws
    (`NativeDraws.events`) is printed.
 4. Main path, fused: λ=256, K=128, μ=4, fasgd with the kernel, 40 windows.
-   The same checks for `fused_event_apply`, whose kernel launches equal
-   its leaf dispatches (one per leaf).
+   The same checks for `fused_event_apply`, whose kernel launches must
+   equal the windows applied (one launch per window; its leaf dispatches,
+   one per leaf, equal ``kernel_launches``).
 5. Times (CUDA events, L2 flushed before each run, median of 50) of each
    kernel at the main path's shapes beside its byte bound and its plain
    version (`fasgd_update` as one launch over the MLP tree and as four
-   one-leaf launches), and the events/s of phases 3 and 4.
+   one-leaf launches; `fused_event_apply` as one launch over the MLP tree
+   with track_stats on and off, `batched_scale_apply` 'fasgd' on the same
+   window, each leaf as a one-leaf launch, and w0 and the window with
+   every leaf on each of the kernel's two paths), and the events/s of
+   phases 3 and 4.
 6. Where the time goes: the serial and fused event loops run once under
    ``torch.cuda.set_sync_debug_mode('error')`` (a host sync in the loop
    fails the script) and once under `torch.profiler`, which gives the
@@ -130,30 +143,42 @@ def card_rates(name: str):
     fail(f"no published rates for card {name!r}")
 
 
-def check(tag, got, want, update_mag, update_rtol, stat_tols) -> float:
-    """Hold the four outputs (θ', n', b', v') against the plain version's;
-    print one line and return θ''s max |Δ|.
+def within(got, want, update_mag, update_rtol, stat_tols):
+    """(all within tolerance, θ''s max |Δ| and worst share of its allowance,
+    [max |Δ| of n', b', v']) of the four outputs (θ', n', b', v') against
+    the plain version's.
 
     n', b', v' are held to |Δ| <= atol + rtol·|want|.  θ' is held through
     the update θ - θ' it carries, not through |θ|, which is orders larger:
     |Δθ'| <= update_rtol · `update_mag` (Σ_k |w_k·scale_k·g_k|, the size
     of the update's terms) + two ulps of θ' for its rounding in each
-    version.  The line shows the worst share of that allowance used.
+    version.
     """
     import torch
     err, share = theta_share(got[0], want[0], update_mag, update_rtol)
-    if share > 1.0:
-        fail(f"{tag} θ: max|Δ|={err:.3e}, {share:.3g}× the "
-             f"allowance (rtol {update_rtol:g} of the update + 2 ulp)")
-    errs = [f"θ {err:.2e} ({share:.3f} of the allowance)"]
-    for x, y, nm, tol in zip(got[1:], want[1:], "nbv", stat_tols):
+    ok, stat_errs = share <= 1.0, []
+    for x, y, tol in zip(got[1:], want[1:], stat_tols):
         e = (x.float() - y.float()).abs()
-        if not bool(torch.all(e <= tol["atol"] + tol["rtol"] * y.float().abs())):
-            fail(f"{tag} {nm}: max|Δ|={float(e.max()):.3e} outside rtol "
-                 f"{tol['rtol']:g} atol {tol['atol']:g}")
-        errs.append(f"{nm} {float(e.max()):.2e}")
+        ok = ok and bool(torch.all(e <= tol["atol"] + tol["rtol"]
+                                   * y.float().abs()))
+        stat_errs.append(float(e.max()))
+    return ok, err, share, stat_errs
+
+
+def check(tag, got, want, update_mag, update_rtol, stat_tols) -> float:
+    """Hold the four outputs against the plain version's as `within` does,
+    fail outside the tolerance, else print one line (with the worst share
+    of θ''s allowance used) and return θ''s max |Δ|."""
+    ok, err, share, stat_errs = within(got, want, update_mag, update_rtol,
+                                       stat_tols)
     tol_txt = " / ".join(f"{t['rtol']:g},{t['atol']:g}" for t in stat_tols)
-    print(f"  {tag}: max|Δ| {', '.join(errs)} (θ: rtol {update_rtol:g} of "
+    errs = ", ".join([f"θ {err:.2e} ({share:.3f} of the allowance)"]
+                     + [f"{nm} {e:.2e}" for nm, e in zip("nbv", stat_errs)])
+    if not ok:
+        fail(f"{tag}: max|Δ| {errs} outside the tolerance (θ: rtol "
+             f"{update_rtol:g} of Σ|update terms| + 2 ulp; rtol,atol n/b/v "
+             f"{tol_txt})")
+    print(f"  {tag}: max|Δ| {errs} (θ: rtol {update_rtol:g} of "
           f"Σ|update terms| + 2 ulp; rtol,atol n/b/v {tol_txt}) ok")
     return err
 
@@ -264,43 +289,39 @@ def phase_kernels(ops, ref, dev):
     for dtypes in TREE40_DTYPES:
         for variant in ("intent", "literal"):
             fasgd_tree_case(ops, ref, gen, dev, dtypes, variant, kw)
-    cases = [(K, mode, hp, track, torch.float32)
-             for K in (1, 16, 128) for mode in ("coeff", "fasgd")
-             for hp in (0, 1) for track in (True, False)]
-    cases.append((16, "fasgd", 1, True, torch.bfloat16))
-    lr = 0.0025
-    for K, mode, hp, track, dtype in cases:
-        args = dict(mode=mode, track_stats=track, **kw)
-        leaves_in = [fused_inputs(s, K, gen, dev, dtype, hp)
-                     for s in MLP_SHAPES]
-        for zero in (False, True):
-            got, want, mags = [], [], []
-            for p, g, n, b, v, w, wm, t, hpt in leaves_in:   # the 4 leaves
-                if zero:
-                    p = torch.zeros_like(p)
-                got.append(ops.fused_event_apply_leaf(
-                    p, g, n, b, v, w, wm, t, hpt, lr=lr, **args))
-                torch.cuda.synchronize()
-                want.append(ref.fused_event_apply_ref(
-                    p, g, n, b, v, w, wm, t, lr, hpt, **args))
-                ax = (-1,) + (1,) * p.dim()
-                scale = (lr / (want[-1][3][None] * t.reshape(ax) + 1e-8)
-                         if mode == "fasgd" else 1.0)
-                mags.append((w.abs().reshape(ax) * scale
-                             * g.float().abs()).sum(0))
-            cat = lambda outs: [torch.cat([o[i].reshape(-1) for o in outs])
-                                for i in range(4)]
-            tag = (f"fused_event_apply K={K} {mode} has_push={hp} "
-                   f"track={track} MLP leaves {str(dtype)[6:]}"
-                   f"{' θ=0' if zero else ''}")
-            urtol = (BF16_RTOL if dtype == torch.bfloat16
-                     else KSUM_TOL["rtol"])
-            e = check(tag, cat(got), cat(want),
-                      torch.cat([m.reshape(-1) for m in mags]), urtol,
-                      (KSUM_TOL, KSUM_TOL, KSUM_TOL))
-            if K == 128 and mode == "fasgd" and hp and track \
-                    and dtype == torch.float32 and not zero:
-                errs["fused_event_apply"] = max(errs["fused_event_apply"], e)
+    tally = dict(cases=0, rejections=0, mutations=0)
+    for K in (1, 16, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.bfloat16 and K == 1:
+                continue
+            ins = [fused_inputs(s, K, gen, dev, dtype, i % 3 != 1)
+                   for i, s in enumerate(MLP_SHAPES)]
+            for mode in ("coeff", "fasgd"):
+                for track in (True, False):
+                    for vectors in FUSED_VECTORS:
+                        if dtype == torch.bfloat16 and (
+                                not track or vectors != "per-leaf"):
+                            continue
+                        e = fused_tree_case(ops, ref, ins, K, mode, track,
+                                            vectors, "MLP", tally)
+                        if (K, mode, track, vectors, dtype) == (
+                                128, "fasgd", True, "shared has_push=1",
+                                torch.float32):
+                            errs["fused_event_apply"] = e
+    # the 40-leaf tree: two launches for one dtype, one per dtype mixed
+    for K, vectors in ((16, "shared has_push=1"), (128, "per-leaf")):
+        for kind in TREE40_DTYPES:
+            ins = [fused_inputs((n,), K, gen, dev, dt, i % 3 != 1)
+                   for i, (n, dt) in enumerate(zip(TREE40,
+                                                   tree40_dtypes(kind)))]
+            for mode in ("coeff", "fasgd"):
+                for track in (True, False):
+                    fused_tree_case(ops, ref, ins, K, mode, track, vectors,
+                                    f"40-leaf tree ({kind})", tally)
+    print(f"  fused_event_apply: {tally['cases']} tree cases within their "
+          f"tolerances; the check rejected {tally['rejections']} of "
+          f"{tally['mutations']} mutated plain versions (lr 1% off, one "
+          f"leaf's has_push flipped), every one at θ = 0")
     return errs
 
 
@@ -359,16 +380,116 @@ def fasgd_tree_case(ops, ref, gen, dev, kind, variant, kw):
                   cat(want), mag, urtol, (FP32_TOL, FP32_TOL, vtol))
 
 
+FUSED_LR = 0.0025
+# the [K] vectors and has_push of a phase-2 case: each leaf's own (has_push
+# 0 on every third leaf), or leaf 0's vectors shared by every leaf with a
+# shared has_push
+FUSED_VECTORS = ("shared has_push=0", "shared has_push=1", "per-leaf")
+
+
+def fused_tree_case(ops, ref, ins, K, mode, track, vectors, what, tally):
+    """One phase-2 case through the tree entry `ops.fused_event_apply` over
+    the leaves `ins` (`fused_inputs` each: the MLP as its tree, others as a
+    list), on its θ and at θ = 0, each dtype's leaves held against the
+    plain version leaf by leaf; the kernel must launch once per dtype and
+    32 leaves, and at θ = 0 the check must reject the plain version with lr
+    1% off ('fasgd') and with leaf 1's has_push flipped (track_stats on).
+    At the MLP's K=128 'fasgd' window with per-leaf vectors, each leaf's
+    one-leaf launch (`fused_event_apply_leaf`) must equal the tree's
+    output bitwise.  Returns θ''s max |Δ| on its θ."""
+    import torch
+    mlp = what == "MLP"
+    tree, flat = (mlp_tree, flat_mlp) if mlp else (list, list)
+    cols = [list(c) for c in zip(*ins)]       # p g n b v w wmean τ has_push
+    if vectors == "per-leaf":
+        vecs = cols[5:9]
+    else:
+        hp = torch.tensor(float(vectors.endswith("1")),
+                          device=cols[0][0].device)
+        vecs = [[ins[0][j]] * len(ins) for j in (5, 6, 7)] + [[hp] * len(ins)]
+    arg = lambda j: tree(vecs[j]) if vectors == "per-leaf" else vecs[j][0]
+    dtypes = [p.dtype for p in cols[0]]
+    sizes = [p.numel() for p in cols[0]]
+    kw = dict(mode=mode, track_stats=track, gamma=0.9, beta=0.9, eps=1e-8)
+    want_launches = len(ops._fused_plan(K, sizes, dtypes)[0])
+    out = 0.0
+    for zero in (False, True):
+        ps = [torch.zeros_like(p) if zero else p for p in cols[0]]
+        before = ops.DEVICE_LAUNCHES["fused_event_apply"]
+        got = ops.fused_event_apply(
+            tree(ps), *(tree(c) for c in cols[1:5]), arg(0), arg(1), arg(2),
+            arg(3), lr=FUSED_LR, **kw)
+        got = [flat(x) for x in got]
+        torch.cuda.synchronize()
+        launches = ops.DEVICE_LAUNCHES["fused_event_apply"] - before
+        tag = (f"fused_event_apply K={K} {mode} track={track} {vectors} "
+               f"{what}{' θ=0' if zero else ''}")
+        if launches != want_launches:
+            fail(f"{tag}: {launches} launches, want {want_launches}")
+
+        def plain(lr, hps):
+            return [ref.fused_event_apply_ref(
+                p, g, n, b, v, w, wm, t, lr, hp, **kw)
+                for p, g, n, b, v, w, wm, t, hp in zip(
+                    ps, *cols[1:5], *vecs[:3], hps)]
+        want = plain(FUSED_LR, vecs[3])
+        mags = []
+        for (g, w, t), wv in zip(zip(cols[1], vecs[0], vecs[2]), want):
+            ax = (-1,) + (1,) * (g.dim() - 1)
+            scale = (FUSED_LR / (wv[3][None] * t.reshape(ax) + 1e-8)
+                     if mode == "fasgd" else 1.0)
+            mags.append((w.abs().reshape(ax) * scale * g.float().abs()).sum(0))
+        wrong = []
+        if zero and mode == "fasgd":
+            wrong.append(("lr 1% off", plain(FUSED_LR * 1.01, vecs[3])))
+        if zero and track:
+            flip = list(vecs[3])
+            flip[1] = 1.0 - flip[1]
+            wrong.append(("leaf 1's has_push flipped", plain(FUSED_LR, flip)))
+        for dt, idx in by_dtype(dtypes).items():
+            pick = lambda outs: [cat_flat([outs[i][j] for i in idx])
+                                 for j in range(4)]
+            urtol = BF16_RTOL if dt == torch.bfloat16 else KSUM_TOL["rtol"]
+            mag = cat_flat([mags[i] for i in idx])
+            stol = (KSUM_TOL, KSUM_TOL, KSUM_TOL)
+            e = check(f"{tag} {str(dt)[6:]} ({len(idx)} leaves, {launches} "
+                      f"launch(es))", pick(list(zip(*got))), pick(want), mag,
+                      urtol, stol)
+            if not zero:
+                out = max(out, e)
+            if dt != torch.float32:
+                continue
+            for what_bad, bad in wrong:
+                caught = not within(pick(list(zip(*got))), pick(bad), mag,
+                                    urtol, stol)[0]
+                tally["rejections"] += caught
+                tally["mutations"] += 1
+                if not caught:
+                    fail(f"{tag}: the check passes a plain version with "
+                         f"{what_bad}")
+        tally["cases"] += 1
+        if mlp and K == 128 and mode == "fasgd" and vectors == "per-leaf":
+            for i, x in enumerate(zip(ps, *cols[1:5], *vecs)):
+                one = ops.fused_event_apply_leaf(*x, lr=FUSED_LR, **kw)
+                if not all(torch.equal(a, got[j][i]) for j, a in
+                           enumerate(one)):
+                    fail(f"{tag}: leaf {i}'s one-leaf launch differs from "
+                         f"the tree launch")
+            print(f"    each leaf's one-leaf launch equals the tree launch "
+                  f"bitwise")
+    return out
+
+
 def run_main_path(label, cfg, ds, params, num_steps, eval_every, kernel,
-                  other, device_per):
+                  other):
     """One run of `run_simulation` on the card with the launch counts set
     to 0 just before it; `kernel` must run and `other` must not.  Its leaf
     dispatches (`ops.LAUNCHES`) must equal the simulator's
     ``kernel_launches`` and its kernel launches on the card
-    (`ops.DEVICE_LAUNCHES`) the counter named `device_per`:
-    ``kernel_events`` for `fasgd_update` (one launch per event, whatever
-    the leaves), ``kernel_launches`` for `fused_event_apply` (one per
-    leaf).  Returns (kernel launches of `kernel`, events/s)."""
+    (`ops.DEVICE_LAUNCHES`) the number of applications, one launch each
+    whatever the leaves: ``kernel_events`` on the serial path (one per
+    event), ``kernel_events`` / K on the fused path (one per K-event
+    window).  Returns (kernel launches of `kernel`, events/s)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.mlp import nll_loss
@@ -402,9 +523,12 @@ def run_main_path(label, cfg, ds, params, num_steps, eval_every, kernel,
     if not launches[kernel] == c["kernel_launches"] > 0:
         fail(f"{label}: ops.LAUNCHES[{kernel!r}]={launches[kernel]} vs "
              f"kernel_launches={c['kernel_launches']}")
-    if not device[kernel] == c[device_per] > 0:
+    per = 1 if cfg.apply_mode == "serial" else cfg.events_per_step
+    applied = c["kernel_events"] / per
+    if not device[kernel] == applied > 0:
         fail(f"{label}: ops.DEVICE_LAUNCHES[{kernel!r}]={device[kernel]} vs "
-             f"{device_per}={c[device_per]}")
+             f"{applied:g} applications (kernel_events "
+             f"{c['kernel_events']:.0f}, {per} events each)")
     if launches[other] != 0:
         fail(f"{label}: {other} ran on a path that should not")
     vals = out["val_cost"]
@@ -516,6 +640,79 @@ def profiled(label, run, plain_us, per, unit):
     for name, (cnt, d) in top:
         print(f"    {d / per:8.2f} us/{unit}  x{cnt / per:5.2f}  "
               f"{name[:90]}")
+
+
+def fused_times(ops, ref, gen, dev, flush, bw, flops, K):
+    """Phase 5's times of `fused_event_apply` at the fused main path's
+    window (the MLP at K events, 'fasgd', shared vectors, as
+    `engine.fused_apply` passes them): the tree in one launch with
+    track_stats on and off, `batched_scale_apply` 'fasgd' on the same
+    window beside the latter, each leaf as a one-leaf launch, and w0 alone
+    and the window on each of the kernel's two paths.  Returns the JSON
+    fields (track_stats on as the entry's own)."""
+    import torch
+    us = lambda ms: f"{ms * 1e3:.2f} us"
+    ins = [fused_inputs(s, K, gen, dev, torch.float32, 1) for s in MLP_SHAPES]
+    cols = [list(c) for c in zip(*ins)]
+    w, wm, t, hp = ins[0][5:]
+    P = sum(p.numel() for p in cols[0])
+    kw = dict(lr=FUSED_LR, mode="fasgd", gamma=0.9, beta=0.9, eps=1e-8)
+    tree = lambda track: ops.fused_event_apply(
+        *(mlp_tree(c) for c in cols[:5]), w, wm, t, hp, track_stats=track,
+        **kw)
+    one = lambda i, track=True: ops.fused_event_apply_leaf(
+        *ins[i][:5], w, wm, t, hp, track_stats=track, **kw)
+    ms, host = time_ms(lambda: tree(True), flush)
+    off, off_host = time_ms(lambda: tree(False), flush)
+    batched, _ = time_ms(lambda: ops.batched_scale_apply(
+        mlp_tree(cols[0]), mlp_tree(cols[1]), mlp_tree(cols[4]), w, t,
+        lr=FUSED_LR, mode="fasgd"), flush)
+    leaves4, leaves4_host = time_ms(lambda: [one(i) for i in range(4)], flush)
+    per_leaf = [time_ms(lambda: one(i), flush)[0] for i in range(4)]
+    plain, plain_host = time_ms(lambda: [ref.fused_event_apply_ref(
+        *x[:5], w, wm, t, FUSED_LR, hp, mode="fasgd") for x in ins], flush,
+        reps=20)
+    # each path forced on every leaf: the design the plan does not choose
+    # for a leaf is timed beside the one it does
+    forced = lambda idx, terms: lambda: ops._fused_tree_cuda(
+        *([c[i] for i in idx] for c in cols[:5]), [w] * len(idx),
+        [wm] * len(idx), [t] * len(idx), [hp] * len(idx), FUSED_LR, 0.9,
+        0.9, 1e-8, "intent", "fasgd", True, terms=[terms] * len(idx))
+    w0_rows, _ = time_ms(forced([1], False), flush)
+    w0_terms, _ = time_ms(forced([1], True), flush)
+    all_rows, _ = time_ms(forced(range(4), False), flush)
+    all_terms, _ = time_ms(forced(range(4), True), flush)
+    chosen = ops._fused_plan(K, [p.numel() for p in cols[0]],
+                             [torch.float32] * 4)[2]
+    nbytes, nops = (K + 8) * 4 * P, (9 * K + 20) * P
+    bound = 1e3 * max(nbytes / bw, nops / flops)
+    off_bytes = (K + 3) * 4 * P
+    off_bound = 1e3 * max(off_bytes / bw, 6 * K * P / flops)
+    w0_bound = 1e3 * (K + 8) * 4 * cols[0][1].numel() / bw
+    print(f"  fused_event_apply, one window (MLP, P={P}, K={K}, 'fasgd') in "
+          f"one launch: device {us(ms)} (host-incl. {us(host)}); bound "
+          f"{us(bound)} ({nbytes / 1e6:.2f} MB); kernel / bound "
+          f"{ms / bound:.2f}x; plain device {us(plain)} (host-incl. "
+          f"{us(plain_host)})")
+    print(f"    track_stats off: {us(off)} (host-incl. {us(off_host)}), "
+          f"bound {us(off_bound)} ({off_bytes / 1e6:.2f} MB); "
+          f"batched_scale_apply 'fasgd' on the same window, one launch: "
+          f"{us(batched)}; ratio {off / batched:.3f}")
+    print(f"    as 4 one-leaf launches: {us(leaves4)} (host-incl. "
+          f"{us(leaves4_host)}); each alone (b0 w0 b1 w1): "
+          f"{' '.join(us(x) for x in per_leaf)}; paths chosen (terms): "
+          f"{chosen}")
+    print(f"    w0 alone: rows path (gradients read twice) {us(w0_rows)}, "
+          f"terms path (staged in shared memory once) {us(w0_terms)}, bound "
+          f"{us(w0_bound)}; the window with every leaf on the rows path "
+          f"{us(all_rows)}, on the terms path {us(all_terms)}")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by="bytes" if nbytes / bw >= nops / flops
+                else "operations",
+                track_off_ms=off, track_off_bound_ms=off_bound,
+                batched_fasgd_ms=batched, leaf_launches_ms=leaves4,
+                per_leaf_ms=per_leaf, w0_rows_ms=w0_rows,
+                w0_terms_ms=w0_terms)
 
 
 # (label, B, Hq, Hkv, Lq, Lk, D, causal, window, layout) — see attention_inputs
@@ -1271,21 +1468,19 @@ def main() -> int:
     server = ServerConfig(rule="fasgd", lr=0.0025, use_fused_kernel=True)
     n_serial, eps_serial = run_main_path(
         "serial", SimConfig(server=server, **quick), ds, params, 2000, 500,
-        "fasgd_update", "fused_event_apply", "kernel_events")
+        "fasgd_update", "fused_event_apply")
     n_gated, eps_gated = run_main_path(
         "serial gated", SimConfig(
             server=server, bandwidth=BandwidthConfig(
                 c_push=0.02, c_fetch=0.1, drop_policy="cache"), **quick),
-        ds, params, 2000, 500, "fasgd_update", "fused_event_apply",
-        "kernel_events")
+        ds, params, 2000, 500, "fasgd_update", "fused_event_apply")
     print("phase 4: main path, fused (fused_event_apply)")
     K = 128
     n_fused, eps_fused = run_main_path(
         "fused", SimConfig(num_clients=256, batch_size=4, seed=0,
                            events_per_step=K, apply_mode="fused",
                            server=server),
-        ds, params, 40 * K, 10 * K, "fused_event_apply", "fasgd_update",
-        "kernel_launches")
+        ds, params, 40 * K, 10 * K, "fused_event_apply", "fasgd_update")
 
     # --- phase 5: times at the main path's shapes ---
     print(f"phase 5: times on {smi} (median of 50, L2 flushed; device = "
@@ -1322,22 +1517,7 @@ def main() -> int:
           f"(host-incl. {us(fu_plain_host)}); w0 alone device {us(fu_w0)} "
           f"(host-incl. {us(fu_w0_host)}), bound "
           f"{us(1e3 * 36 * w0[0].numel() / bw)}")
-    fe_in = [fused_inputs(s, K, gen, dev, torch.float32, 1)
-             for s in MLP_SHAPES]
-    fe_kw = dict(mode="fasgd", track_stats=True, **kw)
-    fe = lambda: [ops.fused_event_apply_leaf(*x, lr=0.0025, **fe_kw)
-                  for x in fe_in]
-    fe_ref = lambda: [ref.fused_event_apply_ref(*x[:8], 0.0025, x[8],
-                                                **fe_kw) for x in fe_in]
-    fe_ms, fe_host = time_ms(fe, flush)
-    fe_plain, fe_plain_host = time_ms(fe_ref, flush, reps=20)
-    fe_bytes, fe_ops = (K + 8) * 4 * P, (9 * K + 20) * P
-    fe_bound = 1e3 * max(fe_bytes / bw, fe_ops / flops)
-    print(f"  fused_event_apply, one window K={K} = 4 leaf launches: device "
-          f"{us(fe_ms)} (host-incl. {us(fe_host)}); bound {us(fe_bound)} "
-          f"({fe_bytes / 1e6:.2f} MB; {(2 * K + 8) * 4 * P / 1e6:.2f} MB "
-          f"with the gradients read twice); plain device {us(fe_plain)} "
-          f"(host-incl. {us(fe_plain_host)})")
+    fused = fused_times(ops, ref, gen, dev, flush, bw, flops, K)
     print("  library yardstick: none — no single PyTorch call computes "
           "either function")
     print(f"  events/s: serial {eps_serial:.1f}, serial gated "
@@ -1378,9 +1558,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/fused_event_apply.cu",
              replaces="src/repro/kernels/fused_event_apply.py:89",
              launches=n_fused, max_abs_err=errs["fused_event_apply"],
-             ms=fe_ms, plain_ms=fe_plain, bound_ms=fe_bound,
-             bound_by="bytes" if fe_bytes / bw >= fe_ops / flops
-             else "operations", library_ms=None),
+             library_ms=None, **fused),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:98",

@@ -206,8 +206,8 @@ def fused_apply(scfg: ServerConfig, server: ServerState, grads, push,
     the rule requires them; the weight delta Σ_k m_k·scale(v, τ_k)·g_k is
     taken against the post-stats v; T advances by the number of pushes.
     With `scfg.use_fused_kernel` and a rule with a batched kernel mode, the
-    whole application is one `kernels.ops.fused_event_apply` dispatch per
-    leaf, which advances n/b/v too.
+    whole application is one `kernels.ops.fused_event_apply` call over the
+    tree (one kernel launch on the card), which advances n/b/v too.
 
     Returns (server, taus [K]).
     """
@@ -254,9 +254,11 @@ def fused_apply(scfg: ServerConfig, server: ServerState, grads, push,
     elif rule.batched_kernel_mode == "coeff":
         # v-independent scale: one contraction over the event axis per leaf
         w = rule.fused_coeffs(scfg, taus) * pushf
+        # contracted in float32, as the reference's type promotion does:
+        # bf16 θ comes back float32
         new_params = tree_map(
-            lambda p, g: p - torch.einsum("k,k...->...", w, g), server.params,
-            grads)
+            lambda p, g: p - torch.einsum("k,k...->...", w, g.float()),
+            server.params, grads)
     else:
         deltas = []
         for v_leaf, g_leaf in zip(leaves(server.v), leaves(grads)):

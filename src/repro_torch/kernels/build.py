@@ -64,9 +64,12 @@ def leaf_table(n_ptrs: int):
 
 FASGD_TABLE = leaf_table(9)       # θ g n b v θ' n' b' v'
 BATCHED_TABLE = leaf_table(7)     # θ g v coeffs τ masks θ'
+FUSED_TABLE = leaf_table(13)      # θ g n b v w wmean τ has_push θ' n' b' v'
 # Each tree kernel's table and the entry point that gives its C size; the
 # loader holds the two equal.
 TABLES = {"fasgd_update": (FASGD_TABLE, "repro_fasgd_update_table_bytes"),
+          "fused_event_apply": (FUSED_TABLE,
+                                "repro_fused_event_apply_table_bytes"),
           "batched_update": (BATCHED_TABLE,
                              "repro_batched_scale_apply_table_bytes")}
 # C entry point of each source, with its argument types (pointers and the
@@ -77,10 +80,11 @@ SIGNATURES = {
         _F, _F, _F, _F, _F, _F,                   # lr γ 1-γ β 1-β ε
         _P]),                                     # stream
     "fused_event_apply": ("repro_fused_event_apply", [
-        _I, _I, _I, _I,                           # dtype, fasgd, track, literal
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,       # p g n b v w wmean τ has_push
+        _I, _I, _I, _I, FUSED_TABLE,              # dtype, fasgd, track,
+                                                  # literal, leaves
         _F, _F, _F, _F, _F, _F,                   # lr γ 1-γ β 1-β ε
-        _I, _I64, _P, _P, _P, _P, _P]),           # K, size, outputs, stream
+        _I, _I, ctypes.c_uint, _P]),              # K tile, terms leaves,
+                                                  # stream
     "batched_update": ("repro_batched_scale_apply", [
         _I, _I, _I, BATCHED_TABLE,                # dtype, fasgd, has_mask, leaves
         _F, _F, _I, _I, ctypes.c_uint, _P]),      # lr ε K tile, terms leaves,

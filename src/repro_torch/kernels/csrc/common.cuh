@@ -1,11 +1,9 @@
 // Device helpers shared by the server-update kernels.
 //
 // θ and g are fp32 or bf16; every kernel computes in fp32 and loads and
-// stores through these overloads.  `fused_event_apply` is a grid-stride
-// loop of kThreads-thread blocks over one flat leaf, with the grid capped
-// at a few resident blocks per SM (grid_for).  `fasgd_update` and
-// `batched_scale_apply` take a whole tree in one launch through a
-// LeafTable: each block owns one tile of one leaf.
+// stores through these overloads.  The three server updates take a whole
+// tree in one launch through a LeafTable: each block owns one tile of one
+// leaf.
 
 #pragma once
 
@@ -116,16 +114,6 @@ struct Consts {
 };
 
 constexpr int kThreads = 256;
-
-// One block per kThreads elements, at most 16 blocks per SM of the H100's
-// 132 (the grid-stride loop covers the rest), at least one block.
-inline dim3 grid_for(int64_t size) {
-  int64_t blocks = (size + kThreads - 1) / kThreads;
-  const int64_t max_blocks = 132 * 16;
-  if (blocks > max_blocks) blocks = max_blocks;
-  if (blocks < 1) blocks = 1;
-  return dim3(static_cast<unsigned>(blocks));
-}
 
 // Up to kMaxLeaves flat leaves of one launch, passed by value as a kernel
 // parameter (under the 4 KB limit).  ptr[l] holds leaf l's kPtrs pointers

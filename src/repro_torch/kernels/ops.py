@@ -14,8 +14,8 @@ strides and masks its ragged tails, so it needs neither padding nor
 contiguous copies.  A launch runs on PyTorch's current stream, does not
 synchronise, and writes out-of-place outputs allocated here.
 
-`fasgd_update` and `batched_scale_apply` take a whole tree in one launch on
-the card: the leaves go to the kernel in a table (`build.leaf_table`,
+The three server updates take a whole tree in one launch on the card: the
+leaves go to the kernel in a table (`build.leaf_table`,
 ``repro::LeafTable`` in ``csrc/common.cuh``) of at most `build.MAX_LEAVES`
 leaves of one dtype, so a longer tree, or one of mixed dtypes, takes one
 launch per such chunk (`_leaf_plan`).  Their per-leaf entries go through
@@ -56,6 +56,9 @@ _TERMS_MIN_TILE, _TERMS_MAX_TILE, _TERMS = 32, 256, 4096
 # Leaves below this many rows-path tiles take the terms path when K > 16:
 # the rows path would not give every SM of the card a block.
 _TERMS_BELOW_TILES = 132
+# csrc/fused_event_apply.cu's terms path stages a tile's K gradient rows
+# whole: at most this many floats (its kStageFloats), so K <= 256.
+_FUSED_STAGE = 8192
 
 
 def reset_launches() -> None:
@@ -259,85 +262,14 @@ def fasgd_update(params: Any, grads: Any, n: Any, b: Any, v: Any, lr, tau,
     return _unzip(params, outs)
 
 
-def _fused_event_apply_cuda(p, g, n, b, v, w, wm, t, lr, hp, gamma, beta, eps,
-                            variant, mode, track_stats):
-    dev, size, K = p.device, p.numel(), g.shape[0]
-    if p.dtype not in _DTYPE_CODE:
-        raise ValueError(f"params dtype {p.dtype} not supported by the kernel")
-    _check("params", p, device=dev, numel=size)
-    _check("grads", g, device=dev, numel=K * size, dtype=p.dtype)
-    for nm, x in (("n", n), ("b", b), ("v", v)):
-        _check(nm, x, device=dev, numel=size, dtype=torch.float32)
-    vecs = [torch.as_tensor(x, device=dev).to(torch.float32).contiguous()
-            for x in (w, wm, t)]
-    for nm, x in zip(("weights", "wmean", "taus"), vecs):
-        _check(nm, x, device=dev, numel=K)
-    hp = _scalar_f32(hp, dev)
-    po, no = torch.empty_like(p), torch.empty_like(n)
-    bo, vo = torch.empty_like(b), torch.empty_like(v)
-    with torch.cuda.device(dev):
-        rc = build.kernel("fused_event_apply")(
-            _DTYPE_CODE[p.dtype], int(mode == "fasgd"), int(track_stats),
-            int(variant == "literal"), p.data_ptr(), g.data_ptr(),
-            n.data_ptr(), b.data_ptr(), v.data_ptr(), vecs[0].data_ptr(),
-            vecs[1].data_ptr(), vecs[2].data_ptr(), hp.data_ptr(), lr, gamma,
-            1.0 - gamma, beta, 1.0 - beta, eps, K, size, po.data_ptr(),
-            no.data_ptr(), bo.data_ptr(), vo.data_ptr(), _stream(dev))
-    _raise_on(rc, "fused_event_apply")
-    DEVICE_LAUNCHES["fused_event_apply"] += 1
-    return po, no, bo, vo
-
-
-def fused_event_apply_leaf(p, g, n, b, v, weights, wmean, taus, has_push, *,
-                           lr, gamma=0.9, beta=0.9, eps=1e-8,
-                           variant="intent", mode="fasgd", track_stats=True):
-    """One K-event server apply on one leaf: (θ', n', b', v').
-
-    `g` is [K, *p.shape]; `weights`/`wmean`/`taus` are [K] and `has_push` a
-    scalar, all allowed to live on the device.
-    """
-    if mode not in ("coeff", "fasgd"):
-        raise ValueError(f"unknown mode {mode!r}")
-    if variant not in ("intent", "literal"):
-        raise ValueError(f"unknown variant {variant!r}")
-    LAUNCHES["fused_event_apply"] += 1
-    if _device_kind(p) == "cpu":
-        return ref.fused_event_apply_ref(
-            p, g, n, b, v, weights, wmean, taus, lr, has_push, gamma=gamma,
-            beta=beta, eps=eps, variant=variant, mode=mode,
-            track_stats=track_stats)
-    return _fused_event_apply_cuda(p, g, n, b, v, weights, wmean, taus, lr,
-                                   has_push, gamma, beta, eps, variant, mode,
-                                   track_stats)
-
-
-def fused_event_apply(params: Any, grads: Any, n: Any, b: Any, v: Any,
-                      weights, wmean, taus, has_push, *, lr, gamma=0.9,
-                      beta=0.9, eps=1e-8, variant="intent", mode="fasgd",
-                      track_stats=True):
-    """One-kernel K-event server apply over trees (one dispatch per leaf).
-
-    `grads` leaves carry a leading [K] event axis; `weights`/`wmean`/`taus`
-    ([K]) and `has_push` (scalar) are shared by every leaf (per-leaf
-    vectors belong to per-tensor gating, which is not ported yet).
-    `n`/`b`/`v` must be float32.  Returns (params', n', b', v') with the
-    statistics in float32.
-    """
-    outs = [fused_event_apply_leaf(
-        p, g, nn, bb, vv, weights, wmean, taus, has_push, lr=lr, gamma=gamma,
-        beta=beta, eps=eps, variant=variant, mode=mode,
-        track_stats=track_stats)
-        for p, g, nn, bb, vv in zip(leaves(params), leaves(grads), leaves(n),
-                                    leaves(b), leaves(v))]
-    return _unzip(params, outs)
-
-
-# The most events `csrc/batched_update.cu` takes (its kMaxEvents).
+# The most events `csrc/batched_update.cu` and `csrc/fused_event_apply.cu`
+# take (their kMaxEvents).
 MAX_BATCHED_EVENTS = 4096
 
 
 def _rows_tile(K: int) -> int:
-    """The elements a rows-path block of csrc/batched_update.cu owns."""
+    """The elements a rows-path block of csrc/batched_update.cu and
+    csrc/fused_event_apply.cu owns."""
     return 256 * (4 if K <= _WIDE_MAX_K else 2)
 
 
@@ -364,6 +296,168 @@ def _batched_plan(K: int, sizes, dtypes):
     return plan, tile, terms
 
 
+def _per_leaf(x, params, n):
+    """One entry per leaf: `x`'s leaves when it is a tree that mirrors
+    `params` (the reference's rule, `repro.kernels.ops.fused_event_apply`),
+    else `x` itself `n` times (a shared vector or scalar, or None)."""
+    if x is not None and same_structure(x, params):
+        return leaves(x)
+    return [x] * n
+
+
+def _device_vectors(dev):
+    """A converter of [K] vectors and scalars to contiguous float32 tensors
+    on `dev`, each converted once however many leaves share it (the value
+    is kept beside it so that its id is not reused meanwhile)."""
+    made = {}
+
+    def vec(name, x, numel):
+        if id(x) not in made:
+            t = torch.as_tensor(x, device=dev).to(torch.float32).contiguous()
+            _check(name, t, device=dev, numel=numel)
+            made[id(x)] = (t, x)
+        return made[id(x)][0]
+    return vec
+
+
+def _fused_plan(K: int, sizes, dtypes, terms=None):
+    """(launches as `_leaf_plan` gives them, the terms path's tile, which
+    leaves take it) of csrc/fused_event_apply.cu over leaves of `sizes`
+    and `dtypes` at K events: `_batched_plan`'s choice where the terms
+    path can stage a tile's K gradient rows whole (K <= 256), the rows
+    path for every leaf above.  `terms` (one bool per leaf) overrides the
+    choice, for timing a leaf on the path it would not take."""
+    tile, chosen = _batched_tiles(K, sizes)
+    if K * tile > _FUSED_STAGE:
+        chosen = [False] * len(sizes)
+    terms = chosen if terms is None else list(terms)
+    plan = _leaf_plan(sizes, [tile if x else _rows_tile(K) for x in terms],
+                      dtypes)
+    return plan, tile, terms
+
+
+def _fused_tree_cuda(ps, gs, ns, bs, vs, ws, wms, ts, hps, lr, gamma, beta,
+                     eps, variant, mode, track_stats, terms=None):
+    """Launch the tree kernel over the leaves `ps`, each with its own [K]
+    weights/wmean/τ and has_push (shared ones are one tensor); returns one
+    (θ', n', b', v') per leaf.  With track_stats off, n', b', v' are the
+    inputs n, b, v themselves, as in the plain version."""
+    dev = ps[0].device
+    K = gs[0].shape[0] if gs[0].dim() else 0
+    if not 1 <= K <= MAX_BATCHED_EVENTS:
+        raise ValueError(f"{K} events: the kernel takes 1 to "
+                         f"{MAX_BATCHED_EVENTS}")
+    vec = _device_vectors(dev)
+    rows = []
+    for p, g, n, b, v, w, wm, t, hp in zip(ps, gs, ns, bs, vs, ws, wms, ts,
+                                          hps):
+        if p.dtype not in _DTYPE_CODE:
+            raise ValueError(f"params dtype {p.dtype} not supported by the "
+                             f"kernel")
+        size = p.numel()
+        _check("params", p, device=dev, numel=size)
+        _check("grads", g, device=dev, numel=K * size, dtype=p.dtype)
+        for nm, x in (("n", n), ("b", b), ("v", v)):
+            _check(nm, x, device=dev, numel=size, dtype=torch.float32)
+        rows.append([p.data_ptr(), g.data_ptr(), n.data_ptr(), b.data_ptr(),
+                     v.data_ptr(), vec("weights", w, K).data_ptr(),
+                     vec("wmean", wm, K).data_ptr(),
+                     vec("taus", t, K).data_ptr(),
+                     vec("has_push", hp, 1).data_ptr()])
+    outs = [None] * len(ps)
+    for dtype, idx in _by_dtype(ps).items():
+        # θ' in θ's dtype and n', b', v' in float32: one buffer for all four
+        # when θ is float32
+        shapes = [ps[i].shape for i in idx]
+        if not track_stats:
+            new = _flat_outputs(shapes, dtype, 1, dev)
+            new += [[ns[i] for i in idx], [bs[i] for i in idx],
+                    [vs[i] for i in idx]]
+        elif dtype == torch.float32:
+            new = _flat_outputs(shapes, dtype, 4, dev)
+        else:
+            new = (_flat_outputs(shapes, dtype, 1, dev)
+                   + _flat_outputs(shapes, torch.float32, 3, dev))
+        for j, i in enumerate(idx):
+            outs[i] = tuple(o[j] for o in new)
+            rows[i] += [x.data_ptr() for x in outs[i]]
+    sizes = [p.numel() for p in ps]
+    plan, tile, terms = _fused_plan(K, sizes, [p.dtype for p in ps], terms)
+    fn = build.kernel("fused_event_apply")
+    stream = _stream(dev)
+    for chunk, starts in plan:
+        table = _table(build.FUSED_TABLE, [rows[i] for i in chunk],
+                       [sizes[i] for i in chunk], starts)
+        terms_leaves = sum(1 << j for j, i in enumerate(chunk) if terms[i])
+        with torch.cuda.device(dev):
+            rc = fn(_DTYPE_CODE[ps[chunk[0]].dtype], int(mode == "fasgd"),
+                    int(track_stats), int(variant == "literal"), table, lr,
+                    gamma, 1.0 - gamma, beta, 1.0 - beta, eps, K, tile,
+                    terms_leaves, stream)
+        _raise_on(rc, "fused_event_apply")
+        DEVICE_LAUNCHES["fused_event_apply"] += 1
+    return outs
+
+
+def _check_modes(mode, variant):
+    if mode not in ("coeff", "fasgd"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if variant not in ("intent", "literal"):
+        raise ValueError(f"unknown variant {variant!r}")
+
+
+def fused_event_apply_leaf(p, g, n, b, v, weights, wmean, taus, has_push, *,
+                           lr, gamma=0.9, beta=0.9, eps=1e-8,
+                           variant="intent", mode="fasgd", track_stats=True):
+    """One K-event server apply on one leaf: (θ', n', b', v').
+
+    `g` is [K, *p.shape]; `weights`/`wmean`/`taus` are [K] and `has_push` a
+    scalar, all allowed to live on the device.  On the card the leaf goes
+    through the tree kernel with a one-leaf table.
+    """
+    _check_modes(mode, variant)
+    LAUNCHES["fused_event_apply"] += 1
+    if _device_kind(p) == "cpu":
+        return ref.fused_event_apply_ref(
+            p, g, n, b, v, weights, wmean, taus, lr, has_push, gamma=gamma,
+            beta=beta, eps=eps, variant=variant, mode=mode,
+            track_stats=track_stats)
+    return _fused_tree_cuda([p], [g], [n], [b], [v], [weights], [wmean],
+                            [taus], [has_push], lr, gamma, beta, eps, variant,
+                            mode, track_stats)[0]
+
+
+def fused_event_apply(params: Any, grads: Any, n: Any, b: Any, v: Any,
+                      weights, wmean, taus, has_push, *, lr, gamma=0.9,
+                      beta=0.9, eps=1e-8, variant="intent", mode="fasgd",
+                      track_stats=True):
+    """One-kernel K-event server apply over trees: one launch on the card
+    for up to `build.MAX_LEAVES` leaves of one dtype, the plain version
+    leaf by leaf on the CPU.
+
+    `grads` leaves carry a leading [K] event axis.  `weights`/`wmean`/
+    `taus` ([K]) and `has_push` (a scalar) are each shared by every leaf,
+    or a tree that mirrors `params` with one per leaf (per-tensor gating
+    and staleness).  `n`/`b`/`v` must be float32.  Returns (params', n',
+    b', v') with the statistics in float32.
+    """
+    _check_modes(mode, variant)
+    ps = leaves(params)
+    k = len(ps)
+    trees = (ps, leaves(grads), leaves(n), leaves(b), leaves(v),
+             _per_leaf(weights, params, k), _per_leaf(wmean, params, k),
+             _per_leaf(taus, params, k), _per_leaf(has_push, params, k))
+    kw = dict(lr=lr, gamma=gamma, beta=beta, eps=eps, variant=variant,
+              mode=mode, track_stats=track_stats)
+    if not ps or _tree_kind(ps) == "cpu":
+        outs = [fused_event_apply_leaf(*leaf, **kw) for leaf in zip(*trees)]
+    else:
+        LAUNCHES["fused_event_apply"] += k
+        outs = _fused_tree_cuda(*trees, lr, gamma, beta, eps, variant, mode,
+                                track_stats)
+    return _unzip(params, outs)
+
+
 def _batched_tree_cuda(ps, gs, vs, cs, ts, ms, lr, eps, mode):
     """Launch the tree kernel over the leaves `ps`, each with its own [K]
     coeffs/τ/masks (`ms` all None for no mask); returns θ' per leaf."""
@@ -372,17 +466,7 @@ def _batched_tree_cuda(ps, gs, vs, cs, ts, ms, lr, eps, mode):
     if not 1 <= K <= MAX_BATCHED_EVENTS:
         raise ValueError(f"{K} events: the kernel takes 1 to "
                          f"{MAX_BATCHED_EVENTS}")
-    vecs = {}
-
-    def vec(name, x):
-        # a [K] float32 vector on the card, converted once if shared (x is
-        # kept beside it so that its id is not reused meanwhile)
-        if id(x) not in vecs:
-            t = torch.as_tensor(x, device=dev).to(torch.float32).contiguous()
-            _check(name, t, device=dev, numel=K)
-            vecs[id(x)] = (t, x)
-        return vecs[id(x)][0]
-
+    vec = _device_vectors(dev)
     rows = []
     for p, g, v, c, t, m in zip(ps, gs, vs, cs, ts, ms):
         if p.dtype not in _DTYPE_CODE:
@@ -393,8 +477,9 @@ def _batched_tree_cuda(ps, gs, vs, cs, ts, ms, lr, eps, mode):
         _check("grads", g, device=dev, numel=K * size, dtype=p.dtype)
         _check("v", v, device=dev, numel=size, dtype=torch.float32)
         rows.append([p.data_ptr(), g.data_ptr(), v.data_ptr(),
-                     vec("coeffs", c).data_ptr(), vec("taus", t).data_ptr(),
-                     None if m is None else vec("masks", m).data_ptr()])
+                     vec("coeffs", c, K).data_ptr(),
+                     vec("taus", t, K).data_ptr(),
+                     None if m is None else vec("masks", m, K).data_ptr()])
     fn = build.kernel("batched_update")
     outs = [None] * len(ps)
     for dtype, idx in _by_dtype(ps).items():
@@ -458,16 +543,9 @@ def batched_scale_apply(params: Any, grads: Any, v: Any, coeffs, taus, *,
     if mode not in ("coeff", "fasgd"):
         raise ValueError(f"unknown mode {mode!r}")
     ps = leaves(params)
-
-    def per_leaf(x):
-        if x is None:
-            return [None] * len(ps)
-        if same_structure(x, params):
-            return leaves(x)
-        return [x] * len(ps)
-
-    trees = (ps, leaves(grads), leaves(v), per_leaf(coeffs), per_leaf(taus),
-             per_leaf(masks))
+    k = len(ps)
+    trees = (ps, leaves(grads), leaves(v), _per_leaf(coeffs, params, k),
+             _per_leaf(taus, params, k), _per_leaf(masks, params, k))
     if not ps or _tree_kind(ps) == "cpu":
         outs = [batched_scale_apply_leaf(p, g, vv, c, t, masks=m, lr=lr,
                                          eps=eps, mode=mode)

@@ -135,6 +135,55 @@ def test_fused_apply(rule, kernel, all_dropped):
     assert engine.fused_kernel_active(cfg) == kernel
 
 
+BF16_THETA = dict(rtol=2 ** -7, atol=1e-6)   # one bf16 ulp
+
+
+@pytest.mark.parametrize("rule", ["asgd", "sasgd", "exp", "poly", "fasgd"])
+@pytest.mark.parametrize("kernel", [False, True])
+def test_fused_apply_bf16_params(rule, kernel):
+    """bf16 θ and gradients through `fused_apply` for every ported rule.
+
+    Both packages contract the event axis in float32 (the reference by
+    type promotion), so θ' comes back in the reference's dtype: float32
+    with the kernel off, bf16 with it on; the statistics are float32 in
+    both.  Statistics at the K-sum tolerance; θ' the same when float32 and
+    within one bf16 ulp when bf16 (the kernel rounds the float32 result
+    once in each package)."""
+    jcfg, cfg, js, ts = _pair(rule=rule, kernel=kernel)
+    bf = lambda tree: jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16),
+                                   tree)
+    js = js._replace(params=bf(js.params))
+    ts = ts._replace(params=params_from_numpy(
+        jax.tree.map(np.asarray, js.params), device="cpu"))
+    K = 8
+    grads = bf(_tree(13, 0.1, lead=(K,)))
+    push = np.array([1, 1, 0, 1, 0, 1, 1, 1], bool)
+    cts = np.array([9, 2, 2, 7, 0, 9, 4, 2], np.int32)
+    jnew, jtaus = jengine.fused_apply(jcfg, js, grads, jnp.asarray(push),
+                                      jnp.asarray(cts))
+    tnew, ttaus = engine.fused_apply(
+        cfg, ts, params_from_numpy(jax.tree.map(np.asarray, grads),
+                                   device="cpu"),
+        torch.from_numpy(push), torch.from_numpy(cts))
+    want_dtype = jax.tree.leaves(jnew.params)[0].dtype
+    assert want_dtype == (jnp.bfloat16 if kernel else jnp.float32)
+    for a in leaves(tnew.params):
+        assert a.dtype == (torch.bfloat16 if want_dtype == jnp.bfloat16
+                           else torch.float32)
+    for field in ("n", "b", "v"):
+        for a, e in zip(leaves(getattr(tnew, field)),
+                        jax.tree.leaves(getattr(jnew, field))):
+            assert a.dtype == torch.float32
+            np.testing.assert_allclose(a.numpy(), np.asarray(e),
+                                       err_msg=field, **KSUM)
+    tol = BF16_THETA if kernel else KSUM
+    for a, e in zip(leaves(to_numpy(tnew.params)),
+                    jax.tree.leaves(jnew.params)):
+        np.testing.assert_allclose(a, np.asarray(e, np.float32), **tol)
+    assert int(tnew.timestamp) == int(jnew.timestamp)
+    np.testing.assert_array_equal(ttaus.numpy(), np.asarray(jtaus))
+
+
 def test_dedup_events():
     ts = np.array([3, 1, 3, 0, 1, 3], np.int32)
     want = jengine.dedup_events(jnp.asarray(ts))

@@ -25,6 +25,7 @@ import torch
 from repro.kernels import ops as jops
 
 from repro_torch.kernels import ops, ref
+from repro_torch.utils.trees import leaves
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 
@@ -135,6 +136,98 @@ def test_fused_event_apply_bf16_params():
                                rtol=2e-2, atol=1e-2)
     np.testing.assert_allclose(got[3]["x"].numpy(), np.asarray(want[3]["x"]),
                                **F32)
+
+
+# a small MLP-shaped tree: leaves b0 w0 b1 w1 in JAX order
+TREE_SHAPES = [{"w": (20, 8), "b": (8,)}, {"w": (8, 3), "b": (3,)}]
+
+
+def _tree_window(K, seed, dtype):
+    """θ, g [K, ...] (in `dtype`), n, b, v over TREE_SHAPES as numpy, and
+    per-leaf push masks as weights, wmean, τ and has_push (0 on leaf 1,
+    w0), as lists in leaf order."""
+    rng = np.random.default_rng(seed)
+    shapes = [s for layer in TREE_SHAPES for s in (layer["b"], layer["w"])]
+    p, g, n, b, v = ([] for _ in range(5))
+    w, wm, t, hp = ([] for _ in range(4))
+    for i, s in enumerate(shapes):
+        pp, _, nn, bb, vv = _np(s, seed + i)
+        p.append(pp)
+        g.append((0.1 * rng.standard_normal((K,) + s)).astype(np.float32))
+        n.append(nn), b.append(bb), v.append(vv)
+        mask = (rng.random(K) < 0.7).astype(np.float32)
+        mask[0] = 1.0
+        w.append(mask * 0.01 / (1.0 + i))
+        wm.append(mask / mask.sum())
+        t.append(rng.integers(1, 40, K).astype(np.float32))
+        hp.append(i != 1)
+    return p, g, n, b, v, w, wm, t, hp
+
+
+def _mlp_tree(xs):
+    return [{"b": xs[0], "w": xs[1]}, {"b": xs[2], "w": xs[3]}]
+
+
+@pytest.mark.parametrize("mode", ["coeff", "fasgd"])
+@pytest.mark.parametrize("track_stats", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_event_apply_per_leaf_trees_match_pallas(mode, track_stats,
+                                                       dtype):
+    """Per-leaf weights/wmean/τ/has_push trees (has_push 0 on one leaf)
+    through the tree entry, against the reference's tree entry in
+    interpret mode on the same trees: fp32 rtol 1e-4 / atol 1e-6 (the
+    K-sums' order differs, as tests/test_one_kernel.py allows the
+    reference), bf16 θ' within one bf16 ulp."""
+    K = 5
+    p, g, n, b, v, w, wm, t, hp = _tree_window(K, 7, dtype)
+    kw = dict(lr=0.01, gamma=0.9, beta=0.9, eps=1e-8, variant="intent",
+              mode=mode, track_stats=track_stats)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    J = lambda xs, dt=None: _mlp_tree([jnp.asarray(x, dt) for x in xs])
+    want = jops.fused_event_apply(
+        J(p, jdt), J(g, jdt), J(n), J(b), J(v), J(w), J(wm), J(t),
+        _mlp_tree([jnp.asarray(x) for x in hp]), interpret=True, **kw)
+    T = lambda xs, dt=torch.float32: _mlp_tree(
+        [torch.from_numpy(x).to(dt) for x in xs])
+    ops.reset_launches()
+    got = ops.fused_event_apply(
+        T(p, tdt), T(g, tdt), T(n), T(b), T(v), T(w), T(wm), T(t),
+        _mlp_tree([torch.tensor(x) for x in hp]), **kw)
+    assert ops.LAUNCHES["fused_event_apply"] == 4
+    for j, (a_tree, e_tree) in enumerate(zip(got, want)):
+        for a, e in zip(leaves(a_tree), jax.tree.leaves(e_tree)):
+            if j == 0 and dtype == "bfloat16":
+                assert a.dtype == torch.bfloat16
+                e32 = _f32(e)
+                ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(e32),
+                                                          1e-30))) - 7)
+                assert np.all(np.abs(_f32(a) - e32) <= ulp), "θ' > 1 ulp"
+            else:
+                np.testing.assert_allclose(_f32(a), _f32(e), rtol=1e-4,
+                                           atol=1e-6, err_msg="θnbv"[j])
+    # leaf 1 pushed nothing: its statistics hold
+    for j, x in zip((1, 2, 3), (n, b, v)):
+        np.testing.assert_array_equal(leaves(got[j])[1].numpy(), x[1])
+
+
+def test_fused_event_apply_shared_vectors_equal_per_leaf_copies():
+    """Shared [K] vectors and has_push give what the same values copied
+    into per-leaf trees give, to the bit."""
+    K = 4
+    p, g, n, b, v, w, wm, t, _ = _tree_window(K, 11, "float32")
+    T = lambda xs: _mlp_tree([torch.from_numpy(x) for x in xs])
+    hp = torch.tensor(True)
+    for mode in ("coeff", "fasgd"):
+        shared = ops.fused_event_apply(
+            T(p), T(g), T(n), T(b), T(v), torch.from_numpy(w[0]),
+            torch.from_numpy(wm[0]), torch.from_numpy(t[0]), hp, lr=0.01,
+            mode=mode)
+        copies = ops.fused_event_apply(
+            T(p), T(g), T(n), T(b), T(v), T([w[0]] * 4), T([wm[0]] * 4),
+            T([t[0]] * 4), _mlp_tree([hp] * 4), lr=0.01, mode=mode)
+        for a_tree, e_tree in zip(shared, copies):
+            for a, e in zip(leaves(a_tree), leaves(e_tree)):
+                assert torch.equal(a, e)
 
 
 def test_tree_wrappers_follow_jax_leaf_order_and_count_launches():

@@ -91,7 +91,8 @@ def test_leaf_table_layout():
     """The ctypes tables have repro::LeafTable's layout: pointers [32][P],
     then sizes, block starts and the leaf count (the loader also checks the
     size against the library's on the card)."""
-    for struct, n_ptrs in ((build.FASGD_TABLE, 9), (build.BATCHED_TABLE, 7)):
+    for struct, n_ptrs in ((build.FASGD_TABLE, 9), (build.BATCHED_TABLE, 7),
+                           (build.FUSED_TABLE, 13)):
         ptr_bytes = build.MAX_LEAVES * n_ptrs * 8
         assert struct.size.offset == ptr_bytes
         assert struct.first_block.offset == ptr_bytes + 8 * build.MAX_LEAVES
@@ -126,6 +127,56 @@ def test_batched_paths(K):
               for n, x in zip(sizes, terms)]
     assert chunk == list(range(5))
     assert list(np.diff(starts)) == blocks
+
+
+def test_fused_table_and_signature():
+    """`fused_event_apply`'s table: 13 pointers a leaf (θ g n b v w wmean τ
+    has_push θ' n' b' v'), 3,856 bytes (32·13·8 + 32·8 + 33·8 + 8, the
+    size csrc/fused_event_apply.cu asserts), checked against the library at
+    load; the entry takes it by value."""
+    assert ctypes.sizeof(build.FUSED_TABLE) == 3856
+    assert build.TABLES["fused_event_apply"] == (
+        build.FUSED_TABLE, "repro_fused_event_apply_table_bytes")
+    symbol, argtypes = build.SIGNATURES["fused_event_apply"]
+    assert symbol == "repro_fused_event_apply"
+    assert argtypes[4] is build.FUSED_TABLE
+    assert argtypes.count(build.FUSED_TABLE) == 1
+    rows = [[1000 * l + j + 1 for j in range(13)] for l in range(2)]
+    t = ops._table(build.FUSED_TABLE, rows, [200, 156_800], [0, 7, 313])
+    assert [list(t.ptr[l]) for l in range(2)] == rows
+    assert list(t.first_block[:3]) == [0, 7, 313]
+
+
+@pytest.mark.parametrize("K", [1, 16, 17, 128, 256, 257, 4096])
+def test_fused_paths(K):
+    """`fused_event_apply` takes `batched_scale_apply`'s paths where its
+    terms path can stage a tile's K rows whole (K·tile <= 8192, so K <=
+    256): the MLP's small leaves on the terms path at 16 < K <= 256, w0
+    and the 2M leaf on the rows path; every leaf on the rows path at K <=
+    16 and above 256.  The plan gives each path's leaves that path's
+    tiles, and `terms` forces a path."""
+    sizes = [10, 200, 2000, 156_800, 2_097_152]
+    plan, tile, terms = ops._fused_plan(K, sizes, ["float32"] * 5)
+    assert terms == [16 < K <= 256] * 3 + [False, False]
+    if any(terms):
+        assert K * tile <= ops._FUSED_STAGE and 256 % tile == 0
+    (chunk, starts), = plan
+    rows_tile = 1024 if K <= 16 else 512
+    assert list(np.diff(starts)) == [-(-n // (tile if x else rows_tile))
+                                     for n, x in zip(sizes, terms)]
+    forced = ops._fused_plan(K, sizes, ["float32"] * 5, terms=[True] * 5)
+    assert forced[2] == [True] * 5
+    assert list(np.diff(forced[0][0][1])) == [-(-n // tile) for n in sizes]
+
+
+def test_fused_plan_launches_per_dtype_and_32_leaves():
+    """The 40-leaf tree takes one launch per dtype (and per 32 leaves): two
+    for one dtype, one each mixed."""
+    for dtypes, want in ((["float32"] * 40, 2), (["bfloat16"] * 40, 2),
+                         (DTYPES, 2)):
+        plan = ops._fused_plan(128, SIZES, dtypes)[0]
+        assert len(plan) == want
+        assert sorted(i for c, _ in plan for i in c) == list(range(40))
 
 
 def test_flat_outputs_are_aligned_disjoint_views():
@@ -234,3 +285,49 @@ def test_batched_scale_apply_tree_matches_leaves_and_jax(mode):
     for a, e, dt in zip(leaves(got), want, DTYPES):
         np.testing.assert_allclose(_f32(a), _f32(e),
                                    **(F32 if dt == "float32" else BF16))
+
+
+@pytest.mark.parametrize("mode", ["coeff", "fasgd"])
+def test_fused_event_apply_tree_matches_leaves_and_jax(mode):
+    """The 40-leaf tree (mixed dtypes) with per-leaf weights/wmean/τ and
+    has_push (0 on every third leaf) through the tree entry: on the CPU,
+    each leaf's plain version to the bit, one dispatch per leaf and no
+    kernel launch; against the reference's tree entry in interpret mode,
+    fp32 rtol 1e-4 / atol 1e-6 (K-sums in another order), bf16 θ as
+    above."""
+    K = 3
+    p, g, n, b, v = _tree(3, DTYPES, K=K)
+    rng = np.random.default_rng(4)
+    masks = [(rng.random(K) < 0.7).astype(np.float32) for _ in SIZES]
+    w = [0.01 * m for m in masks]
+    wm = [m / max(m.sum(), 1.0) for m in masks]
+    taus = [rng.integers(1, 40, K).astype(np.float32) for _ in SIZES]
+    hp = [i % 3 != 2 for i in range(40)]
+    tdt = [getattr(torch, d) for d in DTYPES]
+    T = torch.from_numpy
+    tp = [T(x).to(dt) for x, dt in zip(p, tdt)]
+    tg = [T(x).to(dt) for x, dt in zip(g, tdt)]
+    vecs = ([T(x) for x in w], [T(x) for x in wm], [T(x) for x in taus],
+            [torch.tensor(x) for x in hp])
+    stats = ([T(x) for x in n], [T(x) for x in b], [T(x) for x in v])
+    ops.reset_launches()
+    got = ops.fused_event_apply(tp, tg, *stats, *vecs, lr=0.01, mode=mode)
+    assert ops.LAUNCHES["fused_event_apply"] == 40
+    assert ops.DEVICE_LAUNCHES == dict.fromkeys(ops.DEVICE_LAUNCHES, 0)
+    for i in range(40):
+        want = ref.fused_event_apply_ref(
+            tp[i], tg[i], *(s[i] for s in stats), *(x[i] for x in vecs[:3]),
+            0.01, vecs[3][i], mode=mode)
+        for out, e in zip(got, want):
+            assert out[i].dtype == e.dtype and torch.equal(out[i], e)
+    J = lambda xs, dts=None: [jnp.asarray(x, jnp.dtype(dt)) if dts else
+                              jnp.asarray(x) for x, dt in zip(xs, dts or xs)]
+    want = jops.fused_event_apply(
+        J(p, DTYPES), J(g, DTYPES), J(n), J(b), J(v), J(w), J(wm), J(taus),
+        [jnp.asarray(x) for x in hp], lr=0.01, mode=mode, interpret=True)
+    for j in range(4):
+        for i, dt in enumerate(DTYPES):
+            tol = BF16 if j == 0 and dt == "bfloat16" else dict(rtol=1e-4,
+                                                                atol=1e-6)
+            np.testing.assert_allclose(_f32(got[j][i]), _f32(want[j][i]),
+                                       **tol)
