@@ -95,6 +95,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain version, `fused_event_apply` and, in 'coeff' mode, `torch.addmv`
    (the library yardstick, never called by the port).
 
+12. FRED, the rest of the server, at the full 784-200-10 width on the full
+   synthetic set: (a) the combined per-tensor arm, serial (λ=16, μ=8,
+   fasgd lr=0.005, per-tensor push and fetch, c_push=0.05, c_fetch=0.2,
+   'cache', kernel on, 2000 events; per-tensor τ keeps `fasgd_update` off,
+   so ``kernel_launches`` must equal `ops.LAUNCHES` at 0; push and fetch
+   bytes sent against potential printed); (b) per-tensor push with
+   whole-copy fetch (c_push=0.05, 'skip'): `fasgd_update` once per event;
+   (c) fused per-tensor push and fetch (λ=256, K=128, μ=4, 'cache', 40
+   windows): `fused_event_apply` once per window, then 8 windows from one
+   state with the kernel on and off, θ/n/b/v within KSUM_TOL, T, τ and
+   the counters equal; (d) Gap-Aware serial (500 events) and fused (40
+   windows); (e) SSGD and K-async (K=4 of 16), round-robin, 2000 events,
+   T = 125 rounds each.  Every run's validation cost must fall; (f) each
+   loop runs under ``set_sync_debug_mode('error')`` and is profiled as in
+   phase 6; (g) each run's events/s.  The launches of (b) and (c) join
+   the kernels' record.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -480,21 +497,15 @@ def fused_tree_case(ops, ref, ins, K, mode, track, vectors, what, tally):
     return out
 
 
-def run_main_path(label, cfg, ds, params, num_steps, eval_every, kernel,
-                  other):
-    """One run of `run_simulation` on the card with the launch counts set
-    to 0 just before it; `kernel` must run and `other` must not.  Its leaf
-    dispatches (`ops.LAUNCHES`) must equal the simulator's
-    ``kernel_launches`` and its kernel launches on the card
-    (`ops.DEVICE_LAUNCHES`) the number of applications, one launch each
-    whatever the leaves: ``kernel_events`` on the serial path (one per
-    event), ``kernel_events`` / K on the fused path (one per K-event
-    window).  Returns (kernel launches of `kernel`, events/s)."""
+def run_path(label, cfg, ds, params, num_steps, eval_every):
+    """One run of `run_simulation` on the card after a short warm-up, with
+    the launch counts set to 0 just before it; the validation cost must be
+    finite and fall, the server parameters finite.  Prints one line and
+    returns (out, seconds, leaf dispatches, kernel launches)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.mlp import nll_loss
     from repro_torch.sim.fred import run_simulation
-    from repro_torch.utils.rng import NativeDraws
     from repro_torch.utils.trees import leaves
     # warm-up (first use of each CUDA kernel, cuBLAS), not timed or counted
     warm = cfg.events_per_step * (1 if cfg.apply_mode == "fused" else 20)
@@ -512,14 +523,40 @@ def run_main_path(label, cfg, ds, params, num_steps, eval_every, kernel,
     device = dict(ops.DEVICE_LAUNCHES)
     c = out["counters"]
     curve = " ".join(f"{x:.4f}" for x in out["val_cost"])
+    kern = (f"; counters.kernel_launches {c['kernel_launches']:.0f}, "
+            f"kernel_events {c['kernel_events']:.0f}"
+            if "kernel_launches" in c else "")
     print(f"  {label}: {num_steps} events in {secs:.3f} s = "
           f"{num_steps / secs:.1f} events/s (evaluations included); "
           f"val cost {curve}; T={out['final_timestamp']}; "
           f"push {c['push_actual']:.0f}/{c['push_potential']:.0f}, fetch "
           f"{c['fetch_actual']:.0f}/{c['fetch_potential']:.0f}; "
-          f"leaf dispatches {launches}; kernel launches {device}; "
-          f"counters.kernel_launches {c['kernel_launches']:.0f}, "
-          f"kernel_events {c['kernel_events']:.0f}")
+          f"leaf dispatches {launches}; kernel launches {device}{kern}")
+    vals = out["val_cost"]
+    if not all(math.isfinite(x) for x in vals):
+        fail(f"{label}: non-finite validation cost {vals}")
+    if not all(bool(torch.isfinite(l).all())
+               for l in leaves(out["state"].server.params)):
+        fail(f"{label}: non-finite server parameters")
+    if not vals[-1] < vals[0]:
+        fail(f"{label}: validation cost did not fall: {vals}")
+    return out, secs, launches, device
+
+
+def run_main_path(label, cfg, ds, params, num_steps, eval_every, kernel,
+                  other):
+    """`run_path` on a path that must run `kernel` and not `other`: its leaf
+    dispatches (`ops.LAUNCHES`) must equal the simulator's
+    ``kernel_launches`` and its kernel launches on the card
+    (`ops.DEVICE_LAUNCHES`) the number of applications, one launch each
+    whatever the leaves: ``kernel_events`` on the serial path (one per
+    event), ``kernel_events`` / K on the fused path (one per K-event
+    window).  Returns (kernel launches of `kernel`, events/s)."""
+    import torch
+    from repro_torch.sim.fred import native_draws
+    out, secs, launches, device = run_path(label, cfg, ds, params, num_steps,
+                                           eval_every)
+    c = out["counters"]
     if not launches[kernel] == c["kernel_launches"] > 0:
         fail(f"{label}: ops.LAUNCHES[{kernel!r}]={launches[kernel]} vs "
              f"kernel_launches={c['kernel_launches']}")
@@ -531,18 +568,9 @@ def run_main_path(label, cfg, ds, params, num_steps, eval_every, kernel,
              f"{c['kernel_events']:.0f}, {per} events each)")
     if launches[other] != 0:
         fail(f"{label}: {other} ran on a path that should not")
-    vals = out["val_cost"]
-    if not all(math.isfinite(x) for x in vals):
-        fail(f"{label}: non-finite validation cost {vals}")
-    if not all(bool(torch.isfinite(l).all())
-               for l in leaves(out["state"].server.params)):
-        fail(f"{label}: non-finite server parameters")
-    if not vals[-1] < vals[0]:
-        fail(f"{label}: validation cost did not fall: {vals}")
     # the run's draws, made again as run_simulation made them (one
     # `NativeDraws.events` call per evaluation span, a host loop per event)
-    rng = NativeDraws(cfg.seed, cfg.num_clients, cfg.batch_size,
-                      ds.x_train.shape[0], cfg.dispatcher, cfg.het_skew)
+    rng = native_draws(cfg, ds.x_train.shape[0], len(MLP_SHAPES))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for start in range(0, num_steps, eval_every):
@@ -562,13 +590,11 @@ def breakdown(label, cfg, ds, params, n_events):
     to print the device's busy and idle share and its top kernels."""
     import torch
     from repro_torch.models.mlp import nll_loss
-    from repro_torch.sim.fred import build_step_fn, init_sim
-    from repro_torch.utils.rng import NativeDraws
+    from repro_torch.sim.fred import build_step_fn, init_sim, native_draws
     dev = ds.x_train.device
     state = init_sim(cfg, params)
     step = build_step_fn(cfg, nll_loss, ds.x_train, ds.y_train)
-    rng = NativeDraws(cfg.seed, cfg.num_clients, cfg.batch_size,
-                      ds.x_train.shape[0], cfg.dispatcher, cfg.het_skew)
+    rng = native_draws(cfg, ds.x_train.shape[0], len(MLP_SHAPES))
     K = cfg.events_per_step
     # the draws are made here, outside the loops below; run_simulation
     # makes them inside its timed run (run_main_path prints their share)
@@ -1413,6 +1439,184 @@ def phase_batched(ops, ref, dev, flush, bw, flops):
     return out
 
 
+def clone_sim(state):
+    """A copy of a `SimState` whose fleet arrays the loop may update in
+    place without touching `state`'s."""
+    import torch
+    from repro_torch.utils.trees import tree_map
+    c = lambda t: None if t is None else tree_map(torch.clone, t)
+    return state._replace(server=c(state.server),
+                          client_params=c(state.client_params),
+                          client_ts=c(state.client_ts),
+                          grad_cache=c(state.grad_cache),
+                          client_leaf_ts=c(state.client_leaf_ts),
+                          counters=c(state.counters))
+
+
+def kernel_on_off(label, cfg, ds, params, warm, windows):
+    """Drive `windows` fused windows twice from one state (after `warm`
+    windows with the kernel), with `fused_event_apply` on and with the
+    kernel off (the plain reduction in PyTorch ops on the card): the
+    server's θ, n, b, v must agree within phase 2's K-sum tolerance
+    (KSUM_TOL), T, every window's τ and the counters exactly.  Returns
+    the kernel launches of the 'on' run."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.mlp import nll_loss
+    from repro_torch.sim.fred import build_step_fn, init_sim, native_draws
+    from repro_torch.utils.trees import leaves
+    K = cfg.events_per_step
+    off = dataclasses.replace(cfg, server=dataclasses.replace(
+        cfg.server, use_fused_kernel=False))
+    steps = {name: build_step_fn(c, nll_loss, ds.x_train, ds.y_train)
+             for name, c in (("on", cfg), ("off", off))}
+    draws = native_draws(cfg, ds.x_train.shape[0], len(MLP_SHAPES)).events(
+        0, (warm + windows) * K, ds.x_train.device)
+    state = init_sim(cfg, params)
+    for w in range(warm):
+        state, _ = steps["on"](state, draws.window(w * K, (w + 1) * K))
+    runs = {}
+    for name, step in steps.items():
+        ops.reset_launches()
+        st, taus = clone_sim(state), []
+        for w in range(warm, warm + windows):
+            st, m = step(st, draws.window(w * K, (w + 1) * K))
+            taus.append(m["tau"])
+        torch.cuda.synchronize()
+        runs[name] = (st, torch.cat(taus), ops.DEVICE_LAUNCHES[
+            "fused_event_apply"])
+    (on, tau_on, n_on), (off_st, tau_off, n_off) = runs["on"], runs["off"]
+    if n_on != windows or n_off != 0:
+        fail(f"{label}: fused_event_apply launched {n_on} times with the "
+             f"kernel on and {n_off} off, want {windows} and 0")
+    if int(on.server.timestamp) != int(off_st.server.timestamp):
+        fail(f"{label}: T {int(on.server.timestamp)} with the kernel, "
+             f"{int(off_st.server.timestamp)} without")
+    if not torch.equal(tau_on, tau_off):
+        fail(f"{label}: τ differs between the kernel and the plain path")
+    c_on = {k: float(v) for k, v in on.counters._asdict().items()}
+    c_off = {k: float(v) for k, v in off_st.counters._asdict().items()}
+    c_off["kernel_launches"] = c_on["kernel_launches"]   # kernel path only
+    c_off["kernel_events"] = c_on["kernel_events"]
+    if c_on != c_off:
+        fail(f"{label}: counters differ: {c_on} vs {c_off}")
+    errs = []
+    for field in ("params", "n", "b", "v"):
+        for a, b in zip(leaves(getattr(on.server, field)),
+                        leaves(getattr(off_st.server, field))):
+            e = (a.float() - b.float()).abs()
+            if not bool(torch.all(e <= KSUM_TOL["atol"] + KSUM_TOL["rtol"]
+                                  * b.float().abs())):
+                fail(f"{label}: {field} differs beyond rtol "
+                     f"{KSUM_TOL['rtol']:g} / atol {KSUM_TOL['atol']:g}: "
+                     f"max|Δ| {float(e.max()):.3e}")
+            errs.append((field, float(e.max())))
+    worst = {f: max(e for g, e in errs if g == f) for f, _ in errs}
+    print(f"  {label}: {windows} windows from one state, kernel on "
+          f"({n_on} launches) vs off: T={int(on.server.timestamp)}, τ and "
+          f"counters equal; max|Δ| " + ", ".join(
+              f"{f} {e:.2e}" for f, e in worst.items())
+          + f" (rtol {KSUM_TOL['rtol']:g}, atol {KSUM_TOL['atol']:g}) ok")
+
+
+def phase_rest_of_server(ds, params, K):
+    """Phase 12: the rest of FRED's server at the full 784-200-10 width on
+    the full synthetic set — per-tensor gating (serial and fused, push and
+    fetch) and the Gap-Aware, SSGD and K-async rules.  Returns the kernel
+    launches of `fasgd_update` and `fused_event_apply` on its main runs and
+    each run's events/s."""
+    import dataclasses
+    from repro_torch.core.bandwidth import BandwidthConfig
+    from repro_torch.core.rules import ServerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.sim.fred import SimConfig
+    print("phase 12: FRED, the rest of the server (per-tensor gating, "
+          "gap, ssgd, kasync)")
+    quick = dict(num_clients=16, batch_size=8, seed=0)
+    wide = dict(num_clients=256, batch_size=4, seed=0, events_per_step=K,
+                apply_mode="fused")
+    fasgd = ServerConfig(rule="fasgd", lr=0.005, use_fused_kernel=True)
+    combined = BandwidthConfig(c_push=0.05, c_fetch=0.2, drop_policy="cache",
+                               per_tensor_push=True, per_tensor_fetch=True)
+    rates, loops = {}, {}
+
+    # (a) the fig3 combined per-tensor arm, serial
+    label = "(a) serial per-tensor push+fetch, cache"
+    cfg = SimConfig(server=fasgd, bandwidth=combined, **quick)
+    out, secs, launches, _ = run_path(label, cfg, ds, params, 2000, 500)
+    c = out["counters"]
+    if not sum(launches.values()) == c["kernel_launches"] == 0:
+        fail(f"{label}: ops.LAUNCHES {launches} vs kernel_launches "
+             f"{c['kernel_launches']} (per-tensor τ keeps the kernel off)")
+    sent = c["push_bytes_sent"] + c["fetch_bytes_sent"]
+    total = c["push_bytes_total"] + c["fetch_bytes_total"]
+    print(f"  {label}: push bytes {c['push_bytes_sent']:.0f} of "
+          f"{c['push_bytes_total']:.0f} "
+          f"({c['push_bytes_sent'] / c['push_bytes_total']:.4f}), fetch "
+          f"bytes {c['fetch_bytes_sent']:.0f} of {c['fetch_bytes_total']:.0f}"
+          f" ({c['fetch_bytes_sent'] / c['fetch_bytes_total']:.4f}); total "
+          f"reduction {total / sent:.2f}x; kernel_launches "
+          f"{c['kernel_launches']:.0f} = ops.LAUNCHES")
+    rates[label], loops[label] = 2000 / secs, cfg
+
+    # (b) per-tensor push, whole-copy fetch: the fasgd_update kernel
+    label = "(b) serial per-tensor push, skip"
+    cfg = SimConfig(server=fasgd, bandwidth=BandwidthConfig(
+        c_push=0.05, drop_policy="skip", per_tensor_push=True), **quick)
+    n_fasgd, rates[label] = run_main_path(label, cfg, ds, params, 2000, 500,
+                                          "fasgd_update", "fused_event_apply")
+    loops[label] = cfg
+
+    # (c) fused per-tensor push+fetch: fused_event_apply with per-leaf τ
+    label = "(c) fused per-tensor push+fetch, cache"
+    cfg = SimConfig(server=dataclasses.replace(fasgd, lr=0.0025),
+                    bandwidth=combined, **wide)
+    n_fused, rates[label] = run_main_path(label, cfg, ds, params, 40 * K,
+                                          10 * K, "fused_event_apply",
+                                          "fasgd_update")
+    loops[label] = cfg
+    kernel_on_off("(c) kernel on/off", cfg, ds, params, 4, 8)
+
+    # (d) Gap-Aware, serial and fused
+    gap = ServerConfig(rule="gap", lr=0.005)
+    label = "(d) gap serial"
+    cfg = SimConfig(server=gap, **quick)
+    rates[label] = 500 / run_path(label, cfg, ds, params, 500, 250)[1]
+    loops[label] = cfg
+    label = "(d) gap fused"
+    cfg = SimConfig(server=gap, **wide)
+    rates[label] = 40 * K / run_path(label, cfg, ds, params, 40 * K,
+                                     10 * K)[1]
+    loops[label] = cfg
+
+    # (e) the barrier rules, round-robin: one round per 16 arrivals
+    for rule, kw in (("ssgd", {}), ("kasync", dict(kasync_k=4))):
+        label = f"(e) {rule} serial round-robin" + (
+            f", K={kw['kasync_k']} of 16" if kw else "")
+        cfg = SimConfig(server=ServerConfig(rule=rule, lr=0.05,
+                                            num_clients=16, **kw),
+                        dispatcher="roundrobin", **quick)
+        out, secs, launches, _ = run_path(label, cfg, ds, params, 2000, 500)
+        if out["final_timestamp"] != 2000 // 16:
+            fail(f"{label}: T={out['final_timestamp']}, want "
+                 f"{2000 // 16} rounds")
+        if sum(launches.values()):
+            fail(f"{label}: a kernel ran ({launches})")
+        rates[label], loops[label] = 2000 / secs, cfg
+
+    # (f) no host sync in any of these loops, and where their time goes
+    print("  (f) each loop under torch.cuda.set_sync_debug_mode('error'), "
+          "then profiled:")
+    for label, cfg in loops.items():
+        fused = cfg.apply_mode == "fused"
+        breakdown(f"{label[1]}_{cfg.apply_mode}_{cfg.server.rule}"
+                  + ("_per_tensor" if cfg.bandwidth.per_tensor else ""),
+                  cfg, ds, params, 2 * K if fused else 24)
+    ops.reset_launches()
+    return n_fasgd, n_fused, rates
+
+
 def main() -> int:
     """Run the phases in order; 0 when every one passed."""
     import torch
@@ -1544,12 +1748,16 @@ def main() -> int:
     serving_breakdown(serving)
     # --- phase 11: batched_scale_apply and its tree entry point ---
     batched = phase_batched(ops, ref, dev, flush, bw, flops)
+    # --- phase 12: the rest of FRED's server ---
+    n_fasgd12, n_fused12, rates12 = phase_rest_of_server(ds, params, K)
+    print(f"  (g) events/s on {smi} (evaluations included): " + "; ".join(
+        f"{label} {r:.1f}" for label, r in rates12.items()))
 
     kernels = [
         dict(name="fasgd_update", route="cuda",
              source="src/repro_torch/kernels/csrc/fasgd_update.cu",
              replaces="src/repro/kernels/fasgd_update.py:50",
-             launches=n_serial + n_gated,
+             launches=n_serial + n_gated + n_fasgd12,
              max_abs_err=errs["fasgd_update"], ms=fu_ms, plain_ms=fu_plain,
              bound_ms=fu_bound,
              bound_by="bytes" if fu_bytes / bw >= fu_ops / flops
@@ -1557,7 +1765,8 @@ def main() -> int:
         dict(name="fused_event_apply", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_event_apply.cu",
              replaces="src/repro/kernels/fused_event_apply.py:89",
-             launches=n_fused, max_abs_err=errs["fused_event_apply"],
+             launches=n_fused + n_fused12,
+             max_abs_err=errs["fused_event_apply"],
              library_ms=None, **fused),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -2,22 +2,26 @@
 `repro.core.engine`.
 
 - **gates** — the B-FASGD eq. 9 push/fetch decisions (`transmit_gate`),
-  against uniforms the caller draws through the RNG seam;
+  against uniforms the caller draws through the RNG seam: one for the
+  whole copy, or one per tensor (`per_tensor_gate`, §5);
 - **gated application** — one server update under a push decision with the
   FRED drop policies (`apply_gated`: 'cache' re-applies the client's last
-  transmitted gradient, 'skip' masks the whole update);
+  transmitted gradient, 'skip' masks the update; both leaf by leaf under a
+  per-leaf decision);
 - **serial application** — pushed gradients applied one at a time in event
   order (`serial_apply`);
 - **fused application** — one masked-sum update over a K-event window
   (`fused_apply`), through the one-kernel CUDA path
-  (`kernels.ops.fused_event_apply`) for rules with a batched kernel mode;
+  (`kernels.ops.fused_event_apply`) for rules with a batched kernel mode,
+  with per-leaf masks and staleness handed to the kernel leaf by leaf;
 - **event dedup and scatter** — `dedup_events`, `last_event_winners`,
   `last_event_scatter`;
 - **bookkeeping** — push/fetch opportunity `Counters`.
 
-Every decision stays on the device: gating is `torch.where`, never a host
-branch on a tensor.  Per-tensor (§5) masks and timestamps and the cotangent
-fused path wait for a later slice.
+A decision is one device bool (or [K] of them) for the whole tree, or a
+tree of them mirroring the parameters (`is_per_leaf`).  Every decision
+stays on the device: gating is `torch.where`, never a host branch on a
+tensor.  The cotangent fused path waits for a later slice.
 """
 from __future__ import annotations
 
@@ -26,10 +30,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import rules as server_rules
-from repro_torch.core.bandwidth import transmit_prob
+from repro_torch.core.bandwidth import per_tensor_transmit_mask, transmit_prob
 from repro_torch.core.rules import ServerConfig, ServerState
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.trees import leaves, tree_map, unflatten
+from repro_torch.utils.trees import leaves, same_structure, tree_map, unflatten
 
 
 # ---------------------------------------------------------------------------
@@ -53,10 +57,33 @@ def tree_where_axis(pred, a, b):
                                  x, y), a, b)
 
 
-def _reject_per_leaf(x, what):
-    if isinstance(x, (list, tuple, dict)):
-        raise NotImplementedError(
-            f"per-tensor {what} (§5) is not ported to repro_torch yet")
+def is_per_leaf(x, like) -> bool:
+    """True iff `x` is a tree of per-leaf values mirroring `like` (not one
+    value shared by the whole tree)."""
+    return same_structure(x, like)
+
+
+def tree_select(mask_tree, a, b):
+    """Leaf-aligned select: `mask_tree` mirrors `a`/`b`, leaves broadcast."""
+    return tree_map(lambda m, x, y: torch.where(m, x, y), mask_tree, a, b)
+
+
+def tree_select_axis(mask_tree, a, b):
+    """Per-leaf per-row select: each mask leaf is [K] over the leading axis
+    of the matching `a`/`b` leaf."""
+    return tree_map(
+        lambda m, x, y: torch.where(
+            m.reshape((-1,) + (1,) * (x.dim() - 1)), x, y), mask_tree, a, b)
+
+
+def any_leaf(mask_tree):
+    """OR over the leaves of a per-leaf bool tree: one mask (scalar or
+    [K]) for the whole tree."""
+    ls = leaves(mask_tree)
+    out = ls[0]
+    for m in ls[1:]:
+        out = out | m
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -122,16 +149,21 @@ def count_kernel(counters: Counters, launches: int, events: int) -> Counters:
 
 
 def fused_kernel_active(scfg: ServerConfig) -> bool:
-    """`fused_apply` routes through the one-kernel path."""
+    """`fused_apply` routes through the one-kernel path: a rule with a
+    batched kernel mode and no per-leaf gap tensors."""
     rule = server_rules.get_rule(scfg.rule)
     return bool(scfg.use_fused_kernel
-                and rule.batched_kernel_mode is not None)
+                and rule.batched_kernel_mode is not None
+                and not rule.needs_client_params)
 
 
-def serial_kernel_active(scfg: ServerConfig) -> bool:
-    """Serial `apply_update` routes through the rule's single-push kernel."""
+def serial_kernel_active(scfg: ServerConfig,
+                         per_tensor_tau: bool = False) -> bool:
+    """Serial `apply_update` routes through the rule's single-push kernel,
+    which takes a scalar τ only: per-tensor staleness keeps it off."""
     rule = server_rules.get_rule(scfg.rule)
-    return bool(scfg.use_fused_kernel and rule.kernel_op is not None)
+    return bool(scfg.use_fused_kernel and rule.kernel_op is not None
+                and not per_tensor_tau)
 
 
 # ---------------------------------------------------------------------------
@@ -149,28 +181,76 @@ def transmit_gate(u, server: ServerState, c, eps):
     return u < transmit_prob(server_rules.vbar(server), c, eps)
 
 
+def per_tensor_gate(u, server: ServerState, c, eps):
+    """§5: one eq.-9 decision per parameter tensor, against that tensor's
+    own v̄ (both directions).  `u` is [n_leaves] for one event or [K,
+    n_leaves] for a window.  Returns (mask tree mirroring the params with
+    scalar or [K] leaves, transmitted bytes, total bytes); c = 0 transmits
+    every leaf."""
+    return per_tensor_transmit_mask(u, server.v, c, eps)
+
+
 # ---------------------------------------------------------------------------
 # gated application — one event
 # ---------------------------------------------------------------------------
 
+def _merge_extra(extra_old, extra_new, push, like, any_push):
+    """Per-leaf merge of the rule's `ServerState.extra`: entries that mirror
+    the params tree (gap's ĝ EMA) follow the per-leaf mask; anything else
+    (counts, buffers) takes the new value iff any leaf pushed."""
+    if extra_old is None:
+        return extra_new
+    if isinstance(extra_old, dict):
+        return {k: (tree_select(push, extra_new[k], sub)
+                    if same_structure(sub, like)
+                    else tree_where(any_push, extra_new[k], sub))
+                for k, sub in extra_old.items()}
+    return tree_where(any_push, extra_new, extra_old)
+
+
+def merge_gated_state(old: ServerState, cand: ServerState,
+                      push) -> ServerState:
+    """Per-leaf 'skip': keep the candidate update only on the pushed leaves
+    (parameters and their statistics); T advances iff any leaf pushed.  Not
+    meaningful for the barrier rules, whose configurations refuse it."""
+    any_push = torch.stack([m.any() for m in leaves(push)]).any()
+    return ServerState(
+        params=tree_select(push, cand.params, old.params),
+        timestamp=torch.where(any_push, cand.timestamp, old.timestamp),
+        n=tree_select(push, cand.n, old.n),
+        b=tree_select(push, cand.b, old.b),
+        v=tree_select(push, cand.v, old.v),
+        extra=_merge_extra(old.extra, cand.extra, push, old.params, any_push),
+    )
+
+
 def apply_gated(scfg: ServerConfig, server: ServerState, grad, push, grad_ts,
-                *, cached_grad=None):
-    """One server application under a (device bool) push decision.
+                *, client_params=None, cached_grad=None):
+    """One server application under a push decision: one device bool for
+    the whole gradient, or a per-leaf tree of them (§5 per-tensor push).
 
-    cached_grad is not None → 'cache': a dropped push re-applies that
-      client's most recent transmitted gradient, so the server still moves
-      and T still advances.
+    cached_grad is not None → 'cache': a dropped push (or dropped leaf)
+      re-applies that client's most recent transmitted gradient (leaf), so
+      the server still moves and T still advances.
     cached_grad is None     → 'skip' (or no gating): a dropped push masks
-      the whole update out.  The candidate is computed all the same (and its
-      kernel launched), then discarded by `torch.where`.
+      the update out — the whole state for one decision, leaf by leaf for
+      a per-leaf one (T then advances iff any leaf pushed).  The candidate
+      is computed all the same (and its kernel launched), then discarded
+      by `torch.where`.
 
-    Returns (new_server, aux).
+    `client_params` is the copy the gradient was computed on (gap-aware
+    rules measure against it).  Returns (new_server, aux).
     """
-    _reject_per_leaf(push, "push gating")
+    per_leaf = is_per_leaf(push, server.params)
     if cached_grad is not None:
-        g_eff = tree_where(push, grad, cached_grad)
-        return server_rules.apply_update(scfg, server, g_eff, grad_ts)
-    cand, aux = server_rules.apply_update(scfg, server, grad, grad_ts)
+        g_eff = (tree_select(push, grad, cached_grad) if per_leaf
+                 else tree_where(push, grad, cached_grad))
+        return server_rules.apply_update(scfg, server, g_eff, grad_ts,
+                                         client_params=client_params)
+    cand, aux = server_rules.apply_update(scfg, server, grad, grad_ts,
+                                          client_params=client_params)
+    if per_leaf:
+        return merge_gated_state(server, cand, push), aux
     return tree_where(push, cand, server), aux
 
 
@@ -179,16 +259,21 @@ def apply_gated(scfg: ServerConfig, server: ServerState, grad, push, grad_ts,
 # ---------------------------------------------------------------------------
 
 def serial_apply(scfg: ServerConfig, server: ServerState, grads, push,
-                 grad_ts):
+                 grad_ts, client_params=None):
     """Apply pushed gradients one at a time in event order (lock = order).
 
-    `grads` leaves are [K, ...]; `push`/`grad_ts` are [K].  Returns
-    (server, taus [K]).
+    `grads` leaves are [K, ...]; `push`/`grad_ts` are [K], or per-leaf trees
+    with [K] leaves (per-tensor push / staleness); `client_params`
+    (optional, [K, ...] leaves) feeds the gap-aware rule.  Returns (server,
+    taus [K]).
     """
     taus = []
-    for k in range(push.shape[0]):
-        server, aux = apply_gated(scfg, server, tree_index(grads, k), push[k],
-                                  grad_ts[k])
+    for k in range(leaves(grads)[0].shape[0]):
+        row = lambda tree: tree_index(tree, k)
+        server, aux = apply_gated(
+            scfg, server, row(grads), row(push), row(grad_ts),
+            client_params=(None if client_params is None
+                           else row(client_params)))
         taus.append(aux["tau"])
     return server, torch.stack(taus)
 
@@ -198,74 +283,144 @@ def serial_apply(scfg: ServerConfig, server: ServerState, grads, push,
 # ---------------------------------------------------------------------------
 
 def fused_apply(scfg: ServerConfig, server: ServerState, grads, push,
-                client_ts):
+                client_ts, client_params=None):
     """One masked-sum application of all pushed gradients.
 
-    `grads` leaves are [K, ...]; `push`/`client_ts` are [K].  Stats (n, b,
-    v) advance once with the mean pushed gradient iff `scfg.track_stats` or
-    the rule requires them; the weight delta Σ_k m_k·scale(v, τ_k)·g_k is
-    taken against the post-stats v; T advances by the number of pushes.
-    With `scfg.use_fused_kernel` and a rule with a batched kernel mode, the
-    whole application is one `kernels.ops.fused_event_apply` call over the
-    tree (one kernel launch on the card), which advances n/b/v too.
+    `grads` leaves are [K, ...].  `push` is [K], or a per-leaf tree of [K]
+    masks (per-tensor push: T advances by the events that pushed any
+    leaf); `client_ts` is [K], or a per-leaf tree of [K] timestamps
+    (per-tensor staleness).  Stats (n, b, v, extra) advance once with the
+    mean pushed gradient (per leaf under per-leaf masks, where a leaf no
+    event pushed keeps its statistics) iff `scfg.track_stats` or the rule
+    requires them; the weight delta Σ_k m_k·scale(v, τ_k)·g_k is taken
+    against the post-stats v; `client_params` ([K, ...] leaves) gives the
+    gap-aware rule its θ_T − θ_ts.  With `scfg.use_fused_kernel` and a
+    rule with a batched kernel mode, the application is one
+    `kernels.ops.fused_event_apply` call over the tree (one kernel launch
+    on the card), which gets each leaf's own w/wmean/τ/has_push under
+    per-leaf masks or staleness, and advances n/b/v too where the rule
+    keeps the shared statistics and no `extra`.
 
-    Returns (server, taus [K]).
+    Returns (server, taus [K] — averaged over leaves under per-leaf
+    staleness).
     """
     rule = server_rules.get_rule(scfg.rule)
-    _reject_per_leaf(push, "push gating")
-    _reject_per_leaf(client_ts, "timestamps")
+    if not rule.supports_fused:
+        raise ValueError(
+            f"rule {scfg.rule!r} does not support the fused apply mode")
+    per_leaf_push = is_per_leaf(push, server.params)
+    per_leaf_ts = is_per_leaf(client_ts, server.params)
     track_stats = scfg.track_stats or rule.requires_stats
-    n_push = push.to(torch.int32).sum()
-    pushf = push.to(torch.float32)
-    has_push = n_push > 0
 
-    use_kernel = fused_kernel_active(scfg)
-    # every ported rule uses the shared eq. 4-6 statistics, so on the kernel
-    # path the kernel advances them in the same launch as the delta
-    kernel_stats = use_kernel and track_stats
+    if per_leaf_push:
+        pushf = tree_map(lambda m: m.to(torch.float32), push)
+        # an event is a server update iff it transmitted at least one leaf
+        n_push = any_leaf(push).to(torch.int32).sum()
+        n_push_leaf = tree_map(lambda m: m.to(torch.int32).sum(), push)
+    else:
+        n_push = push.to(torch.int32).sum()
+        pushf = push.to(torch.float32)
+
+    gap = None
+    if rule.needs_client_params and client_params is not None:
+        # per-event parameter-space divergence θ_T − θ_ts, leaves [K, ...]
+        gap = tree_map(lambda sp, cp: sp[None].float() - cp.float(),
+                       server.params, client_params)
+
+    use_kernel = (scfg.use_fused_kernel
+                  and rule.batched_kernel_mode is not None and gap is None)
+    # the kernel advances the statistics itself only where they are the
+    # shared eqs. 4-6 with no `extra` to merge
+    kernel_stats = (
+        use_kernel and track_stats and server.extra is None
+        and type(rule).update_stats is server_rules.UpdateRule.update_stats)
 
     if track_stats and not kernel_stats:
-        mean_g = tree_map(
-            lambda g: torch.einsum("c,c...->...", pushf, g.float())
-            / torch.clamp(n_push, min=1), grads)
-        stats_state = server_rules._shared_stats(scfg, server, mean_g)
-        server = tree_where(has_push, stats_state, server)
+        if per_leaf_push:
+            mean_g = tree_map(
+                lambda m, g, n: torch.einsum("c,c...->...", m, g.float())
+                / torch.clamp(n, min=1), pushf, grads, n_push_leaf)
+            stats_state = rule.update_stats(scfg, server, mean_g)
+            has_push_leaf = tree_map(lambda n: n > 0, n_push_leaf)
+            server = server._replace(
+                n=tree_select(has_push_leaf, stats_state.n, server.n),
+                b=tree_select(has_push_leaf, stats_state.b, server.b),
+                v=tree_select(has_push_leaf, stats_state.v, server.v),
+                extra=_merge_extra(server.extra, stats_state.extra,
+                                   has_push_leaf, server.params, n_push > 0))
+        else:
+            mean_g = tree_map(
+                lambda g: torch.einsum("c,c...->...", pushf, g.float())
+                / torch.clamp(n_push, min=1), grads)
+            stats_state = rule.update_stats(scfg, server, mean_g)
+            server = tree_where(n_push > 0, stats_state, server)
 
-    taus = server_rules.step_staleness(server.timestamp, client_ts)   # [K]
+    if per_leaf_ts:
+        taus_tree = tree_map(
+            lambda ts: server_rules.step_staleness(server.timestamp, ts),
+            client_ts)                                        # leaves [K]
+        taus = server_rules.mean_leaf_tau(taus_tree)          # [K]
+    else:
+        taus = server_rules.step_staleness(server.timestamp, client_ts)
+
+    n_leaves = len(leaves(server.params))
+    t_leaves = leaves(taus_tree) if per_leaf_ts else [taus] * n_leaves
+    m_leaves = leaves(pushf) if per_leaf_push else [pushf] * n_leaves
 
     if use_kernel:
         from repro_torch.kernels.ops import fused_event_apply
-        weights = (rule.fused_coeffs(scfg, taus) * pushf
-                   if rule.batched_kernel_mode == "coeff" else pushf)
-        wmean = pushf / torch.clamp(n_push, min=1)
+        if rule.batched_kernel_mode == "coeff":
+            w_leaves = [rule.fused_coeffs(scfg, t) * m
+                        for t, m in zip(t_leaves, m_leaves)]
+        else:
+            w_leaves = m_leaves
+        if per_leaf_push:
+            np_leaves = leaves(n_push_leaf)
+            wm_leaves = [m / torch.clamp(c, min=1)
+                         for m, c in zip(m_leaves, np_leaves)]
+            hp_leaves = [c > 0 for c in np_leaves]
+        else:
+            wm_leaves = [pushf / torch.clamp(n_push, min=1)] * n_leaves
+            hp_leaves = [n_push > 0] * n_leaves
+        unfl = lambda ls: unflatten(server.params, ls)
         f32 = lambda tr: tree_map(lambda l: l.float(), tr)
+        # one [K] tensor shared by every leaf is handed over once
         new_params, n_new, b_new, v_new = fused_event_apply(
             server.params, tree_map(torch.Tensor.contiguous, grads),
-            f32(server.n), f32(server.b), f32(server.v), weights, wmean,
-            taus, has_push, lr=scfg.lr, gamma=scfg.gamma, beta=scfg.beta,
-            eps=scfg.eps, variant=scfg.variant,
-            mode=rule.batched_kernel_mode, track_stats=kernel_stats)
+            f32(server.n), f32(server.b), f32(server.v), unfl(w_leaves),
+            unfl(wm_leaves), unfl(t_leaves), unfl(hp_leaves), lr=scfg.lr,
+            gamma=scfg.gamma, beta=scfg.beta, eps=scfg.eps,
+            variant=scfg.variant, mode=rule.batched_kernel_mode,
+            track_stats=kernel_stats)
         if kernel_stats:
             cast = lambda new, old: tree_map(lambda a, o: a.to(o.dtype),
                                              new, old)
             server = server._replace(
                 n=cast(n_new, server.n), b=cast(b_new, server.b),
                 v=cast(v_new, server.v))
-    elif rule.batched_kernel_mode == "coeff":
-        # v-independent scale: one contraction over the event axis per leaf
-        w = rule.fused_coeffs(scfg, taus) * pushf
-        # contracted in float32, as the reference's type promotion does:
-        # bf16 θ comes back float32
-        new_params = tree_map(
-            lambda p, g: p - torch.einsum("k,k...->...", w, g.float()),
-            server.params, grads)
+    elif rule.batched_kernel_mode == "coeff" and gap is None:
+        # v-independent scale: one contraction over the event axis per leaf,
+        # in float32 as the reference's type promotion does (bf16 θ comes
+        # back float32)
+        new_params = unflatten(server.params, [
+            p - torch.einsum("k,k...->...", rule.fused_coeffs(scfg, t) * m,
+                             g.float())
+            for p, g, t, m in zip(leaves(server.params), leaves(grads),
+                                  t_leaves, m_leaves)])
     else:
+        v_leaves = leaves(server.v)
+        gap_leaves = (leaves(gap) if gap is not None
+                      else [None] * len(v_leaves))
+        e_leaves = server_rules.extra_leaf_dicts(server.extra, server.v)
         deltas = []
-        for v_leaf, g_leaf in zip(leaves(server.v), leaves(grads)):
+        for v_leaf, g_leaf, e_leaf, gap_leaf, t_leaf, m_leaf in zip(
+                v_leaves, leaves(grads), e_leaves, gap_leaves, t_leaves,
+                m_leaves):
             expand = (-1,) + (1,) * v_leaf.dim()
-            scale = rule.scale_leaf(scfg, v_leaf[None], taus.reshape(expand))
-            m = pushf.reshape(expand)
-            deltas.append(torch.sum(m * scale * g_leaf, dim=0))
+            scale = rule.scale_leaf(scfg, v_leaf[None], t_leaf.reshape(expand),
+                                    extra=e_leaf, gap=gap_leaf)
+            deltas.append(torch.sum(m_leaf.reshape(expand) * scale * g_leaf,
+                                    dim=0))
         new_params = tree_map(torch.subtract, server.params,
                               unflatten(server.params, deltas))
     server = server._replace(params=new_params,
@@ -334,14 +489,21 @@ def scatter_rows_(leaf, clients, values, source):
 
 def last_event_scatter(tree, clients, values, eligible):
     """Scatter per-event `values` ([K, ...] leaves) into per-client `tree`
-    ([λ, ...] leaves) with last-eligible-event-wins semantics.
+    ([λ, ...] leaves) with last-eligible-event-wins semantics.  `eligible`
+    is one [K] mask for every leaf, or a per-leaf tree of [K] masks (per-
+    tensor push: each leaf of the gradient cache advances only where that
+    leaf was transmitted).
 
     Updates `tree`'s leaves in place (the fleet arrays are owned by the
     simulation loop, and a copy would cost a fleet-sized write per window)
     and returns it.  The reference's `num_slots` (its out-of-range drop
     index) has no use here: every duplicate index writes one value.
     """
-    _reject_per_leaf(eligible, "push gating")
+    if is_per_leaf(eligible, tree):
+        tree_map(lambda l, v, e: scatter_rows_(
+            l, clients, v, last_event_source(clients, e)),
+            tree, values, eligible)
+        return tree
     source = last_event_source(clients, eligible)
     tree_map(lambda l, v: scatter_rows_(l, clients, v, source), tree, values)
     return tree

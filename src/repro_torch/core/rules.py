@@ -1,14 +1,26 @@
 """Server update rules as a pluggable registry, ported from `repro.core.rules`.
 
-Ported: ASGD, SASGD, exponential penalty, polynomial decay and FASGD — the
-five rules with a batched kernel mode.  Gap-Aware, synchronous SGD and
-K-async wait for a later slice; `get_rule` raises `NotImplementedError` for
-them.
+All eight rules of the reference: ASGD, SASGD, exponential penalty,
+polynomial decay and FASGD (the five with a batched kernel mode),
+Gap-Aware, synchronous SGD and K-async (the round-barrier rules).
 
 A rule is an `UpdateRule` subclass registered by name; the server state is
-a tree of tensors (`ServerState`), as in the reference.  Rules are plain
-functions over tensors and never leave the device: the staleness τ stays a
-device scalar.
+a tree of tensors (`ServerState`), as in the reference.  A rule declares
+
+* ``init_extra_state(config, params)`` — rule-private state kept in
+  ``ServerState.extra`` (gap's ĝ EMA, the barrier rules' pending sum);
+* ``update_stats(config, state, grad)`` — one statistics step (the shared
+  eqs. 4–6 unless overridden);
+* ``scale_leaf(config, v, tau, extra, gap)`` — the per-leaf effective
+  learning rate, broadcastable so that one body serves one gradient
+  (``v: [*s]``, scalar τ) and the fused K-event batch (``v: [1, *s]``,
+  ``tau: [K, 1, ...]``, ``gap: [K, *s]``);
+* flags: ``synchronous``, ``needs_client_params``, ``requires_stats``,
+  ``supports_fused``, ``coeffs_are_v_independent``, ``v_separable``.
+
+Rules are plain functions over tensors and never leave the device: the
+staleness τ stays a device scalar, and the barrier rules decide whether a
+round is complete with `torch.where`, never with a host branch.
 
 Eq. (6) as printed averages the *inverse* std; ``variant="intent"``
 (default) averages the std itself, ``variant="literal"`` the printed form —
@@ -21,12 +33,10 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.staleness import step_staleness
-from repro_torch.utils.trees import leaves, tree_map
+from repro_torch.core.staleness import mean_leaf_tau, step_staleness
+from repro_torch.utils.trees import leaves, same_structure, tree_map, unflatten
 
 _REGISTRY: Dict[str, "UpdateRule"] = {}
-# rules of the reference that this package does not have yet
-_NOT_PORTED = ("gap", "ssgd", "kasync")
 
 
 def register_rule(name: str):
@@ -47,10 +57,6 @@ def get_rule(name: str) -> "UpdateRule":
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"update rule {name!r} is not ported to repro_torch yet; "
-                f"ported: {registered_rules()}") from None
         raise KeyError(
             f"unknown update rule {name!r}; registered: {registered_rules()}"
         ) from None
@@ -79,30 +85,40 @@ class ServerConfig:
     kappa: float = 0.15         # exp-penalty strength: lr * exp(-kappa * tau)
     poly_power: float = 0.5     # 'poly' exponent p in lr / tau**p
     track_stats: bool = True    # maintain n/b/v even for non-FASGD rules
+    num_clients: int = 1        # the barrier rules' round size λ
     use_fused_kernel: bool = False  # route updates through the CUDA kernels
+    kasync_k: int = 0           # kasync's partial barrier K (0 → num_clients)
 
     def __post_init__(self):
         get_rule(self.rule)
         if self.variant not in ("intent", "literal"):
             raise ValueError(f"unknown variant {self.variant!r}")
+        if self.kasync_k < 0:
+            raise ValueError(f"kasync_k={self.kasync_k} must be >= 0")
+        if self.kasync_k > max(self.num_clients, 1):
+            raise ValueError(
+                f"kasync_k={self.kasync_k} exceeds num_clients="
+                f"{self.num_clients} (set num_clients to the fleet size)")
 
 
 class ServerState(NamedTuple):
     """Canonical parameters + timestamp + FASGD statistics.
 
-    `n`, `b`, `v` mirror the params tree.  The reference's rule-private
-    `extra` state belongs to rules not ported yet (gap, ssgd, kasync).
+    `n`, `b`, `v` mirror the params tree; `extra` holds the rule's private
+    state from `UpdateRule.init_extra_state` (None for rules without).
     """
     params: Any
     timestamp: torch.Tensor         # int32 scalar on the params' device, "T"
     n: Any                          # MA of g^2        (eq. 4)
     b: Any                          # MA of g          (eq. 5)
     v: Any                          # MA of std        (eq. 6; see variant)
+    extra: Any = None               # rule-specific (gap: ĝ EMA; ssgd: pending)
 
 
 def init(config: ServerConfig, params) -> ServerState:
     """Fresh `ServerState`: T = 0, n = b = 0, v = 1 (so the first FASGD
-    updates are ~plain ASGD instead of dividing by ~0)."""
+    updates are ~plain ASGD instead of dividing by ~0), plus the rule's
+    `init_extra_state`."""
     device = leaves(params)[0].device
     return ServerState(
         params=params,
@@ -110,6 +126,7 @@ def init(config: ServerConfig, params) -> ServerState:
         n=tree_map(torch.zeros_like, params),
         b=tree_map(torch.zeros_like, params),
         v=tree_map(torch.ones_like, params),
+        extra=get_rule(config.rule).init_extra_state(config, params),
     )
 
 
@@ -118,8 +135,7 @@ def _std(config: ServerConfig, n_leaf, b_leaf):
 
 
 def _shared_stats(config: ServerConfig, state: ServerState, grad) -> ServerState:
-    """Eqs. 4–6: one moving-average step with gradient `grad` (the
-    statistics step of every ported rule)."""
+    """Eqs. 4–6: one moving-average step with gradient `grad`."""
     g, be = config.gamma, config.beta
     n = tree_map(lambda m, x: g * m + (1 - g) * x * x, state.n, grad)
     b = tree_map(lambda m, x: g * m + (1 - g) * x, state.b, grad)
@@ -134,11 +150,40 @@ def _shared_stats(config: ServerConfig, state: ServerState, grad) -> ServerState
     return state._replace(n=n, b=b, v=v)
 
 
-def effective_scale(config: ServerConfig, state: ServerState, tau):
+def _tau_tree(state: ServerState, tau):
+    """A scalar staleness broadcast to a per-leaf tree; a per-leaf tree
+    (per-tensor staleness, §5) is returned as it is."""
+    if same_structure(tau, state.v):
+        return tau
+    return tree_map(lambda _: tau, state.v)
+
+
+def extra_leaf_dicts(extra, like):
+    """`ServerState.extra` sliced into one dict per leaf for `scale_leaf`:
+    only the entries whose tree mirrors `like` (the params/v tree), leaf by
+    leaf; scalars and other buffers are the rule's own apply state."""
+    n_leaves = len(leaves(like))
+    if not isinstance(extra, dict):
+        return [None] * n_leaves
+    mirrored = {k: leaves(sub) for k, sub in extra.items()
+                if same_structure(sub, like)}
+    if not mirrored:
+        return [None] * n_leaves
+    return [{k: ls[i] for k, ls in mirrored.items()} for i in range(n_leaves)]
+
+
+def effective_scale(config: ServerConfig, state: ServerState, tau, gap=None):
     """Per-parameter learning-rate tree for one gradient with staleness τ
-    (a scalar; per-tensor staleness waits for a later slice)."""
+    (a scalar or a per-leaf tree); `gap` optionally carries θ_T − θ_ts per
+    leaf for the gap-aware rule."""
     rule = get_rule(config.rule)
-    return tree_map(lambda v: rule.scale_leaf(config, v, tau), state.v)
+    v_leaves = leaves(state.v)
+    t_leaves = leaves(_tau_tree(state, tau))
+    gap_leaves = leaves(gap) if gap is not None else [None] * len(v_leaves)
+    e_leaves = extra_leaf_dicts(state.extra, state.v)
+    return unflatten(state.v, [
+        rule.scale_leaf(config, v, t, extra=e, gap=g)
+        for v, t, e, g in zip(v_leaves, t_leaves, e_leaves, gap_leaves)])
 
 
 def _mean_scale(scale) -> torch.Tensor:
@@ -146,11 +191,20 @@ def _mean_scale(scale) -> torch.Tensor:
     return sum(torch.sum(s) for s in ls) / float(sum(s.numel() for s in ls))
 
 
+def _gap_tree(state: ServerState, client_params):
+    """Parameter-space divergence θ_T − θ_ts of the pushing client."""
+    return tree_map(lambda sp, cp: sp.float() - cp.float(), state.params,
+                    client_params)
+
+
 class UpdateRule:
     """Base class for server update rules; subclass + `@register_rule`."""
 
     name: str = "?"
-    requires_stats: bool = False
+    synchronous: bool = False        # apply() buffers until a round completes
+    needs_client_params: bool = False  # scale uses the gap θ_T − θ_ts
+    requires_stats: bool = False     # rule consumes n/b/v (or extra stats)
+    supports_fused: bool = True      # usable in the engine's fused apply
     # Name of the single-push kernel in `kernels.ops` (the reference's
     # `pallas_op`).
     kernel_op: Optional[str] = None
@@ -161,24 +215,48 @@ class UpdateRule:
     # The fused update needs only Σ_k w_k·g_k with v-independent scalar w_k
     # (the reference's cotangent-path eligibility).
     coeffs_are_v_independent: bool = False
+    # The fused scale factorizes as a per-event scalar times one elementwise
+    # v-factor (fasgd); the reference's cotangent path serves such rules on
+    # request only.
+    v_separable: bool = False
+
+    def barrier_k(self, config: ServerConfig) -> int:
+        """Arrivals per round a synchronous rule waits for: λ for a full
+        barrier, ``kasync_k`` for the K-async partial barrier."""
+        return max(config.num_clients, 1)
 
     def fused_coeffs(self, config: ServerConfig, taus):
         """Per-event scalar effective lr [K] for the 'coeff' mode."""
         raise NotImplementedError(self.name)
 
-    def scale_leaf(self, config: ServerConfig, v, tau):
-        """Per-leaf effective lr; broadcasts `v` against `tau` (a scalar, or
-        [K, 1, ...] for the fused per-event batch)."""
+    def init_extra_state(self, config: ServerConfig, params):
+        """Rule-private state kept in `ServerState.extra` (or None).  Entries
+        whose tree mirrors `params` are merged per leaf under per-tensor
+        gating; anything else follows the whole-update decision."""
+        return None
+
+    def update_stats(self, config: ServerConfig, state: ServerState, grad):
+        """One statistics step (default: the shared eqs. 4-6)."""
+        return _shared_stats(config, state, grad)
+
+    def scale_leaf(self, config: ServerConfig, v, tau, extra=None, gap=None):
+        """Per-leaf effective lr; broadcasts `v` against `tau` and `gap`."""
         raise NotImplementedError(self.name)
 
     def apply(self, config: ServerConfig, state: ServerState, grad, tau,
-              tau_scalar):
-        """One server update: stats step, scale, SGD step, T ← T + 1."""
-        if config.use_fused_kernel and self.kernel_op is not None:
+              tau_scalar, client_params=None):
+        """One server update: stats step, scale, SGD step, T ← T + 1.  The
+        single-push kernel takes a scalar τ only (as in the reference)."""
+        per_tensor_tau = same_structure(tau, state.params)
+        if (config.use_fused_kernel and self.kernel_op is not None
+                and not per_tensor_tau):
             return self._apply_kernel(config, state, grad, tau, tau_scalar)
         if config.track_stats or self.requires_stats:
-            state = _shared_stats(config, state, grad)
-        scale = effective_scale(config, state, tau)
+            state = self.update_stats(config, state, grad)
+        gap = (_gap_tree(state, client_params)
+               if self.needs_client_params and client_params is not None
+               else None)
+        scale = effective_scale(config, state, tau, gap=gap)
         new_params = tree_map(
             lambda p, s, g: (p.float() - s * g.float()).to(p.dtype),
             state.params, scale, grad)
@@ -202,7 +280,7 @@ class AsgdRule(UpdateRule):
     batched_kernel_mode = "coeff"
     coeffs_are_v_independent = True
 
-    def scale_leaf(self, config, v, tau):
+    def scale_leaf(self, config, v, tau, extra=None, gap=None):
         """Constant α broadcast over the leaf (eq. 1)."""
         return torch.full(_bshape(v, tau), config.lr, dtype=torch.float32,
                           device=v.device)
@@ -219,7 +297,7 @@ class SasgdRule(UpdateRule):
     batched_kernel_mode = "coeff"
     coeffs_are_v_independent = True
 
-    def scale_leaf(self, config, v, tau):
+    def scale_leaf(self, config, v, tau, extra=None, gap=None):
         """α/τ broadcast over the leaf (eq. 2)."""
         return torch.broadcast_to(config.lr / _f32(tau, v), _bshape(v, tau))
 
@@ -235,7 +313,7 @@ class ExpPenaltyRule(UpdateRule):
     batched_kernel_mode = "coeff"
     coeffs_are_v_independent = True
 
-    def scale_leaf(self, config, v, tau):
+    def scale_leaf(self, config, v, tau, extra=None, gap=None):
         """α·e^{−κ(τ−1)} broadcast over the leaf."""
         t = _f32(tau, v)
         return torch.broadcast_to(
@@ -253,7 +331,7 @@ class PolyRule(UpdateRule):
     batched_kernel_mode = "coeff"
     coeffs_are_v_independent = True
 
-    def scale_leaf(self, config, v, tau):
+    def scale_leaf(self, config, v, tau, extra=None, gap=None):
         """α/τ^p broadcast over the leaf."""
         t = _f32(tau, v)
         return torch.broadcast_to(config.lr / t ** config.poly_power,
@@ -271,8 +349,9 @@ class FasgdRule(UpdateRule):
     requires_stats = True
     kernel_op = "fasgd_update"
     batched_kernel_mode = "fasgd"
+    v_separable = True
 
-    def scale_leaf(self, config, v, tau):
+    def scale_leaf(self, config, v, tau, extra=None, gap=None):
         """α/(v·τ + ε) elementwise in the std moving average v (eq. 7)."""
         return config.lr / (v * _f32(tau, v) + config.eps)
 
@@ -283,7 +362,7 @@ class FasgdRule(UpdateRule):
     def _apply_kernel(self, config, state, grad, tau, tau_scalar):
         # Ports `FasgdRule._apply_pallas`: eqs. 4-8 in one pass per leaf
         # through `kernels.ops.fasgd_update` (the CUDA kernel on the card,
-        # its plain version on the CPU).
+        # its plain version on the CPU), with a scalar τ.
         from repro_torch.kernels.ops import fasgd_update
         f32 = lambda tr: tree_map(lambda l: l.float(), tr)
         new_params, n_new, b_new, v_new = fasgd_update(
@@ -298,20 +377,170 @@ class FasgdRule(UpdateRule):
         return new_state, {"tau": tau_scalar, "mean_scale": _mean_scale(scale)}
 
 
+@register_rule("gap")
+class GapAwareRule(UpdateRule):
+    """Gap-Aware staleness mitigation (Barkai et al., arXiv:1909.10802).
+
+    Penalizes a stale gradient by the parameter-space gap it was computed
+    across: C = max(1, |θ_T − θ_ts| / ĝ) elementwise, with ĝ an EMA of the
+    typical per-step movement α·|g|; the effective lr is α / C.  With no
+    client copy to measure against (``gap=None``) the penalty is 1 (ASGD).
+    """
+
+    needs_client_params = True
+    requires_stats = True
+
+    def init_extra_state(self, config, params):
+        """ĝ EMA of the per-step parameter movement (float32 zeros)."""
+        return {"gbar": tree_map(
+            lambda l: torch.zeros(l.shape, dtype=torch.float32,
+                                  device=l.device), params)}
+
+    def update_stats(self, config, state, grad):
+        """Shared eq. 4-6 step plus the ĝ EMA of α·|g| (Barkai et al. §4)."""
+        state = _shared_stats(config, state, grad)
+        gbar = tree_map(
+            lambda m, g: (config.gamma * m + (1 - config.gamma) * config.lr
+                          * torch.abs(g.float())),
+            state.extra["gbar"], grad)
+        return state._replace(extra={"gbar": gbar})
+
+    def scale_leaf(self, config, v, tau, extra=None, gap=None):
+        """α / max(1, |gap|/ĝ) elementwise; α (ASGD) when no gap is given."""
+        shape = _bshape(v, tau)
+        if gap is None or extra is None:
+            return torch.full(shape, config.lr, dtype=torch.float32,
+                              device=v.device)
+        penalty = torch.clamp(torch.abs(gap) / (extra["gbar"] + config.eps),
+                              min=1.0)
+        return torch.broadcast_to(
+            config.lr / penalty,
+            torch.broadcast_shapes(shape, penalty.shape))
+
+
+def _barrier_step(config, state, pending, count, k):
+    """The barrier rules' round: θ ← θ − α·pending/k, pending ← 0, count ← 0
+    and T ← T + 1 where ``count >= k``, else all kept — selected on the
+    device with `torch.where`.  Returns (params, pending, count, T, full)."""
+    full = count >= k
+    params = tree_map(
+        lambda p, s: torch.where(full, p - config.lr * s / k, p),
+        state.params, pending)
+    pending = tree_map(
+        lambda s: torch.where(full, torch.zeros_like(s), s), pending)
+    count = torch.where(full, torch.zeros_like(count), count)
+    ts = torch.where(full, state.timestamp + 1, state.timestamp)
+    return params, pending, count, ts, full
+
+
+@register_rule("ssgd")
+class SsgdRule(UpdateRule):
+    """Synchronous SGD barrier: buffer gradients, step once per full round."""
+
+    synchronous = True
+    supports_fused = False
+
+    def init_extra_state(self, config, params):
+        """Pending-gradient buffer (mirrors params) + arrival count."""
+        device = leaves(params)[0].device
+        return {"pending": tree_map(torch.zeros_like, params),
+                "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def scale_leaf(self, config, v, tau, extra=None, gap=None):
+        """α/λ broadcast over the leaf (the per-round mean step)."""
+        return torch.full(_bshape(v, tau),
+                          config.lr / max(config.num_clients, 1),
+                          dtype=torch.float32, device=v.device)
+
+    def apply(self, config, state, grad, tau, tau_scalar, client_params=None):
+        """Buffer `grad`; step θ once `num_clients` gradients arrived."""
+        pending = tree_map(torch.add, state.extra["pending"], grad)
+        params, pending, count, ts, full = _barrier_step(
+            config, state, pending, state.extra["count"] + 1,
+            config.num_clients)
+        new_state = state._replace(params=params, timestamp=ts,
+                                   extra={"pending": pending, "count": count})
+        if config.track_stats:
+            new_state = self.update_stats(config, new_state, grad)
+        return new_state, {"tau": tau_scalar, "applied": full}
+
+
+@register_rule("kasync")
+class KAsyncRule(UpdateRule):
+    """K-async partial barrier (Dutta et al., arXiv:1803.01113 §3).
+
+    Each round of λ = ``num_clients`` consecutive arrivals (the ``seen``
+    cursor) steps θ ← θ − α·(Σ g)/K over its first K = ``kasync_k``
+    arrivals and discards the rest, statistics included.  ``kasync_k = 0``
+    means K = λ, which is `ssgd`.
+    """
+
+    synchronous = True
+    supports_fused = False
+
+    def _k(self, config: ServerConfig) -> int:
+        return config.kasync_k or max(config.num_clients, 1)
+
+    def barrier_k(self, config: ServerConfig) -> int:
+        """Partial-barrier round size K (``kasync_k``, 0 → λ)."""
+        return self._k(config)
+
+    def init_extra_state(self, config, params):
+        """Pending buffer + taken-count + round-arrival cursor ``seen``."""
+        device = leaves(params)[0].device
+        zero = lambda: torch.zeros((), dtype=torch.int32, device=device)
+        return {"pending": tree_map(torch.zeros_like, params),
+                "count": zero(), "seen": zero()}
+
+    def scale_leaf(self, config, v, tau, extra=None, gap=None):
+        """α/K broadcast over the leaf (the per-round mean over the K kept)."""
+        return torch.full(_bshape(v, tau), config.lr / self._k(config),
+                          dtype=torch.float32, device=v.device)
+
+    def apply(self, config, state, grad, tau, tau_scalar, client_params=None):
+        """Accumulate the first K arrivals of the round; discard the rest."""
+        k = self._k(config)
+        lam = max(config.num_clients, 1)
+        seen = state.extra["seen"]
+        take = seen < k
+        pending = tree_map(lambda acc, g: torch.where(take, acc + g, acc),
+                           state.extra["pending"], grad)
+        params, pending, count, ts, full = _barrier_step(
+            config, state, pending,
+            state.extra["count"] + take.to(torch.int32), k)
+        seen = torch.where(seen + 1 >= lam, torch.zeros_like(seen), seen + 1)
+        new_state = state._replace(
+            params=params, timestamp=ts,
+            extra={"pending": pending, "count": count, "seen": seen})
+        if config.track_stats:
+            # a discarded arrival never reached the server: its statistics
+            # are dropped with it
+            tracked = self.update_stats(config, new_state, grad)
+            new_state = tree_map(lambda a, b: torch.where(take, a, b),
+                                 tracked, new_state)
+        return new_state, {"tau": tau_scalar, "applied": full}
+
+
 def apply_update(config: ServerConfig, state: ServerState, grad,
-                 grad_timestamp):
+                 grad_timestamp, *, client_params=None):
     """One server update (the Async SGD protocol's step 2 + FASGD eqs. 4-8).
 
-    Returns (new_state, aux) with the staleness and the mean effective lr.
-    `grad_timestamp` is a scalar; per-tensor timestamps (§5) wait for a
-    later slice.
+    Returns (new_state, aux) with the staleness and, for the asynchronous
+    rules, the mean effective lr.  `grad_timestamp` is a scalar or a
+    per-tensor tree (§5; τ is then per leaf and aux's τ their mean).
+    `client_params` is the copy the gradient was computed on, which the
+    gap-aware rule measures the divergence against.  A synchronous rule
+    accumulates and moves θ once a round is complete.
     """
-    if isinstance(grad_timestamp, (list, tuple, dict)):
-        raise NotImplementedError(
-            "per-tensor timestamps (§5) are not ported to repro_torch yet")
     rule = get_rule(config.rule)
-    tau = step_staleness(state.timestamp, grad_timestamp)
-    return rule.apply(config, state, grad, tau, tau)
+    if same_structure(grad_timestamp, state.params):
+        tau = tree_map(lambda ts: step_staleness(state.timestamp, ts),
+                       grad_timestamp)
+        tau_scalar = mean_leaf_tau(tau)
+    else:
+        tau = tau_scalar = step_staleness(state.timestamp, grad_timestamp)
+    return rule.apply(config, state, grad, tau, tau_scalar,
+                      client_params=client_params)
 
 
 def vbar(state: ServerState) -> torch.Tensor:
@@ -319,4 +548,3 @@ def vbar(state: ServerState) -> torch.Tensor:
     ls = leaves(state.v)
     total = sum(torch.sum(l.float()) for l in ls)
     return total / float(sum(l.numel() for l in ls))
-

@@ -34,8 +34,11 @@ def params_from_numpy(params, device=None):
     return tree_map(lambda a: _tensor(a, device), params)
 
 
-def server_state_from_numpy(params, T, n, b, v, device=None) -> ServerState:
-    """A `ServerState` from numpy trees: params, timestamp T, statistics, on
+def server_state_from_numpy(params, T, n, b, v, device=None,
+                            extra=None) -> ServerState:
+    """A `ServerState` from numpy trees: params, timestamp T, statistics and
+    the rule's `extra` state (gap's ``{"gbar": tree}``, the barrier rules'
+    ``{"pending": tree, "count": int32, "seen": int32}``, or None), on
     `device` (the card unless the caller passes another)."""
     device = resolve_device(device)
     return ServerState(
@@ -43,12 +46,13 @@ def server_state_from_numpy(params, T, n, b, v, device=None) -> ServerState:
         timestamp=torch.tensor(int(T), dtype=torch.int32, device=device),
         n=params_from_numpy(n, device),
         b=params_from_numpy(b, device),
-        v=params_from_numpy(v, device))
+        v=params_from_numpy(v, device),
+        extra=None if extra is None else params_from_numpy(extra, device))
 
 
 def to_numpy(tree):
-    """Every tensor leaf of `tree` (a `ServerState` too) as a numpy array;
-    bfloat16 comes back as float32, which numpy lacks."""
+    """Every tensor leaf of `tree` (a `ServerState` too, `extra` included)
+    as a numpy array; bfloat16 comes back as float32, which numpy lacks."""
     def one(t):
         if t.dtype == torch.bfloat16:
             t = t.float()

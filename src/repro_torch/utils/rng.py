@@ -8,7 +8,9 @@ fetch keys.  `jax.random` cannot be reproduced in torch, so the port asks a
 * the client each event dispatches (uniform and heterogeneous dispatchers;
   round-robin needs no draw),
 * the event's minibatch row indices,
-* the uniforms its push gate and its fetch gate compare against eq. 9.
+* the uniforms its push gate and its fetch gate compare against eq. 9:
+  one per event for whole-copy gating, one per parameter tensor (in leaf
+  order) for per-tensor gating (§5) in that direction.
 
 Two providers share that interface.  `NativeDraws` is counter-based: each
 event's draws come from a `torch.Generator` seeded from ``(seed, event
@@ -32,8 +34,10 @@ class Draws(NamedTuple):
 
     clients: torch.Tensor     # [E] int64 — dispatched client (unused by rr)
     idx: torch.Tensor         # [E, μ] int64 — minibatch rows
-    push_u: torch.Tensor      # [E] float32 — uniforms of the push gate
-    fetch_u: torch.Tensor     # [E] float32 — uniforms of the fetch gate
+    # uniforms of the push and fetch gates: [E] float32, or [E, n_leaves]
+    # in a direction gated per tensor
+    push_u: torch.Tensor
+    fetch_u: torch.Tensor
 
     def window(self, lo: int, hi: int) -> "Draws":
         """The draws of events ``[lo, hi)`` of this run (views, no copy)."""
@@ -64,16 +68,29 @@ class NativeDraws:
 
     The heterogeneous dispatcher's per-client speed logits are drawn once
     from ``seed ^ 0x5EED``, as in the reference.
+
+    Under per-tensor gating the `n_leaves` uniforms of a direction so gated
+    (push first) come from the event's generator after its whole-copy
+    draws, in the same call as the two whole-copy gate uniforms (the CPU
+    generator fills a tensor in sequence, so those two keep their values):
+    the client, the minibatch and a whole-copy run's stream do not change
+    when per-tensor gating is turned on or off.
     """
 
     def __init__(self, seed: int, num_clients: int, batch_size: int,
                  n_data: int, dispatcher: str = "uniform",
-                 het_skew: float = 1.5):
+                 het_skew: float = 1.5, n_leaves: int = 0,
+                 per_tensor_push: bool = False,
+                 per_tensor_fetch: bool = False):
+        if (per_tensor_push or per_tensor_fetch) and n_leaves < 1:
+            raise ValueError("per-tensor gating needs n_leaves >= 1")
         self.base = _mix32(seed)
         self.num_clients = num_clients
         self.batch_size = batch_size
         self.n_data = n_data
         self.dispatcher = dispatcher
+        self.per_tensor = (per_tensor_push, per_tensor_fetch)
+        self.n_leaves = n_leaves
         self.probs = None
         if dispatcher == "heterogeneous":
             g = torch.Generator().manual_seed(_mix32(seed ^ 0x5EED))
@@ -84,7 +101,8 @@ class NativeDraws:
         """The draws of events ``[start, start + count)`` on `device`."""
         clients = torch.zeros(count, dtype=torch.int64)
         idx = torch.empty((count, self.batch_size), dtype=torch.int64)
-        u = torch.empty((count, 2), dtype=torch.float32)
+        n_u = 2 + self.n_leaves * sum(self.per_tensor)
+        u = torch.empty((count, n_u), dtype=torch.float32)
         g = torch.Generator()
         for j in range(count):
             g.manual_seed((self.base + (start + j) * _GOLDEN) & _MASK32)
@@ -94,14 +112,21 @@ class NativeDraws:
                 clients[j] = torch.multinomial(self.probs, 1, generator=g)[0]
             idx[j] = torch.randint(self.n_data, (self.batch_size,),
                                    generator=g)
-            u[j] = torch.rand(2, generator=g)
-        return _to_device(Draws(clients, idx, u[:, 0].clone(),
-                                u[:, 1].clone()), device)
+            u[j] = torch.rand(n_u, generator=g)
+        gates, first = [], 2
+        for d, on in enumerate(self.per_tensor):
+            if on:
+                gates.append(u[:, first:first + self.n_leaves].contiguous())
+                first += self.n_leaves
+            else:
+                gates.append(u[:, d].clone())
+        return _to_device(Draws(clients, idx, *gates), device)
 
 
 class ReplayDraws:
     """Replays draws given as arrays over all events of a run (numpy or
-    torch, indexed by global event)."""
+    torch, indexed by global event); `push_u` and `fetch_u` are [E] or, in
+    a direction gated per tensor, [E, n_leaves]."""
 
     def __init__(self, clients, idx, push_u, fetch_u):
         as_t = lambda a, dt: torch.as_tensor(np.asarray(a)).to(dt)

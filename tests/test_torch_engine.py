@@ -231,12 +231,40 @@ def test_counters_accumulate_like_the_reference():
 
 
 @pytest.mark.parametrize("fn", ["apply_gated", "fused_apply"])
-def test_per_tensor_masks_raise(fn):
-    _, cfg, _, ts = _pair()
-    mask = [{"w": torch.tensor(True), "b": torch.tensor(True)}] * 2
-    g = params_from_numpy(_tree(1), device="cpu")
-    with pytest.raises(NotImplementedError):
-        if fn == "apply_gated":
-            engine.apply_gated(cfg, ts, g, mask, torch.tensor(0))
-        else:
-            engine.fused_apply(cfg, ts, g, mask, torch.zeros(1))
+def test_per_tensor_masks_match_reference(fn):
+    """Per-leaf push masks, which the port used to refuse, go through both
+    entry points as they do in the reference ('skip': the dropped leaves
+    keep their parameters and statistics).  The full matrix is in
+    tests/test_torch_per_tensor.py."""
+    jcfg, cfg, js, ts = _pair()
+    bits = [True, False, False, True]
+    if fn == "apply_gated":
+        g = _tree(1, 0.1)
+        mask = [{"b": bits[0], "w": bits[1]}, {"b": bits[2], "w": bits[3]}]
+        jnew, _ = jengine.apply_gated(
+            jcfg, js, jax.tree.map(jnp.asarray, g),
+            jax.tree.map(jnp.asarray, mask), jnp.int32(4))
+        tnew, _ = engine.apply_gated(
+            cfg, ts, params_from_numpy(g, device="cpu"),
+            jax.tree.map(torch.tensor, mask),
+            torch.tensor(4, dtype=torch.int32))
+        tol = TOL
+    else:
+        K = 4
+        g = _tree(1, 0.1, lead=(K,))
+        cols = np.array([[1, 0, 1, 1], [0, 0, 0, 0], [1, 1, 0, 0],
+                         [0, 1, 1, 1]], bool)          # leaf x event
+        mask = [{"b": cols[0], "w": cols[1]}, {"b": cols[2], "w": cols[3]}]
+        cts = np.array([9, 2, 5, 7], np.int32)
+        jnew, _ = jengine.fused_apply(
+            jcfg, js, jax.tree.map(jnp.asarray, g),
+            jax.tree.map(jnp.asarray, mask), jnp.asarray(cts))
+        tnew, _ = engine.fused_apply(
+            cfg, ts, params_from_numpy(g, device="cpu"),
+            jax.tree.map(torch.from_numpy, mask), torch.from_numpy(cts))
+        tol = KSUM
+    _close_state(tnew, jnew, tol)
+    # leaf 1 (w0) never pushed: it keeps its parameters and statistics
+    for field in ("params", "n", "v"):
+        assert torch.equal(leaves(getattr(tnew, field))[1],
+                           leaves(getattr(ts, field))[1])

@@ -25,6 +25,7 @@ from repro.models.mlp import nll_loss as j_nll_loss
 from repro.sim.fred import SimConfig as JSimConfig
 from repro.sim.fred import run_simulation as j_run_simulation
 
+from repro_torch.core import engine
 from repro_torch.core.bandwidth import BandwidthConfig
 from repro_torch.core.engine import init_counters
 from repro_torch.core.rules import ServerConfig
@@ -49,13 +50,20 @@ def setup():
     return params, jax.tree.map(np.array, ds._asdict())
 
 
-def replay_of(cfg, n_data, num_steps=EVENTS, eval_every=EVAL_EVERY):
-    """The draws the reference makes for `cfg`, window by window, exactly
-    as `repro.sim.fred.run_simulation` derives them."""
+def replay_of(cfg, n_data, num_steps=EVENTS, eval_every=EVAL_EVERY,
+              bandwidth=None, n_leaves=4):
+    """The draws the reference makes for `cfg` (and its `bandwidth`
+    settings), window by window, exactly as `repro.sim.fred.run_simulation`
+    derives them: whole-copy gates from one key per window on the fused
+    path and one per event on the serial path; per-tensor gates from each
+    event's key split into one key per leaf, on both paths."""
     base = jax.random.PRNGKey(cfg["seed"])
     lam, mu, K = cfg["num_clients"], cfg["batch_size"], cfg.get(
         "events_per_step", 1)
     fused = cfg.get("apply_mode") == "fused"
+    bw = bandwidth or {}
+    per_leaf = jax.vmap(lambda kk: jax.vmap(jax.random.uniform)(
+        jax.random.split(kk, n_leaves)))
     out = {"clients": [], "idx": [], "push_u": [], "fetch_u": []}
     done = 0
     while done < num_steps:
@@ -70,12 +78,14 @@ def replay_of(cfg, n_data, num_steps=EVENTS, eval_every=EVAL_EVERY):
                 lambda kk: jax.random.randint(kk, (), 0, lam))(ks[:, 0]))
             out["idx"].append(jax.vmap(
                 lambda kk: jax.random.randint(kk, (mu,), 0, n_data))(ks[:, 1]))
-            if fused:   # one key draws the whole window's gates
-                out["push_u"].append(jax.random.uniform(ks[0, 2], (k,)))
-                out["fetch_u"].append(jax.random.uniform(ks[0, 3], (k,)))
-            else:
-                out["push_u"].append(jax.vmap(jax.random.uniform)(ks[:, 2]))
-                out["fetch_u"].append(jax.vmap(jax.random.uniform)(ks[:, 3]))
+            for name, col, flag in (("push_u", 2, "per_tensor_push"),
+                                    ("fetch_u", 3, "per_tensor_fetch")):
+                if bw.get(flag):
+                    out[name].append(per_leaf(ks[:, col]))
+                elif fused:   # one key draws the whole window's gates
+                    out[name].append(jax.random.uniform(ks[0, col], (k,)))
+                else:
+                    out[name].append(jax.vmap(jax.random.uniform)(ks[:, col]))
             done += k
     return ReplayDraws(**{k: np.concatenate([np.asarray(a) for a in v])
                           for k, v in out.items()})
@@ -107,9 +117,21 @@ def _close(a, b, what, worst):
     worst[kind] = max(worst.get(kind, 0.0), float(np.max(np.abs(a - b))))
 
 
-def check_against_reference(setup, name, case):
+def _same_or_close(a, b, what, worst):
+    """Integer leaves exactly, float leaves within tolerance."""
+    if np.issubdtype(np.asarray(b).dtype, np.integer):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=what)
+    else:
+        _close(a, b, what, worst)
+
+
+def check_against_reference(setup, name, case, num_steps=EVENTS):
     """Run `case` through both packages (the port replaying the reference's
-    draws) and hold the port to the reference."""
+    draws) and hold the port to the reference: τ, counters, T, client
+    timestamps (whole-copy and per tensor) exactly, floats within
+    tolerance (server state with the rule's `extra`, client copies, the
+    gradient cache)."""
     params, ds = setup
     bw = case.get("bandwidth", {})
     j_cfg = JSimConfig(
@@ -119,7 +141,7 @@ def check_against_reference(setup, name, case):
                     bandwidth=BandwidthConfig(**bw), **case["sim"])
     j_out = j_run_simulation(
         j_cfg, j_nll_loss, jax.tree.map(jnp.asarray, params),
-        jnp.asarray(ds["x_train"]), jnp.asarray(ds["y_train"]), EVENTS,
+        jnp.asarray(ds["x_train"]), jnp.asarray(ds["y_train"]), num_steps,
         eval_every=EVAL_EVERY,
         eval_fn=lambda p: j_nll_loss(p, ds["x_valid"], ds["y_valid"]),
         collect_step_metrics=True)
@@ -129,9 +151,11 @@ def check_against_reference(setup, name, case):
     ops.reset_launches()
     out = run_simulation(
         cfg, nll_loss, params_from_numpy(params, device="cpu"), ds["x_train"],
-        ds["y_train"], EVENTS, eval_every=EVAL_EVERY,
+        ds["y_train"], num_steps, eval_every=EVAL_EVERY,
         eval_fn=lambda p: nll_loss(p, xv, yv), collect_step_metrics=True,
-        rng=replay_of(case["sim"], ds["x_train"].shape[0]), device="cpu")
+        rng=replay_of(case["sim"], ds["x_train"].shape[0], num_steps,
+                      bandwidth=bw),
+        device="cpu")
 
     np.testing.assert_array_equal(out["tau"].numpy(), np.asarray(j_out["tau"]))
     assert out["counters"] == j_out["counters"]
@@ -142,24 +166,39 @@ def check_against_reference(setup, name, case):
            worst)
     _close(out["val_cost"], j_out["val_cost"], "val_cost", worst)
     j_srv, srv = j_out["state"].server, to_numpy(out["state"].server)
-    for field in ("params", "n", "b", "v"):
-        for i, (a, b) in enumerate(zip(leaves(getattr(srv, field)),
-                                       jax.tree.leaves(getattr(j_srv, field)))):
+    for field in ("params", "n", "b", "v", "extra"):
+        got, want = leaves(getattr(srv, field)), jax.tree.leaves(
+            getattr(j_srv, field))
+        assert len(got) == len(want), field
+        for i, (a, b) in enumerate(zip(got, want)):
+            _same_or_close(a, b, f"{field} leaf {i}", worst)
+    j_st, st = j_out["state"], out["state"]
+    for field in ("client_params", "grad_cache"):
+        got, want = (leaves(to_numpy(getattr(st, field))),
+                     jax.tree.leaves(getattr(j_st, field)))
+        assert len(got) == len(want), field
+        for i, (a, b) in enumerate(zip(got, want)):
             _close(a, b, f"{field} leaf {i}", worst)
-    for i, (a, b) in enumerate(zip(
-            leaves(to_numpy(out["state"].client_params)),
-            jax.tree.leaves(j_out["state"].client_params))):
-        _close(a, b, f"client_params leaf {i}", worst)
-    np.testing.assert_array_equal(out["state"].client_ts.numpy(),
-                                  np.asarray(j_out["state"].client_ts))
+    np.testing.assert_array_equal(st.client_ts.numpy(),
+                                  np.asarray(j_st.client_ts))
+    if j_st.client_leaf_ts is None:
+        assert st.client_leaf_ts is None
+    else:
+        np.testing.assert_array_equal(st.client_leaf_ts.numpy(),
+                                      np.asarray(j_st.client_leaf_ts))
     # `pytest -s` shows the parity reached (recorded in PERF.md)
     print(f"\nPARITY fred/{name} max|Δ| " + " ".join(
         f"{k}={v:.3e}" for k, v in sorted(worst.items())))
 
     launches = ops.LAUNCHES["fasgd_update"] + ops.LAUNCHES["fused_event_apply"]
     assert launches == out["counters"].get("kernel_launches", 0.0)
-    if case["server"].get("use_fused_kernel"):
+    kernel_on = (engine.fused_kernel_active(cfg.server)
+                 if cfg.apply_mode == "fused" else
+                 engine.serial_kernel_active(
+                     cfg.server, bw.get("per_tensor_fetch", False)))
+    if kernel_on:
         assert launches > 0
+    return out
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -275,11 +314,53 @@ def test_unported_configurations_raise(kwargs):
         SimConfig(**kwargs)
 
 
-def test_per_tensor_gating_and_mesh_raise(setup):
-    with pytest.raises(NotImplementedError):
-        BandwidthConfig(c_fetch=0.1, per_tensor_fetch=True)
+def test_mesh_raises(setup):
     params, ds = setup
     with pytest.raises(NotImplementedError):
         run_simulation(SimConfig(), nll_loss, params_from_numpy(params, device="cpu"),
                        ds["x_train"], ds["y_train"], 4, mesh=object(),
                        device="cpu")
+
+
+def test_per_tensor_gating_is_accepted():
+    """The §5 switches that used to be refused: both directions, both drop
+    policies, with the reference's derived properties."""
+    for policy in ("cache", "skip"):
+        bw = BandwidthConfig(c_push=0.05, c_fetch=0.2, drop_policy=policy,
+                             per_tensor_push=True, per_tensor_fetch=True)
+        j_bw = JBandwidthConfig(c_push=0.05, c_fetch=0.2, drop_policy=policy,
+                                per_tensor_push=True, per_tensor_fetch=True)
+        assert (bw.enabled, bw.per_tensor) == (j_bw.enabled,
+                                               j_bw.per_tensor) == (True,
+                                                                    True)
+        SimConfig(bandwidth=bw)
+    for kw in ({}, dict(per_tensor_fetch=True), dict(c_push=0.1)):
+        assert BandwidthConfig(**kw).enabled == JBandwidthConfig(**kw).enabled
+        assert (BandwidthConfig(**kw).per_tensor
+                == JBandwidthConfig(**kw).per_tensor)
+
+
+@pytest.mark.parametrize("rule,kwargs", [
+    ("ssgd", dict(dispatcher="roundrobin",
+                  bandwidth=BandwidthConfig(per_tensor_push=True))),
+    ("kasync", dict(dispatcher="roundrobin",
+                    bandwidth=BandwidthConfig(per_tensor_push=True))),
+    ("ssgd", dict(dispatcher="uniform")),
+    ("kasync", dict(dispatcher="heterogeneous")),
+    ("ssgd", dict(dispatcher="roundrobin", apply_mode="fused",
+                  events_per_step=4)),
+    ("kasync", dict(dispatcher="roundrobin", apply_mode="fused",
+                    events_per_step=4)),
+])
+def test_sim_config_refuses_what_the_reference_refuses(rule, kwargs):
+    """A barrier rule with per-tensor push or without round-robin dispatch,
+    and a rule without fused support in the fused mode, are refused by both
+    packages."""
+    server = dict(rule=rule, num_clients=4)
+    j_kwargs = dict(kwargs)
+    if "bandwidth" in j_kwargs:
+        j_kwargs["bandwidth"] = JBandwidthConfig(per_tensor_push=True)
+    with pytest.raises(AssertionError):
+        JSimConfig(num_clients=4, server=JServerConfig(**server), **j_kwargs)
+    with pytest.raises(ValueError):
+        SimConfig(num_clients=4, server=ServerConfig(**server), **kwargs)

@@ -1,10 +1,12 @@
 """The port's update-rule registry against `repro.core.rules`.
 
 The same server state and gradient, made with numpy, go through both
-packages for each of the five ported rules, with the kernel path off and
-on (the JAX package runs its Pallas kernel in interpret mode, the port its
-plain version on the CPU).  Tolerance: fp32 rtol 1e-5 / atol 1e-6, as
-tests/test_rules.py holds the reference.
+packages for each of the five rules with a batched kernel mode, with the
+kernel path off and on (the JAX package runs its Pallas kernel in interpret
+mode, the port its plain version on the CPU).  Tolerance: fp32 rtol 1e-5 /
+atol 1e-6, as tests/test_rules.py holds the reference.  Gap-Aware, SSGD
+and K-async, whose state carries `extra`, are held in
+tests/test_torch_gap_sync.py.
 """
 import jax
 import jax.numpy as jnp
@@ -19,7 +21,9 @@ from repro_torch.utils.convert import (params_from_numpy,
                                       server_state_from_numpy, to_numpy)
 from repro_torch.utils.trees import leaves
 
-PORTED = ("asgd", "exp", "fasgd", "poly", "sasgd")
+PORTED = ("asgd", "exp", "fasgd", "gap", "kasync", "poly", "sasgd", "ssgd")
+# the rules with a batched kernel mode and no `extra` state
+KERNEL_RULES = ("asgd", "exp", "fasgd", "poly", "sasgd")
 TOL = dict(rtol=1e-5, atol=1e-6)
 SIZES = (30, 12, 5)
 
@@ -58,15 +62,21 @@ def _configs(rule, kernel, **kw):
 
 
 def test_registry_lists_the_ported_rules():
-    assert rules.registered_rules() == PORTED
+    assert rules.registered_rules() == PORTED == jrules.registered_rules()
 
 
 @pytest.mark.parametrize("name", ["gap", "ssgd", "kasync"])
-def test_unported_rules_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        rules.get_rule(name)
-    with pytest.raises(NotImplementedError):
-        rules.ServerConfig(rule=name)
+def test_gap_and_barrier_rules_resolve(name):
+    """The three rules the port used to refuse resolve, with the
+    reference's flags; an unknown name is still a KeyError."""
+    rule, jrule = rules.get_rule(name), jrules.get_rule(name)
+    for flag in ("synchronous", "needs_client_params", "requires_stats",
+                 "supports_fused", "coeffs_are_v_independent",
+                 "v_separable"):
+        assert getattr(rule, flag) == getattr(jrule, flag), flag
+    cfg = rules.ServerConfig(rule=name, num_clients=8, kasync_k=3)
+    jcfg = jrules.ServerConfig(rule=name, num_clients=8, kasync_k=3)
+    assert rule.barrier_k(cfg) == jrule.barrier_k(jcfg)
     with pytest.raises(KeyError):
         rules.get_rule("no-such-rule")
 
@@ -77,8 +87,12 @@ def test_init_matches(rule):
     p = _params(0)
     js = jrules.init(jcfg, jax.tree.map(jnp.asarray, p))
     ts = rules.init(cfg, params_from_numpy(p, device="cpu"))
-    for field in ("params", "n", "b", "v"):
+    for field in ("params", "n", "b", "v", "extra"):
         _assert_tree_close(getattr(ts, field), getattr(js, field))
+    if js.extra is not None:
+        assert sorted(ts.extra) == sorted(js.extra)
+        for a, e in zip(leaves(ts.extra), jax.tree.leaves(js.extra)):
+            assert str(a.dtype)[6:] == str(e.dtype), (a.dtype, e.dtype)
     assert int(ts.timestamp) == int(js.timestamp) == 0
     assert ts.timestamp.dtype == torch.int32
     assert all(float(l.min()) == 1.0 for l in leaves(ts.v))   # v starts at 1
@@ -97,7 +111,7 @@ def test_shared_stats_matches(variant):
     _assert_tree_close(tn.v, jn.v, **vtol)
 
 
-@pytest.mark.parametrize("rule", PORTED)
+@pytest.mark.parametrize("rule", KERNEL_RULES)
 @pytest.mark.parametrize("kernel", [False, True])
 @pytest.mark.parametrize("grad_ts", [7, 3])
 def test_apply_update_matches(rule, kernel, grad_ts):
@@ -116,7 +130,7 @@ def test_apply_update_matches(rule, kernel, grad_ts):
                                float(jaux["mean_scale"]), **TOL)
 
 
-@pytest.mark.parametrize("rule", PORTED)
+@pytest.mark.parametrize("rule", KERNEL_RULES)
 def test_effective_scale_and_fused_coeffs_match(rule):
     jcfg, cfg = _configs(rule, False)
     js, ts = _state_pair(jcfg, cfg)
@@ -151,7 +165,7 @@ def _bf16_ulps(x, count):
     return count * np.where(mag > 0, ulp, 0.0)
 
 
-@pytest.mark.parametrize("rule", PORTED)
+@pytest.mark.parametrize("rule", KERNEL_RULES)
 @pytest.mark.parametrize("kernel", [False, True])
 def test_apply_update_bf16_matches_jitted_reference(rule, kernel):
     """A serial push with bf16 θ and gradient (fp32 statistics) against
