@@ -111,6 +111,37 @@ Phases, in order; any failure exits non-zero and prints no result:
    loop runs under ``set_sync_debug_mode('error')`` and is profiled as in
    phase 6; (g) each run's events/s.  The launches of (b) and (c) join
    the kernels' record.
+13. FRED's cotangent fused path and bounded ingress queue, at the full
+   width on the full synthetic set: (a) sasgd lr=0.005 with
+   ``fused_mode='auto'`` and (b) fasgd lr=0.0025 with 'cotangent' (λ=256,
+   K=128, μ=4, kernel off, 40 windows): every window must go through
+   `engine.fused_apply_cotangent` (calls counted) and none through
+   `fused_apply`, the validation cost must fall; the materialized path of
+   the same configuration runs beside it (events/s of both, and the peak
+   device memory of one window of each), and 8 windows of both from one
+   state must agree (θ, n, b, v within KSUM_TOL; T, τ and the counters
+   equal; for fasgd the ε-reparameterisation's ε/(v+ε) is printed).
+   (c) Queued fused drains on `fused_event_apply` (asgd lr=0.005, λ=32,
+   μ=4, round-robin, K=16 arrivals, capacity 48, 'reject', kernel on, 256
+   windows), under ``drain_k`` 4 and ``adaptive`` 0.6: the kernel must
+   launch once per drain window (the phase-3 identity DEVICE_LAUNCHES ==
+   kernel_events does not hold for a queue: each window's launch consumes
+   its drained events), ``kernel_launches`` equal the leaf dispatches and
+   ``kernel_events`` the drained events; enqueued + rejected must equal
+   the pushed arrivals, drained ≤ enqueued and enqueued − dropped =
+   drained + the final depth; the kernel on against off over 8 windows.
+   (d) Queued serial drains on `fasgd_update` (the quickstart fleet, K=4,
+   capacity 12, ``drain_k`` 1, 'reject', 500 windows): 12 launches a
+   window (every row's candidate is computed, the invalid ones masked),
+   the reference's ``kernel_launches`` (12 × 4 leaves a window) and
+   ``kernel_events`` (the drained events); then a capacity-1
+   ``drain_all``/'block' queue bitwise the unqueued serial path over 200
+   events.  (e) Queued cotangent drains (sasgd at (c)'s fleet, adaptive,
+   256 windows).  (f) Each loop under ``set_sync_debug_mode('error')``,
+   then profiled as in phase 6.  Each run's events/s (drained and
+   arrival events/s for the queued ones) and the queue's depth, rejects
+   and latency are printed; the launches of (c) and (d) join the kernels'
+   record.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1440,8 +1471,8 @@ def phase_batched(ops, ref, dev, flush, bw, flops):
 
 
 def clone_sim(state):
-    """A copy of a `SimState` whose fleet arrays the loop may update in
-    place without touching `state`'s."""
+    """A copy of a `SimState` whose fleet arrays and ingress queue the loop
+    may update in place without touching `state`'s."""
     import torch
     from repro_torch.utils.trees import tree_map
     c = lambda t: None if t is None else tree_map(torch.clone, t)
@@ -1450,74 +1481,90 @@ def clone_sim(state):
                           client_ts=c(state.client_ts),
                           grad_cache=c(state.grad_cache),
                           client_leaf_ts=c(state.client_leaf_ts),
-                          counters=c(state.counters))
+                          counters=c(state.counters), queue=c(state.queue))
 
 
-def kernel_on_off(label, cfg, ds, params, warm, windows):
-    """Drive `windows` fused windows twice from one state (after `warm`
-    windows with the kernel), with `fused_event_apply` on and with the
-    kernel off (the plain reduction in PyTorch ops on the card): the
-    server's θ, n, b, v must agree within phase 2's K-sum tolerance
-    (KSUM_TOL), T, every window's τ and the counters exactly.  Returns
-    the kernel launches of the 'on' run."""
-    import dataclasses
+def paths_agree(label, cfgs, ds, params, warm, windows, tol=KSUM_TOL,
+                tol_note=""):
+    """Drive `windows` windows of each configuration in `cfgs` (name ->
+    SimConfig, one fleet, the same draws) from one state reached by `warm`
+    windows of the first: the server's θ, n, b, v must agree within `tol`
+    (rtol, atol), T, every window's τ and the counters exactly (the
+    kernel's own `kernel_*` aside).  Prints one line; returns {name: the
+    run's kernel launches on the card, by kernel}."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.mlp import nll_loss
     from repro_torch.sim.fred import build_step_fn, init_sim, native_draws
     from repro_torch.utils.trees import leaves
-    K = cfg.events_per_step
-    off = dataclasses.replace(cfg, server=dataclasses.replace(
-        cfg.server, use_fused_kernel=False))
+    first = next(iter(cfgs.values()))
+    K = first.events_per_step
     steps = {name: build_step_fn(c, nll_loss, ds.x_train, ds.y_train)
-             for name, c in (("on", cfg), ("off", off))}
-    draws = native_draws(cfg, ds.x_train.shape[0], len(MLP_SHAPES)).events(
+             for name, c in cfgs.items()}
+    draws = native_draws(first, ds.x_train.shape[0], len(MLP_SHAPES)).events(
         0, (warm + windows) * K, ds.x_train.device)
-    state = init_sim(cfg, params)
+    state = init_sim(first, params)
+    step0 = next(iter(steps.values()))
     for w in range(warm):
-        state, _ = steps["on"](state, draws.window(w * K, (w + 1) * K))
+        state, _ = step0(state, draws.window(w * K, (w + 1) * K))
     runs = {}
     for name, step in steps.items():
         ops.reset_launches()
         st, taus = clone_sim(state), []
         for w in range(warm, warm + windows):
             st, m = step(st, draws.window(w * K, (w + 1) * K))
-            taus.append(m["tau"])
+            taus.append(m["tau"].reshape(-1))
         torch.cuda.synchronize()
-        runs[name] = (st, torch.cat(taus), ops.DEVICE_LAUNCHES[
-            "fused_event_apply"])
-    (on, tau_on, n_on), (off_st, tau_off, n_off) = runs["on"], runs["off"]
-    if n_on != windows or n_off != 0:
-        fail(f"{label}: fused_event_apply launched {n_on} times with the "
-             f"kernel on and {n_off} off, want {windows} and 0")
-    if int(on.server.timestamp) != int(off_st.server.timestamp):
-        fail(f"{label}: T {int(on.server.timestamp)} with the kernel, "
-             f"{int(off_st.server.timestamp)} without")
-    if not torch.equal(tau_on, tau_off):
-        fail(f"{label}: τ differs between the kernel and the plain path")
-    c_on = {k: float(v) for k, v in on.counters._asdict().items()}
-    c_off = {k: float(v) for k, v in off_st.counters._asdict().items()}
-    c_off["kernel_launches"] = c_on["kernel_launches"]   # kernel path only
-    c_off["kernel_events"] = c_on["kernel_events"]
-    if c_on != c_off:
-        fail(f"{label}: counters differ: {c_on} vs {c_off}")
+        runs[name] = (st, torch.cat(taus), dict(ops.DEVICE_LAUNCHES))
+    names = list(runs)
+    (a, tau_a, _), (b, tau_b, _) = runs[names[0]], runs[names[1]]
+    if int(a.server.timestamp) != int(b.server.timestamp):
+        fail(f"{label}: T {int(a.server.timestamp)} ({names[0]}) vs "
+             f"{int(b.server.timestamp)} ({names[1]})")
+    if not torch.equal(tau_a, tau_b):
+        fail(f"{label}: τ differs between {names[0]} and {names[1]}")
+    counts = lambda st: {k: float(v) for k, v in st.counters._asdict().items()
+                         if not k.startswith("kernel_")}
+    if counts(a) != counts(b):
+        fail(f"{label}: counters differ: {counts(a)} vs {counts(b)}")
     errs = []
     for field in ("params", "n", "b", "v"):
-        for a, b in zip(leaves(getattr(on.server, field)),
-                        leaves(getattr(off_st.server, field))):
-            e = (a.float() - b.float()).abs()
-            if not bool(torch.all(e <= KSUM_TOL["atol"] + KSUM_TOL["rtol"]
-                                  * b.float().abs())):
+        for x, y in zip(leaves(getattr(a.server, field)),
+                        leaves(getattr(b.server, field))):
+            e = (x.float() - y.float()).abs()
+            if not bool(torch.all(e <= tol["atol"] + tol["rtol"]
+                                  * y.float().abs())):
                 fail(f"{label}: {field} differs beyond rtol "
-                     f"{KSUM_TOL['rtol']:g} / atol {KSUM_TOL['atol']:g}: "
+                     f"{tol['rtol']:g} / atol {tol['atol']:g}: "
                      f"max|Δ| {float(e.max()):.3e}")
             errs.append((field, float(e.max())))
     worst = {f: max(e for g, e in errs if g == f) for f, _ in errs}
-    print(f"  {label}: {windows} windows from one state, kernel on "
-          f"({n_on} launches) vs off: T={int(on.server.timestamp)}, τ and "
-          f"counters equal; max|Δ| " + ", ".join(
-              f"{f} {e:.2e}" for f, e in worst.items())
-          + f" (rtol {KSUM_TOL['rtol']:g}, atol {KSUM_TOL['atol']:g}) ok")
+    print(f"  {label}: {windows} windows from one state, {names[0]} vs "
+          f"{names[1]}: T={int(a.server.timestamp)}, τ and counters equal; "
+          f"max|Δ| " + ", ".join(f"{f} {e:.2e}" for f, e in worst.items())
+          + f" (rtol {tol['rtol']:g}, atol {tol['atol']:g}{tol_note}) ok")
+    return {name: run[2] for name, run in runs.items()}
+
+
+def kernel_on_off(label, cfg, ds, params, warm, windows):
+    """`paths_agree` with `fused_event_apply` on and with the kernel off
+    (the plain materialized reduction in PyTorch ops on the card: 'auto'
+    would take the cotangent path for a v-independent rule), within phase
+    2's K-sum tolerance (KSUM_TOL); the kernel must launch once per window
+    with it on and never with it off."""
+    import dataclasses
+    off = dataclasses.replace(cfg, fused_mode="materialized",
+                              server=dataclasses.replace(
+                                  cfg.server, use_fused_kernel=False))
+    launches = paths_agree(label, {"kernel on": cfg, "kernel off": off}, ds,
+                           params, warm, windows)
+    n_on = launches["kernel on"]["fused_event_apply"]
+    n_off = launches["kernel off"]["fused_event_apply"]
+    if n_on != windows or n_off != 0:
+        fail(f"{label}: fused_event_apply launched {n_on} times with the "
+             f"kernel on and {n_off} off, want {windows} and 0")
+    print(f"  {label}: fused_event_apply launched {n_on} times with the "
+          f"kernel on, 0 off")
 
 
 def phase_rest_of_server(ds, params, K):
@@ -1614,6 +1661,242 @@ def phase_rest_of_server(ds, params, K):
                   + ("_per_tensor" if cfg.bandwidth.per_tensor else ""),
                   cfg, ds, params, 2 * K if fused else 24)
     ops.reset_launches()
+    return n_fasgd, n_fused, rates
+
+
+class CountCalls:
+    """Counts the calls of `engine.fused_apply_cotangent` and
+    `engine.fused_apply` while active (the simulator reaches both through
+    the engine module)."""
+
+    NAMES = ("fused_apply_cotangent", "fused_apply")
+
+    def __enter__(self):
+        from repro_torch.core import engine
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.saved = {n: getattr(engine, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            def counted(*a, _fn=fn, _n=n, **kw):
+                self.calls[_n] += 1
+                return _fn(*a, **kw)
+            setattr(engine, n, counted)
+        return self.calls
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine
+        for n, fn in self.saved.items():
+            setattr(engine, n, fn)
+
+
+def window_peak(cfg, ds, params):
+    """Peak device memory (bytes) of one window of `cfg` above what was
+    allocated before it, after a first window."""
+    import torch
+    from repro_torch.models.mlp import nll_loss
+    from repro_torch.sim.fred import build_step_fn, init_sim, native_draws
+    K = cfg.events_per_step
+    state = init_sim(cfg, params)
+    step = build_step_fn(cfg, nll_loss, ds.x_train, ds.y_train)
+    draws = native_draws(cfg, ds.x_train.shape[0], len(MLP_SHAPES)).events(
+        0, 2 * K, ds.x_train.device)
+    state, _ = step(state, draws.window(0, K))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state, _ = step(state, draws.window(K, 2 * K))
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def run_cotangent(label, cfg, ds, params, windows):
+    """`run_path` on the cotangent fused path: every window must go through
+    `fused_apply_cotangent` and none through `fused_apply`.  Returns
+    (out, seconds)."""
+    with CountCalls() as calls:
+        out, secs, launches, _ = run_path(label, cfg, ds, params,
+                                          windows * cfg.events_per_step,
+                                          10 * cfg.events_per_step)
+    if calls["fused_apply"] or calls["fused_apply_cotangent"] != windows + 1:
+        fail(f"{label}: {calls} (want {windows} windows + 1 warm-up on the "
+             f"cotangent path, none materialized)")
+    if sum(launches.values()):
+        fail(f"{label}: a kernel ran ({launches})")
+    print(f"  {label}: fused_apply_cotangent ran {calls['fused_apply_cotangent']}"
+          f" times (warm-up included), fused_apply 0")
+    return out, secs
+
+
+def queue_report(label, out, secs, n_events):
+    """Print a queued run's telemetry and hold its counter identities:
+    every arrival pushes (c_push = 0), so enqueued + rejected = pushed
+    arrivals = push_potential; drained ≤ enqueued, and enqueued − dropped =
+    drained + the final depth.  Returns the drained events/s."""
+    c = out["counters"]
+    size = int(out["state"].queue.size)
+    if c["queue_enqueued"] + c["queue_rejected"] != c["push_potential"]:
+        fail(f"{label}: enqueued {c['queue_enqueued']} + rejected "
+             f"{c['queue_rejected']} != pushed arrivals "
+             f"{c['push_potential']}")
+    if not (c["queue_drained"] <= c["queue_enqueued"]
+            and c["queue_enqueued"] - c["queue_dropped"]
+            == c["queue_drained"] + size):
+        fail(f"{label}: drained {c['queue_drained']}, enqueued "
+             f"{c['queue_enqueued']}, dropped {c['queue_dropped']}, final "
+             f"depth {size}")
+    drained_rate = c["queue_drained"] / secs
+    print(f"  {label}: drained {drained_rate:.1f} events/s, arrivals "
+          f"{n_events / secs:.1f} events/s; enqueued "
+          f"{c['queue_enqueued']:.0f}, rejected {c['queue_rejected']:.0f}, "
+          f"dropped {c['queue_dropped']:.0f}, drained "
+          f"{c['queue_drained']:.0f} in {c['queue_windows']:.0f} windows; "
+          f"depth mean {c['queue_depth_sum'] / c['queue_windows']:.2f}, peak "
+          f"{c['queue_depth_peak']:.0f}; mean latency "
+          f"{c['queue_latency_sum'] / max(c['queue_drained'], 1):.2f} T-ticks;"
+          f" identities hold")
+    return drained_rate
+
+
+def phase_cotangent_and_queue(ds, params, K):
+    """Phase 13: FRED's cotangent fused path and its bounded ingress queue
+    at the full 784-200-10 width on the full synthetic set.  Returns the
+    kernel launches of `fasgd_update` and `fused_event_apply` on its main
+    runs and each run's events/s."""
+    import dataclasses
+    import torch
+    from repro_torch.core.rules import ServerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.mlp import nll_loss
+    from repro_torch.sim.fred import SimConfig, run_simulation
+    from repro_torch.utils.trees import leaves
+    print("phase 13: FRED's cotangent fused path and ingress queue")
+    t0 = time.perf_counter()
+    wide = dict(num_clients=256, batch_size=4, seed=0, events_per_step=K,
+                apply_mode="fused")
+    rates, loops = {}, {}
+    mib = lambda b: f"{b / 2 ** 20:.1f} MiB"
+
+    # (a), (b): the cotangent path against the materialized one
+    for tag, rule, lr, mode in (("a", "sasgd", 0.005, "auto"),
+                                ("b", "fasgd", 0.0025, "cotangent")):
+        cfg = SimConfig(server=ServerConfig(rule=rule, lr=lr),
+                        fused_mode=mode, **wide)
+        mat = dataclasses.replace(cfg, fused_mode="materialized")
+        label = f"({tag}) {rule} cotangent ('{mode}')"
+        out, secs = run_cotangent(label, cfg, ds, params, 40)
+        rates[label], loops[label] = 40 * K / secs, cfg
+        m_label = f"({tag}) {rule} materialized"
+        _, m_secs, launches, _ = run_path(m_label, mat, ds, params, 40 * K,
+                                          10 * K)
+        if sum(launches.values()):
+            fail(f"{m_label}: a kernel ran ({launches})")
+        rates[m_label] = 40 * K / m_secs
+        peak_c, peak_m = window_peak(cfg, ds, params), window_peak(mat, ds,
+                                                                   params)
+        print(f"  ({tag}) events/s cotangent {40 * K / secs:.1f}, "
+              f"materialized {40 * K / m_secs:.1f}; peak device memory of "
+              f"one window above the resident state: cotangent "
+              f"{mib(peak_c)}, materialized {mib(peak_m)}")
+        note = ""
+        if rule == "fasgd":
+            v_min = min(float(l.min()) for l in leaves(out["state"].server.v))
+            eps = cfg.server.eps
+            note = (f"; the ε-reparameterisation moves each update by ≤ "
+                    f"ε/(v+ε) = {eps / (v_min + eps):.1e} of it, inside the "
+                    f"tolerance")
+        paths_agree(f"({tag}) cotangent vs materialized",
+                    {"cotangent": cfg, "materialized": mat}, ds, params, 4, 8,
+                    tol_note=note)
+
+    # (c) queued fused drains on fused_event_apply (K = capacity rows)
+    queued = dict(num_clients=32, batch_size=4, seed=0, events_per_step=16,
+                  apply_mode="fused", dispatcher="roundrobin",
+                  queue_capacity=48, admission_policy="reject")
+    asgd = ServerConfig(rule="asgd", lr=0.005, use_fused_kernel=True)
+    n_fused = 0
+    for arm in (dict(drain_policy="drain_k", drain_k=4),
+                dict(drain_policy="adaptive", drain_adaptive_gain=0.6)):
+        cfg = SimConfig(server=asgd, **queued, **arm)
+        label = f"(c) queued fused, {arm['drain_policy']}"
+        out, secs, launches, device = run_path(label, cfg, ds, params,
+                                               256 * 16, 1024)
+        c = out["counters"]
+        n_leaves = len(MLP_SHAPES)
+        if not (device["fused_event_apply"] == c["queue_windows"] == 256
+                and launches["fused_event_apply"] == c["kernel_launches"]
+                == n_leaves * 256
+                and c["kernel_events"] == c["queue_drained"]
+                and device["fasgd_update"] == 0):
+            fail(f"{label}: kernel launches {device}, leaf dispatches "
+                 f"{launches}, counters {c}")
+        print(f"  {label}: fused_event_apply launched "
+              f"{device['fused_event_apply']} times = drain windows; "
+              f"kernel_launches {c['kernel_launches']:.0f} = leaf "
+              f"dispatches, kernel_events {c['kernel_events']:.0f} = "
+              f"drained")
+        n_fused += device["fused_event_apply"]
+        rates[label] = queue_report(label, out, secs, 256 * 16)
+        loops[label] = cfg
+        kernel_on_off(f"(c) {arm['drain_policy']} kernel on/off", cfg, ds,
+                      params, 4, 8)
+
+    # (d) queued serial drains on fasgd_update: capacity launches a window
+    quick = dict(num_clients=16, batch_size=8, seed=0)
+    fasgd = ServerConfig(rule="fasgd", lr=0.0025, use_fused_kernel=True)
+    cfg = SimConfig(server=fasgd, events_per_step=4, queue_capacity=12,
+                    drain_policy="drain_k", drain_k=1,
+                    admission_policy="reject", **quick)
+    label = "(d) queued serial, drain_k 1"
+    out, secs, launches, device = run_path(label, cfg, ds, params, 2000, 500)
+    c = out["counters"]
+    if not (device["fasgd_update"] == 12 * c["queue_windows"] == 12 * 500
+            and launches["fasgd_update"] == c["kernel_launches"]
+            == 12 * len(MLP_SHAPES) * 500
+            and c["kernel_events"] == c["queue_drained"]
+            and device["fused_event_apply"] == 0):
+        fail(f"{label}: kernel launches {device}, leaf dispatches "
+             f"{launches}, counters {c}")
+    print(f"  {label}: fasgd_update launched {device['fasgd_update']} times"
+          f" = 12 a window (every row's candidate, invalid ones masked); "
+          f"kernel_launches {c['kernel_launches']:.0f} = 12 x 4 leaves x "
+          f"500, kernel_events {c['kernel_events']:.0f} = drained")
+    n_fasgd = device["fasgd_update"]
+    rates[label] = queue_report(label, out, secs, 2000)
+    loops[label] = cfg
+    # capacity 1, drain_all, block: the unqueued serial path, bitwise
+    plain = SimConfig(server=fasgd, **quick)
+    runs = [run_simulation(c, nll_loss, params, ds.x_train, ds.y_train, 200,
+                           eval_every=200)
+            for c in (plain, dataclasses.replace(plain, queue_capacity=1))]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(
+        leaves(runs[0]["state"].server), leaves(runs[1]["state"].server)))
+    if not (same and runs[0]["final_timestamp"]
+            == runs[1]["final_timestamp"] == 200):
+        fail("(d) capacity 1, drain_all, block: θ/n/b/v or T differ from "
+             "the unqueued serial path")
+    print("  (d) capacity 1, drain_all, block: θ, n, b, v and T=200 "
+          "bitwise the unqueued serial path's over 200 events")
+
+    # (e) queued cotangent drains
+    cfg = SimConfig(server=ServerConfig(rule="sasgd", lr=0.005),
+                    drain_policy="adaptive", drain_adaptive_gain=0.6,
+                    **queued)
+    label = "(e) queued cotangent, adaptive"
+    out, secs = run_cotangent(label, cfg, ds, params, 256)
+    rates[label] = queue_report(label, out, secs, 256 * 16)
+    loops[label] = cfg
+
+    # (f) no host sync in any of these loops, and where their time goes
+    print("  (f) each loop under torch.cuda.set_sync_debug_mode('error'), "
+          "then profiled:")
+    for label, cfg in loops.items():
+        tag = re.sub(r"[^a-z0-9]+", "_", label.lower()).strip("_")
+        n = (2 * K if cfg.events_per_step == K
+             else 16 * cfg.events_per_step if cfg.apply_mode == "fused"
+             else 6 * cfg.events_per_step)
+        breakdown(tag, cfg, ds, params, n)
+    ops.reset_launches()
+    print(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
     return n_fasgd, n_fused, rates
 
 
@@ -1752,12 +2035,17 @@ def main() -> int:
     n_fasgd12, n_fused12, rates12 = phase_rest_of_server(ds, params, K)
     print(f"  (g) events/s on {smi} (evaluations included): " + "; ".join(
         f"{label} {r:.1f}" for label, r in rates12.items()))
+    # --- phase 13: the cotangent fused path and the ingress queue ---
+    n_fasgd13, n_fused13, rates13 = phase_cotangent_and_queue(ds, params, K)
+    print(f"  events/s on {smi} (evaluations included; queued runs: "
+          f"drained events/s): " + "; ".join(
+              f"{label} {r:.1f}" for label, r in rates13.items()))
 
     kernels = [
         dict(name="fasgd_update", route="cuda",
              source="src/repro_torch/kernels/csrc/fasgd_update.cu",
              replaces="src/repro/kernels/fasgd_update.py:50",
-             launches=n_serial + n_gated + n_fasgd12,
+             launches=n_serial + n_gated + n_fasgd12 + n_fasgd13,
              max_abs_err=errs["fasgd_update"], ms=fu_ms, plain_ms=fu_plain,
              bound_ms=fu_bound,
              bound_by="bytes" if fu_bytes / bw >= fu_ops / flops
@@ -1765,7 +2053,7 @@ def main() -> int:
         dict(name="fused_event_apply", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_event_apply.cu",
              replaces="src/repro/kernels/fused_event_apply.py:89",
-             launches=n_fused + n_fused12,
+             launches=n_fused + n_fused12 + n_fused13,
              max_abs_err=errs["fused_event_apply"],
              library_ms=None, **fused),
         dict(name="flash_attention", route="cuda",

@@ -14,6 +14,10 @@
   (`fused_apply`), through the one-kernel CUDA path
   (`kernels.ops.fused_event_apply`) for rules with a batched kernel mode,
   with per-leaf masks and staleness handed to the kernel leaf by leaf;
+- **cotangent fused application** — the same window for rules whose fused
+  scale is a per-event scalar (times one elementwise v-factor for
+  `v_separable` rules), as weighted backward passes of one event-batched
+  forward, without the [K, P] gradient batch (`fused_apply_cotangent`);
 - **event dedup and scatter** — `dedup_events`, `last_event_winners`,
   `last_event_scatter`;
 - **bookkeeping** — push/fetch opportunity `Counters`.
@@ -21,7 +25,7 @@
 A decision is one device bool (or [K] of them) for the whole tree, or a
 tree of them mirroring the parameters (`is_per_leaf`).  Every decision
 stays on the device: gating is `torch.where`, never a host branch on a
-tensor.  The cotangent fused path waits for a later slice.
+tensor.
 """
 from __future__ import annotations
 
@@ -93,10 +97,16 @@ def any_leaf(mask_tree):
 class Counters(NamedTuple):
     """Push/fetch opportunity accounting (device scalars).
 
-    The reference's queue, scenario and shard fields belong to modules not
-    ported yet; the fields kept here are the ones the immediate-apply
-    simulator reports.  `kernel_*` count per-leaf kernel launches and the
-    events they consumed.
+    `push_actual` and `push_bytes_sent` count admitted pushes only: a push
+    the ingress queue rejects is refused before transmission.  The
+    `queue_*` fields are the ingress queue's telemetry (`core.queue`,
+    folded in by `queue.count_queue`) and stay zero without a queue;
+    `queue_latency_wall_sum` (the latency on a scenario's modelled wall
+    clock) stays zero until scenarios are ported, as it does in the
+    reference's runs without one.
+    `kernel_*` count per-leaf kernel launches and the events they consumed.
+    The reference's scenario and shard fields belong to modules not ported
+    yet.
     """
     push_potential: torch.Tensor   # int32
     push_actual: torch.Tensor
@@ -106,6 +116,15 @@ class Counters(NamedTuple):
     push_bytes_total: torch.Tensor
     fetch_bytes_sent: torch.Tensor
     fetch_bytes_total: torch.Tensor
+    queue_enqueued: torch.Tensor   # int32 — pushes admitted to the ring
+    queue_rejected: torch.Tensor   # int32 — refused before transmission
+    queue_dropped: torch.Tensor    # int32 — evicted by drop_oldest
+    queue_drained: torch.Tensor    # int32 — events applied from the ring
+    queue_depth_sum: torch.Tensor  # float32 — Σ post-drain depth per window
+    queue_depth_peak: torch.Tensor  # int32 — max post-admission depth
+    queue_latency_sum: torch.Tensor  # float32 — Σ admission→drain T-ticks
+    queue_windows: torch.Tensor    # int32 — drain windows accumulated
+    queue_latency_wall_sum: torch.Tensor  # float32 — Σ admission→drain wall
     kernel_launches: torch.Tensor  # int32
     kernel_events: torch.Tensor
 
@@ -117,7 +136,8 @@ def init_counters(device=None) -> Counters:
     z = lambda dt: torch.zeros((), dtype=dt, device=device)
     i32, f32 = torch.int32, torch.float32
     return Counters(z(i32), z(i32), z(i32), z(i32), z(f32), z(f32), z(f32),
-                    z(f32), z(i32), z(i32))
+                    z(f32), z(i32), z(i32), z(i32), z(i32), z(f32), z(i32),
+                    z(f32), z(i32), z(f32), z(i32), z(i32))
 
 
 def count_events(counters: Counters, push, fetch, push_bytes_sent=None,
@@ -426,6 +446,142 @@ def fused_apply(scfg: ServerConfig, server: ServerState, grads, push,
     server = server._replace(params=new_params,
                              timestamp=server.timestamp + n_push)
     return server, taus
+
+
+# ---------------------------------------------------------------------------
+# cotangent fused application — rules with a per-event scalar scale
+# ---------------------------------------------------------------------------
+
+def event_batched_losses(loss_fn):
+    """Generic event-batched loss: ``batched(W, deltas, *batch) -> [K]``,
+    each event's stale parameters entering as p_k = W + δ_k (`deltas`
+    leaves [K, ...], detached).
+
+    It maps `loss_fn` over the per-event parameters with `torch.func.vmap`:
+    right for any loss, but the backward of the per-event GEMMs still forms
+    a [K, P] gradient batch before summing.  A model avoids that with a
+    shared/delta form whose differentiable operand is the shared W, exposed
+    as ``loss_fn.event_batched`` (`repro_torch.models.mlp`).
+    """
+    def batched(W, deltas, *batch):
+        p_eff = tree_map(lambda w, d: w[None] + d, W, deltas)
+        return torch.func.vmap(loss_fn)(p_eff, *batch)
+    return batched
+
+
+def resolve_event_batched_loss(loss_fn, batched_loss_fn=None):
+    """The event-batched form of `loss_fn` for the cotangent fused path: an
+    explicit `batched_loss_fn`, else ``loss_fn.event_batched``, else the
+    generic `event_batched_losses`."""
+    if batched_loss_fn is not None:
+        return batched_loss_fn
+    attached = getattr(loss_fn, "event_batched", None)
+    if attached is not None:
+        return attached
+    return event_batched_losses(loss_fn)
+
+
+class _ReweightByV(torch.autograd.Function):
+    """Identity forward; the backward scales the cotangent by `vfac`."""
+
+    @staticmethod
+    def forward(ctx, w, vfac):
+        ctx.save_for_backward(vfac)
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (vfac,) = ctx.saved_tensors
+        return (vfac * ct).to(ct.dtype), None
+
+
+def reweight_by_v(W, vfac):
+    """Identity in the tree `W` whose pullback scales each leaf's cotangent
+    elementwise by the matching leaf of `vfac`.
+
+    The fused delta of a `v_separable` rule factorises as
+    Δθ = vfac(v) ⊙ Σ_k w_k·g_k with per-event scalars w_k (fasgd: w_k =
+    m_k·lr/τ_k, vfac = 1/(v+ε)).  The pullback is elementwise-linear, so it
+    commutes with the event-axis contraction: `fused_apply_cotangent`
+    contracts once with the scalar weights, then pulls the result through
+    this function against the post-stats v.
+    """
+    return tree_map(_ReweightByV.apply, W, vfac)
+
+
+def fused_apply_cotangent(scfg: ServerConfig, server: ServerState,
+                          event_losses, stale_params, push, client_ts):
+    """Fused application as weighted backward passes — no [K, P] gradient
+    batch.
+
+    For rules with v-independent coefficients the fused update needs only
+
+        Δθ = Σ_k m_k·c(τ_k)·g_k      and      ḡ = Σ_k m_k·g_k / n_push,
+
+    both linear in the per-event gradients, so both are backward passes of
+    one batched forward with per-event cotangent weights (two
+    `torch.autograd.grad` calls over one retained graph).
+    `v_separable` rules (fasgd) contract with the scalar part of their
+    scale and apply the elementwise v-factor once afterwards, through
+    `reweight_by_v`, against the post-stats v.
+
+    `event_losses(W, deltas) -> [K]` evaluates every event's loss with its
+    stale parameters p_k = W + δ_k, δ_k = p_k − W detached (`deltas` is
+    built here from `stale_params`, [K, ...] leaves); the gradient with
+    respect to W contracts the weight-gradient GEMMs over the event axis.
+    `push` and `client_ts` are [K]: per-leaf trees are refused (per-leaf
+    weights cannot ride one cotangent vector).  Statistics advance once
+    with ḡ where some event pushed, iff `scfg.track_stats` or the rule
+    requires them; T advances by the number of pushes.
+
+    Returns (server, taus [K], losses [K]).
+    """
+    rule = server_rules.get_rule(scfg.rule)
+    if not (rule.supports_fused
+            and (rule.coeffs_are_v_independent or rule.v_separable)):
+        raise ValueError(
+            f"rule {scfg.rule!r} does not support the cotangent fused path "
+            f"(needs supports_fused and coeffs_are_v_independent or "
+            f"v_separable)")
+    if (is_per_leaf(push, server.params)
+            or is_per_leaf(client_ts, server.params)):
+        raise ValueError(
+            "per-leaf push masks / timestamps require the materialized "
+            "fused path (per-leaf weights cannot ride one cotangent vector)")
+    pushf = push.to(torch.float32)
+    n_push = push.to(torch.int32).sum()
+    taus = server_rules.step_staleness(server.timestamp, client_ts)   # [K]
+    coeffs = rule.fused_coeffs(scfg, taus)                            # [K]
+
+    deltas = tree_map(lambda p, w: (p - w[None]).detach(), stale_params,
+                      server.params)
+    W = leaves(tree_map(lambda w: w.detach().requires_grad_(), server.params))
+    track_stats = scfg.track_stats or rule.requires_stats
+    with torch.enable_grad():
+        losses = event_losses(unflatten(server.params, W), deltas)
+        w_delta = (pushf * coeffs).to(losses.dtype)
+        delta = torch.autograd.grad(losses, W, grad_outputs=w_delta,
+                                    retain_graph=track_stats)
+        if track_stats:
+            w_mean = (pushf / torch.clamp(n_push, min=1)).to(losses.dtype)
+            mean_g = torch.autograd.grad(losses, W, grad_outputs=w_mean)
+    if track_stats:
+        stats_state = rule.update_stats(scfg, server,
+                                        unflatten(server.params, mean_g))
+        server = tree_where(n_push > 0, stats_state, server)
+    if not rule.coeffs_are_v_independent:
+        # v_separable: the elementwise v-factor, once, against the
+        # post-stats v
+        vfac = leaves(rule.fused_vfactor(scfg, server.v))
+        with torch.enable_grad():
+            W = [w.detach().requires_grad_() for w in leaves(server.params)]
+            delta = torch.autograd.grad(
+                leaves(reweight_by_v(W, vfac)), W, grad_outputs=delta)
+    new_params = tree_map(torch.subtract, server.params,
+                          unflatten(server.params, list(delta)))
+    server = server._replace(params=new_params,
+                             timestamp=server.timestamp + n_push)
+    return server, taus, losses.detach()
 
 
 # ---------------------------------------------------------------------------

@@ -229,6 +229,12 @@ class UpdateRule:
         """Per-event scalar effective lr [K] for the 'coeff' mode."""
         raise NotImplementedError(self.name)
 
+    def fused_vfactor(self, config: ServerConfig, v):
+        """Elementwise v-factor tree of a `v_separable` rule: it multiplies
+        the coefficient-weighted fused delta once per leaf, against the
+        post-stats v (`engine.fused_apply_cotangent`)."""
+        raise NotImplementedError(self.name)
+
     def init_extra_state(self, config: ServerConfig, params):
         """Rule-private state kept in `ServerState.extra` (or None).  Entries
         whose tree mirrors `params` are merged per leaf under per-tensor
@@ -356,8 +362,19 @@ class FasgdRule(UpdateRule):
         return config.lr / (v * _f32(tau, v) + config.eps)
 
     def fused_coeffs(self, config, taus):
-        """α/τ_k per event (the scalar part of eq. 7's scale)."""
+        """ε-reparameterised per-event factor α/τ_k (the `v_separable`
+        split).
+
+        Together with `fused_vfactor` this gives α/(τ_k·(v+ε)) =
+        α/(v·τ_k + ε·τ_k), eq. 7 with its ε guard scaled by τ_k: relative
+        error ≤ ε/(v+ε), far inside the fused path's tolerances.
+        """
         return config.lr / taus.float()
+
+    def fused_vfactor(self, config, v):
+        """Elementwise 1/(v+ε), in float32, against the post-stats std
+        moving average (eq. 7)."""
+        return tree_map(lambda l: 1.0 / (l.float() + config.eps), v)
 
     def _apply_kernel(self, config, state, grad, tau, tau_scalar):
         # Ports `FasgdRule._apply_pallas`: eqs. 4-8 in one pass per leaf

@@ -43,6 +43,36 @@ def nll_loss(params, x, y):
     return -torch.mean(torch.gather(logp, -1, y[:, None]))
 
 
+def nll_loss_event_batched(params, deltas, x, y):
+    """Per-event NLL [K] in the shared/delta form the cotangent fused path
+    differentiates (`engine.fused_apply_cotangent`).
+
+    `params` is the one differentiable parameter set W; `deltas` holds each
+    event's detached stale offset δ_k = p_k − W ([K, ...] leaves); `x` is
+    [K, μ, d_in], `y` [K, μ].  Each layer is evaluated as
+
+        h @ (W_l + δ_l[k])  =  h @ W_l  +  h @ δ_l[k]
+
+    so the differentiable operand of every GEMM is the shared W_l: the
+    weight gradient is one contraction over the flattened K·μ axis into
+    [d_in, d_out], and no [K, ...] per-event gradient is formed.
+    """
+    K, mu = x.shape[0], x.shape[1]
+    h = x
+    last = len(params) - 1
+    for i, (layer, dl) in enumerate(zip(params, deltas)):
+        shared = (h.reshape(K * mu, -1) @ layer["w"]).reshape(K, mu, -1)
+        stale = torch.einsum("kmi,kio->kmo", h, dl["w"])
+        z = shared + stale + layer["b"] + dl["b"][:, None, :]
+        h = z if i == last else F.relu(z)
+    logp = F.log_softmax(h, dim=-1)
+    return -torch.gather(logp, -1, y[..., None])[..., 0].mean(dim=-1)
+
+
+# the cotangent fused path finds it through engine.resolve_event_batched_loss
+nll_loss.event_batched = nll_loss_event_batched
+
+
 def accuracy(params, x, y):
     """Share of `x` whose arg-max logit is `y`."""
     return torch.mean((apply_mlp(params, x).argmax(dim=-1) == y).float())

@@ -17,10 +17,31 @@ events (serial) or over K-event windows (fused) where the reference runs
 
 ``apply_mode='serial'`` processes a window's K events one at a time and is
 K-invariant: every draw comes from the RNG provider by global event index
-(`repro_torch.utils.rng`).  ``apply_mode='fused'`` computes the K
-gradients with one `torch.func.vmap` and applies them through
-`engine.fused_apply` (the materialized reduction; with ``use_fused_kernel``
-the one-kernel CUDA path).
+(`repro_torch.utils.rng`).  ``apply_mode='fused'`` applies the K events in
+one masked-sum update, its stale copies gathered through `dedup_events`
+representatives, by one of two reductions (``SimConfig.fused_mode``):
+
+* ``'materialized'``: one `torch.func.vmap` of the gradient forms the
+  [K, P] gradient batch and `engine.fused_apply` reduces it (with
+  ``use_fused_kernel`` on the one-kernel CUDA path);
+* ``'cotangent'``: for rules whose fused scale is a per-event scalar (times
+  one elementwise v-factor for fasgd's ε-reparameterised split), the
+  weighted gradient sum and the statistics' mean gradient are backward
+  passes of one event-batched forward (`engine.fused_apply_cotangent`), and
+  the [K, P] batch is never formed;
+* ``'auto'`` (default) takes the cotangent path wherever the configuration
+  is eligible (`SimConfig.cotangent_eligible`: exactly v-independent
+  coefficients), else the materialized one.
+
+**Bounded ingress queue** (``queue_capacity > 0``, `core.queue`): each
+window is K arrivals (dispatch, stale-copy gradient, eq.-9 push gate
+against the server as it was before the window, admission into the ring),
+one drain (`engine.serial_apply`, `engine.fused_apply` or
+`engine.fused_apply_cotangent` over the drained ``[capacity]`` batch, its
+invalid rows weighted 0), then the K arriving clients' fetch gates against
+the post-drain server.  Every gate of a queued window is drawn per event.
+With ``queue_capacity=1``, ``drain_all`` and ``block`` the queued serial
+path is the immediate-apply serial path.
 
 Nothing in the event loop reads a tensor on the host: gates are
 `torch.where`, indices stay on the device, and the device scalars τ,
@@ -30,10 +51,8 @@ The host waits for the device only at each evaluation.
 Under per-tensor fetch each client copy keeps one timestamp per tensor
 (`SimState.client_leaf_ts`), so staleness is per leaf in both apply modes.
 
-Not ported yet, and refused with `NotImplementedError`: the ingress queue
-(`queue_capacity`), scenarios, a sharded server or client mesh, and the
-cotangent fused path — including ``fused_mode='auto'`` where the reference
-would resolve it to the cotangent path.
+Not ported yet, and refused with `NotImplementedError`: scenarios, a
+sharded server and a client mesh.
 """
 from __future__ import annotations
 
@@ -43,6 +62,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core import engine
+from repro_torch.core import queue as qlib
 from repro_torch.core import rules as server_rules
 from repro_torch.core.bandwidth import BandwidthConfig, masked_bytes, tree_bytes
 from repro_torch.core.engine import (Counters, tree_select, tree_select_axis,
@@ -66,17 +86,25 @@ class SimConfig:
     seed: int = 0
     events_per_step: int = 1      # K client events per window
     apply_mode: str = "serial"    # 'serial' (paper-faithful) | 'fused'
-    fused_mode: str = "auto"      # 'auto' | 'materialized' ('cotangent' waits)
+    fused_mode: str = "auto"      # 'auto' | 'materialized' | 'cotangent'
+    # --- bounded server ingress queue (core/queue.py) ---
+    queue_capacity: int = 0       # 0 = immediate apply (no queue)
+    drain_policy: str = "drain_all"     # 'drain_all' | 'drain_k' | 'adaptive'
+    drain_k: int = 1              # per-window drain budget ('drain_k'; the
+                                  # floor of 'adaptive')
+    drain_adaptive_gain: float = 0.5    # 'adaptive': drain ceil(gain·depth)
+    admission_policy: str = "block"     # 'block' | 'reject' | 'drop_oldest'
     # kept so that a configuration asking for them is refused, not ignored
-    queue_capacity: int = 0
     scenario: Optional[Any] = None
     server_shards: int = 1
 
     def cotangent_serviceable(self) -> bool:
-        """True iff the reference's cotangent fused path can serve this
+        """True iff `engine.fused_apply_cotangent` can serve this
         configuration: a fused rule whose scale rides it (v-independent
         coefficients, or `v_separable`), whole-copy gating, no gradient
-        cache and the kernel off."""
+        cache (it stores per-event gradients the path never forms) and the
+        kernel off (``use_fused_kernel`` selects the one-kernel
+        materialized path)."""
         rule = server_rules.get_rule(self.server.rule)
         use_cache = (self.bandwidth.c_push > 0
                      and self.bandwidth.drop_policy == "cache")
@@ -87,9 +115,9 @@ class SimConfig:
                 and not self.server.use_fused_kernel)
 
     def cotangent_eligible(self) -> bool:
-        """True iff the reference's fused_mode='auto' resolves to the
-        cotangent path: serviceable, with exactly v-independent
-        coefficients."""
+        """True iff ``fused_mode='auto'`` resolves to the cotangent path:
+        serviceable, with exactly v-independent coefficients (fasgd's
+        ε-reparameterised split is served on explicit request only)."""
         return (self.cotangent_serviceable()
                 and server_rules.get_rule(
                     self.server.rule).coeffs_are_v_independent)
@@ -103,6 +131,17 @@ class SimConfig:
             raise ValueError(f"unknown fused_mode {self.fused_mode!r}")
         if self.events_per_step < 1:
             raise ValueError(f"events_per_step={self.events_per_step} < 1")
+        if self.fused_mode == "cotangent":
+            if self.apply_mode != "fused":
+                raise ValueError(
+                    "fused_mode='cotangent' requires apply_mode='fused'")
+            if not self.cotangent_serviceable():
+                raise ValueError(
+                    f"configuration is not cotangent-serviceable: rule "
+                    f"{self.server.rule!r} must declare "
+                    f"coeffs_are_v_independent or v_separable, and gating "
+                    f"must be whole-copy without a gradient cache and with "
+                    f"the kernel off (see SimConfig.cotangent_serviceable)")
         rule = server_rules.get_rule(self.server.rule)
         if rule.synchronous:
             # a barrier needs a fair schedule (scenarios are not ported), and
@@ -117,23 +156,62 @@ class SimConfig:
             raise ValueError(
                 f"rule {self.server.rule!r} does not support "
                 f"apply_mode='fused'")
-        if self.queue_capacity:
-            raise NotImplementedError(
-                "the ingress queue is not ported to repro_torch yet")
+        self._check_queue(rule)
         if self.scenario is not None:
             raise NotImplementedError(
                 "scenarios are not ported to repro_torch yet")
         if self.server_shards != 1:
             raise NotImplementedError(
                 "a sharded server is not ported to repro_torch yet")
-        if self.apply_mode == "fused" and (
-                self.fused_mode == "cotangent"
-                or (self.fused_mode == "auto" and self.cotangent_eligible())):
-            raise NotImplementedError(
-                "the cotangent fused path is not ported to repro_torch yet "
-                "(fused_mode='auto' resolves to it for this rule with the "
-                "kernel off and whole-copy gating without a gradient "
-                "cache): set fused_mode='materialized'")
+
+    def _check_queue(self, rule):
+        """The reference's ingress-queue validation: clear errors for
+        configurations with no coherent queued semantics."""
+        if self.queue_capacity < 0:
+            raise ValueError(
+                f"queue_capacity must be >= 0 (0 disables the queue), got "
+                f"{self.queue_capacity}")
+        if self.drain_policy not in qlib.DRAIN_POLICIES:
+            raise ValueError(
+                f"unknown drain_policy {self.drain_policy!r}: expected one "
+                f"of {qlib.DRAIN_POLICIES}")
+        if self.admission_policy not in qlib.ADMISSION_POLICIES:
+            raise ValueError(
+                f"unknown admission_policy {self.admission_policy!r}: "
+                f"expected one of {qlib.ADMISSION_POLICIES}")
+        if not self.queue_capacity:
+            return
+        if rule.synchronous:
+            raise ValueError(
+                f"queue_capacity > 0 is undefined for synchronous rule "
+                f"{self.server.rule!r}: a barrier rule already buffers a "
+                f"full round server-side — use an async rule or "
+                f"queue_capacity=0")
+        if self.drain_k < 1:
+            raise ValueError(f"drain_k must be >= 1, got {self.drain_k}")
+        if (self.drain_policy == "adaptive"
+                and not 0.0 < self.drain_adaptive_gain <= 1.0):
+            raise ValueError(
+                f"drain_adaptive_gain must be in (0, 1], got "
+                f"{self.drain_adaptive_gain}")
+        if self.bandwidth.c_push > 0 and self.bandwidth.drop_policy == "cache":
+            raise ValueError(
+                "drop_policy='cache' (server-side gradient cache) is "
+                "incompatible with an ingress queue: a gated-out push never "
+                "reaches the server, so there is no arrival to admit — use "
+                "drop_policy='skip' with queue_capacity > 0")
+        if self.admission_policy == "block":
+            if self.drain_policy != "drain_all":
+                raise ValueError(
+                    "admission_policy='block' models lossless backpressure, "
+                    "which a fixed-shape window can honour only when "
+                    "overflow is impossible: use drain_policy='drain_all', "
+                    "or admission 'reject'/'drop_oldest'")
+            if self.queue_capacity < self.events_per_step:
+                raise ValueError(
+                    f"admission_policy='block' requires queue_capacity >= "
+                    f"events_per_step (got {self.queue_capacity} < "
+                    f"{self.events_per_step})")
 
 
 class SimState(NamedTuple):
@@ -141,8 +219,9 @@ class SimState(NamedTuple):
 
     `client_params`, `client_ts`, `grad_cache` and `client_leaf_ts` are
     fleet arrays owned by the loop and updated in place (a functional copy
-    would write the whole [λ, P] fleet every event); the server state is
-    replaced, not mutated.
+    would write the whole [λ, P] fleet every event), as are the ingress
+    queue's slot arrays (`core.queue`); the server state is replaced, not
+    mutated.
     """
 
     server: ServerState
@@ -154,12 +233,40 @@ class SimState(NamedTuple):
     # per-tensor fetch (§5): [λ, n_leaves] int32 — the timestamp at which
     # each tensor of each client's copy last synchronized
     client_leaf_ts: Optional[torch.Tensor] = None
+    # bounded server ingress queue (queue_capacity > 0; core/queue.py)
+    queue: Optional[qlib.QueueState] = None
+
+
+def _use_cotangent(config: SimConfig) -> bool:
+    """Whether the fused path reduces through `fused_apply_cotangent`:
+    asked for, or 'auto' on an eligible configuration."""
+    return (config.apply_mode == "fused"
+            and (config.fused_mode == "cotangent"
+                 or (config.fused_mode == "auto"
+                     and config.cotangent_eligible())))
+
+
+def _queue_payload_example(config: SimConfig, params):
+    """One event's payload in the ingress queue: the gradient and its loss
+    (plus the stale copy for gap-aware rules), or, on the cotangent fused
+    path, the stale copy and the minibatch indices (its forward and
+    backward run at drain time)."""
+    device = leaves(params)[0].device
+    if _use_cotangent(config):
+        return {"copy": params,
+                "idx": torch.zeros(config.batch_size, dtype=torch.int64,
+                                   device=device)}
+    payload = {"grad": params,
+               "loss": torch.zeros((), dtype=torch.float32, device=device)}
+    if server_rules.get_rule(config.server.rule).needs_client_params:
+        payload["copy"] = params
+    return payload
 
 
 def init_sim(config: SimConfig, params) -> SimState:
     """Fresh `SimState` on the params' device: server at T = 0, λ identical
-    client copies, and the gradient cache and per-tensor timestamps when
-    the config needs them."""
+    client copies, and the gradient cache, per-tensor timestamps and
+    ingress queue when the config needs them."""
     lam = config.num_clients
     device = leaves(params)[0].device
     server = server_rules.init(config.server, params)
@@ -177,6 +284,12 @@ def init_sim(config: SimConfig, params) -> SimState:
         client_leaf_ts=(torch.zeros((lam, len(leaves(params))),
                                     dtype=torch.int32, device=device)
                         if config.bandwidth.per_tensor_fetch else None),
+        queue=(qlib.init_queue(
+            config.queue_capacity, _queue_payload_example(config, params),
+            n_leaves=(len(leaves(params))
+                      if config.bandwidth.per_tensor_fetch else 0),
+            mask_like=(params if config.bandwidth.per_tensor_push else None))
+            if config.queue_capacity else None),
     )
 
 
@@ -206,25 +319,72 @@ def _leaf_tree(like, cols):
     return unflatten(like, [cols[..., i] for i in range(cols.shape[-1])])
 
 
-def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y):
+def _clients_of(config: SimConfig, state: SimState, draws: Draws):
+    """The window's K dispatched clients ([K] int64 on the device)."""
+    if config.dispatcher == "roundrobin":
+        return (torch.arange(draws.idx.shape[0], device=draws.idx.device)
+                + state.rr_pos) % config.num_clients
+    return draws.clients
+
+
+def _fetch_window(config: SimConfig, state: SimState, cs, new_server,
+                  fetch_u, model_bytes):
+    """The fetch gates of a window's K clients `cs` against `new_server`
+    (per leaf under per-tensor fetch) and their scatters into the fleet, in
+    place.  Every fetch delivers the same canonical parameters, so the
+    scatters are deterministic.  A whole-copy fetch counts `model_bytes`
+    (the pre-window tree's).  Returns (fetch [K], fetch bytes sent)."""
+    bw = config.bandwidth
+    k = cs.shape[0]
+    expand = lambda x: x[None].expand((k,) + x.shape)
+    if bw.per_tensor_fetch:
+        fmask, _, _ = engine.per_tensor_gate(fetch_u, new_server,
+                                             bw.c_fetch, bw.eps)
+        fetch_sent = masked_bytes(fmask, new_server.params)
+        fm = torch.stack(leaves(fmask))                   # [n_leaves, K]
+        for i, (cl, sp) in enumerate(zip(leaves(state.client_params),
+                                         leaves(new_server.params))):
+            source = engine.last_event_source(cs, fm[i])
+            engine.scatter_rows_(cl, cs, expand(sp), source)
+            engine.scatter_rows_(state.client_leaf_ts[:, i], cs,
+                                 expand(new_server.timestamp), source)
+        # the whole-copy timestamp moves only when every tensor was fetched
+        fetch = fm.all(dim=0)
+        source = engine.last_event_source(cs, fetch)
+    else:
+        fetch = engine.transmit_gate(fetch_u, new_server, bw.c_fetch,
+                                     bw.eps)                  # [K]
+        fetch_sent = fetch.to(torch.float32).sum() * model_bytes
+        source = engine.last_event_source(cs, fetch)
+        tree_map(lambda cl, sp: engine.scatter_rows_(
+            cl, cs, expand(sp), source),
+            state.client_params, new_server.params)
+    engine.scatter_rows_(state.client_ts, cs, expand(new_server.timestamp),
+                         source)
+    return fetch, fetch_sent
+
+
+def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
+                  batched_loss_fn: Optional[Callable] = None):
     """Returns ``step(state, draws) -> (state, metrics)`` for one window.
 
     `draws` holds the window's K events (`utils.rng.Draws`), which sets the
     window size: the reference's ``events`` override is not needed.
     Metrics are per-event [K] tensors (``loss``, ``tau``, ``client``,
-    ``pushed``, ``fetched``).  `loss_fn(params, xb, yb) -> scalar`.
+    ``pushed``, ``fetched``); a queued window's ``loss`` and ``tau`` are
+    means over its drained events, with its queue telemetry beside them.
+    `loss_fn(params, xb, yb) -> scalar`; `batched_loss_fn(W, deltas, xb,
+    yb) -> [K]` is the event-batched loss the cotangent path
+    differentiates (default: ``loss_fn.event_batched``, else the generic
+    `engine.event_batched_losses`).
     """
+    if config.queue_capacity:
+        return _build_queue_step(config, loss_fn, data_x, data_y,
+                                 batched_loss_fn)
     grad_fn = torch.func.grad_and_value(loss_fn)
     bw = config.bandwidth
     scfg = config.server
-    lam = config.num_clients
     synchronous = server_rules.get_rule(scfg.rule).synchronous
-
-    def clients_of(state: SimState, draws: Draws):
-        if config.dispatcher == "roundrobin":
-            return (torch.arange(draws.idx.shape[0], device=data_x.device)
-                    + state.rr_pos) % lam
-        return draws.clients
 
     def event_body(state: SimState, c1, idx, u_push, u_fetch):
         """One client event — the paper's protocol, verbatim.  `c1` is the
@@ -313,7 +473,7 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y):
 
     if config.apply_mode == "serial":
         def step(state: SimState, draws: Draws):
-            cs = clients_of(state, draws)
+            cs = _clients_of(config, state, draws)
             out = []
             for j in range(draws.idx.shape[0]):
                 state, m = event_body(state, cs[j:j + 1], draws.idx[j],
@@ -326,12 +486,16 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y):
 
     # ----- fused: all K events advance in one batched protocol round -----
     vgrad = torch.func.vmap(grad_fn)
+    use_cotangent = _use_cotangent(config)
+    batched_losses = (engine.resolve_event_batched_loss(loss_fn,
+                                                        batched_loss_fn)
+                      if use_cotangent else None)
 
     def step(state: SimState, draws: Draws):
         k = draws.idx.shape[0]
         server = state.server
         model_bytes = tree_bytes(server.params)
-        cs = clients_of(state, draws)
+        cs = _clients_of(config, state, draws)
         xb, yb = data_x[draws.idx], data_y[draws.idx]            # [K, μ, ...]
 
         # --- event dedup: clients that fetched at the same T hold identical
@@ -358,8 +522,16 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y):
         grad_ts = (_leaf_tree(server.params, dedup_key)
                    if bw.per_tensor_fetch else dedup_key)
 
-        grads, losses = vgrad(p_e, xb, yb)
-        if state.grad_cache is not None:
+        if use_cotangent:
+            # Σ_k w_k·g_k and the statistics' mean gradient as backward
+            # passes of the batched forward; eligibility rules out the
+            # gradient cache, per-tensor gating and gap rules
+            new_server, taus, losses = engine.fused_apply_cotangent(
+                scfg, server,
+                lambda W, deltas: batched_losses(W, deltas, xb, yb),
+                p_e, push, grad_ts)
+        elif state.grad_cache is not None:
+            grads, losses = vgrad(p_e, xb, yb)
             # cache policy: every opportunity applies *some* gradient (leaf
             # by leaf under per-tensor push), so the fused mask is all-ones
             # over the effective gradients
@@ -373,37 +545,13 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y):
                 client_params=p_e)
             engine.last_event_scatter(state.grad_cache, cs, grads, push)
         else:
+            grads, losses = vgrad(p_e, xb, yb)
             new_server, taus = engine.fused_apply(
                 scfg, server, grads, push, grad_ts, client_params=p_e)
 
-        # --- fetch gates (post-apply server state).  Every fetch delivers
-        # the same canonical parameters, so the scatters are deterministic ---
-        expand = lambda x: x[None].expand((k,) + x.shape)
-        if bw.per_tensor_fetch:
-            fmask, _, _ = engine.per_tensor_gate(draws.fetch_u, new_server,
-                                                 bw.c_fetch, bw.eps)
-            fetch_sent = masked_bytes(fmask, new_server.params)
-            fm = torch.stack(leaves(fmask))                   # [n_leaves, K]
-            for i, (cl, sp) in enumerate(zip(leaves(state.client_params),
-                                             leaves(new_server.params))):
-                source = engine.last_event_source(cs, fm[i])
-                engine.scatter_rows_(cl, cs, expand(sp), source)
-                engine.scatter_rows_(state.client_leaf_ts[:, i], cs,
-                                     expand(new_server.timestamp), source)
-            # the whole-copy timestamp moves only when every tensor was
-            # fetched
-            fetch = fm.all(dim=0)
-            source = engine.last_event_source(cs, fetch)
-        else:
-            fetch = engine.transmit_gate(draws.fetch_u, new_server,
-                                         bw.c_fetch, bw.eps)      # [K]
-            fetch_sent = fetch.to(torch.float32).sum() * model_bytes
-            source = engine.last_event_source(cs, fetch)
-            tree_map(lambda cl, sp: engine.scatter_rows_(
-                cl, cs, expand(sp), source),
-                state.client_params, new_server.params)
-        engine.scatter_rows_(state.client_ts, cs,
-                             expand(new_server.timestamp), source)
+        # --- fetch gates (post-apply server state) ---
+        fetch, fetch_sent = _fetch_window(config, state, cs, new_server,
+                                          draws.fetch_u, model_bytes)
 
         counters = engine.count_events(
             state.counters, push_event, fetch,
@@ -421,6 +569,163 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y):
     return step
 
 
+def _build_queue_step(config: SimConfig, loss_fn, data_x, data_y,
+                      batched_loss_fn=None):
+    """``step(state, draws)`` for the queued protocol: one drain window.
+
+    K arrivals (dispatch, stale-copy gradient, eq.-9 push gate against the
+    pre-window server, admission into the ring), one drain of the
+    ``[capacity]`` batch through the configured apply, then the K arriving
+    clients' fetch gates against the post-drain server.  Serial arrivals
+    take the gradient one event at a time, so ``queue_capacity=1`` with
+    ``drain_all`` is the immediate-apply serial path; fused arrivals map
+    the gradient over `dedup_events` representatives; cotangent arrivals
+    queue the stale copy and the minibatch rows, and the forward and
+    backward run at drain time.
+    """
+    grad_fn = torch.func.grad_and_value(loss_fn)
+    vgrad = torch.func.vmap(grad_fn)
+    bw = config.bandwidth
+    scfg = config.server
+    rule = server_rules.get_rule(scfg.rule)
+    fused = config.apply_mode == "fused"
+    use_cotangent = _use_cotangent(config)
+    batched_losses = (engine.resolve_event_batched_loss(loss_fn,
+                                                        batched_loss_fn)
+                      if use_cotangent else None)
+
+    def step(state: SimState, draws: Draws):
+        K = draws.idx.shape[0]
+        server = state.server
+        model_bytes = tree_bytes(server.params)
+        n_leaves = len(leaves(server.params))
+        cs = _clients_of(config, state, draws)
+        idx = draws.idx
+
+        # --- push gates at arrival, all against the pre-window server ---
+        if bw.per_tensor_push:
+            push, _, _ = engine.per_tensor_gate(draws.push_u, server,
+                                                bw.c_push, bw.eps)
+            push_event = engine.any_leaf(push)                  # [K]
+        else:
+            push = push_event = engine.transmit_gate(
+                draws.push_u, server, bw.c_push, bw.eps)        # [K]
+        # the stale copies' timestamps double as the dedup key
+        dedup_key = (state.client_leaf_ts[cs] if bw.per_tensor_fetch
+                     else state.client_ts[cs])
+
+        # --- arrival-side work → queue payload ---
+        if use_cotangent:
+            rep, _, _ = engine.dedup_events(dedup_key)
+            payload = {"copy": engine.tree_index(state.client_params,
+                                                 cs[rep]),
+                       "idx": idx}
+        elif fused:
+            rep, _, _ = engine.dedup_events(dedup_key)
+            p_e = engine.tree_index(state.client_params, cs[rep])
+            grads, losses = vgrad(p_e, data_x[idx], data_y[idx])
+            payload = {"grad": grads, "loss": losses}
+            if rule.needs_client_params:
+                payload["copy"] = p_e
+        else:
+            # one event at a time, as the immediate-apply serial path
+            rows = []
+            for j in range(K):
+                p_c = _row(state.client_params, cs[j:j + 1])
+                g, loss = grad_fn(p_c, data_x[idx[j]], data_y[idx[j]])
+                row = {"grad": g, "loss": loss}
+                if rule.needs_client_params:
+                    row["copy"] = p_c
+                rows.append(row)
+            payload = tree_map(lambda *xs: torch.stack(xs), *rows)
+
+        # --- admission ---
+        arrivals = qlib.Arrivals(
+            payload=payload, ts=state.client_ts[cs], client=cs,
+            valid=push_event,
+            leaf_ts=dedup_key if bw.per_tensor_fetch else None,
+            leaf_mask=push if bw.per_tensor_push else None)
+        queue, admitted, n_rejected, n_dropped = qlib.enqueue(
+            state.queue, arrivals, config.admission_policy,
+            server.timestamp)
+        depth_peak = queue.size
+        # only admitted pushes crossed the wire: a rejected push is
+        # refused before transmission
+        if bw.per_tensor_push:
+            push_sent = masked_bytes(tree_map(lambda m: m & admitted, push),
+                                     server.params)
+        else:
+            push_sent = admitted.to(torch.float32).sum() * model_bytes
+
+        # --- drain: apply the k_eff oldest queued events in one pass ---
+        k_eff = qlib.drain_count(queue.size, config.drain_policy,
+                                 drain_k=config.drain_k,
+                                 gain=config.drain_adaptive_gain)
+        queue, batch = qlib.dequeue(queue, k_eff)
+        latency_sum = torch.where(
+            batch.valid, (server.timestamp - batch.enq_T).to(torch.float32),
+            0.0).sum()
+        grad_ts = (_leaf_tree(server.params, batch.leaf_ts)
+                   if bw.per_tensor_fetch else batch.ts)
+        push_arg = qlib.drained_push_arg(batch, bw.per_tensor_push)
+        cp = batch.payload.get("copy") if rule.needs_client_params else None
+        if use_cotangent:
+            rows = batch.payload["idx"]
+            xb, yb = data_x[rows], data_y[rows]
+            new_server, taus, dlosses = engine.fused_apply_cotangent(
+                scfg, server,
+                lambda W, deltas: batched_losses(W, deltas, xb, yb),
+                batch.payload["copy"], push_arg, grad_ts)
+        elif fused:
+            new_server, taus = engine.fused_apply(
+                scfg, server, batch.payload["grad"], push_arg, grad_ts,
+                client_params=cp)
+            dlosses = batch.payload["loss"]
+        else:
+            new_server, taus = engine.serial_apply(
+                scfg, server, batch.payload["grad"], push_arg, grad_ts, cp)
+            dlosses = batch.payload["loss"]
+
+        # --- fetch gates: the K arriving clients, post-drain server ---
+        fetch, fetch_sent = _fetch_window(config, state, cs, new_server,
+                                          draws.fetch_u, model_bytes)
+
+        counters = engine.count_events(
+            state.counters, admitted, fetch,
+            push_bytes_sent=push_sent, push_bytes_total=K * model_bytes,
+            fetch_bytes_sent=fetch_sent, fetch_bytes_total=K * model_bytes)
+        counters = qlib.count_queue(
+            counters, enqueued=admitted.to(torch.int32).sum(),
+            rejected=n_rejected, dropped=n_dropped, drained=k_eff,
+            depth_post=queue.size, depth_peak=depth_peak,
+            latency_sum=latency_sum)
+        # kernel telemetry: a fused drain is one launch per leaf consuming
+        # k_eff events; a serial drain computes every row's candidate
+        # (capacity launches per leaf) and masks the invalid ones
+        if fused and engine.fused_kernel_active(scfg):
+            counters = engine.count_kernel(counters, n_leaves, k_eff)
+        elif not fused and engine.serial_kernel_active(scfg,
+                                                       bw.per_tensor_fetch):
+            counters = engine.count_kernel(
+                counters, batch.valid.shape[0] * n_leaves, k_eff)
+
+        new_state = state._replace(server=new_server, rr_pos=state.rr_pos + K,
+                                   counters=counters, queue=queue)
+        validf = batch.valid.to(torch.float32)
+        nz = torch.clamp(k_eff, min=1).to(torch.float32)
+        return new_state, {
+            # means over the drained (not the arriving) events
+            "loss": (validf * dlosses).sum() / nz,
+            "tau": (validf * taus).sum() / nz,
+            "client": cs, "pushed": push_event, "fetched": fetch,
+            "queue_depth": queue.size, "drained": k_eff,
+            "admitted": admitted.to(torch.int32).sum(),
+            "rejected": n_rejected, "dropped": n_dropped,
+        }
+
+    return step
+
+
 def run_simulation(
     config: SimConfig,
     loss_fn: Callable,
@@ -434,6 +739,7 @@ def run_simulation(
     mesh=None,
     rng=None,
     device=None,
+    batched_loss_fn: Optional[Callable] = None,
 ):
     """Run the deterministic simulation; returns a results dict.
 
@@ -444,12 +750,15 @@ def run_simulation(
     `ReplayDraws` to replay recorded draws).  `init_params`, `data_x` and
     `data_y` are moved to `device` (labels as int64): the card unless the
     caller passes another device (`utils.device.resolve_device`).
+    `batched_loss_fn` is the cotangent path's event-batched loss
+    (`build_step_fn`).
 
     The dict has the reference's keys: ``steps``, ``val_cost``,
     ``wall_clock`` (the unit event clock), ``counters`` (floats),
     ``final_timestamp``, ``state``, and ``train_loss`` / ``tau`` when
     `collect_step_metrics`.  The final state's `client_leaf_ts` is there
-    under per-tensor fetch.
+    under per-tensor fetch, its `queue` under a queue; the `queue_*`
+    counters only under a queue, as in the reference.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -461,7 +770,8 @@ def run_simulation(
     if rng is None:
         rng = native_draws(config, data_x.shape[0], len(leaves(params)))
     state = init_sim(config, params)
-    step = build_step_fn(config, loss_fn, data_x, data_y)
+    step = build_step_fn(config, loss_fn, data_x, data_y,
+                         batched_loss_fn=batched_loss_fn)
     K = config.events_per_step
 
     curve_steps, curve_cost, curve_wall = [], [], []
@@ -487,6 +797,10 @@ def run_simulation(
             curve_wall.append(float(done))
 
     counters = {k: float(v) for k, v in state.counters._asdict().items()}
+    if not config.queue_capacity:
+        # the queue telemetry only appears when a queue is configured
+        counters = {k: v for k, v in counters.items()
+                    if not k.startswith("queue_")}
     if not config.server.use_fused_kernel:
         # kernel-path telemetry only appears when the kernel path can run
         counters = {k: v for k, v in counters.items()

@@ -43,6 +43,19 @@ EVAL_EVERY = 24
 RTOL, ATOL = 1e-4, 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Run the port's CPU ops on one thread for the tests of a module that
+    uses this fixture, and restore the thread count after them.  The suite
+    runs in several worker processes at once, and torch's intra-op thread
+    pools then oversubscribe the cores: every one of the thousands of small
+    ops of a FRED run waits on threads that are not running."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     params = jax.tree.map(np.array, j_init_mlp(jax.random.PRNGKey(0)))
@@ -54,13 +67,16 @@ def replay_of(cfg, n_data, num_steps=EVENTS, eval_every=EVAL_EVERY,
               bandwidth=None, n_leaves=4):
     """The draws the reference makes for `cfg` (and its `bandwidth`
     settings), window by window, exactly as `repro.sim.fred.run_simulation`
-    derives them: whole-copy gates from one key per window on the fused
-    path and one per event on the serial path; per-tensor gates from each
-    event's key split into one key per leaf, on both paths."""
+    derives them: whole-copy gates from one key per window on the
+    unqueued fused path, and from each event's key on the serial path and
+    on every queued path (``queue_capacity > 0``, serial and fused alike);
+    per-tensor gates from each event's key split into one key per leaf, on
+    every path."""
     base = jax.random.PRNGKey(cfg["seed"])
     lam, mu, K = cfg["num_clients"], cfg["batch_size"], cfg.get(
         "events_per_step", 1)
-    fused = cfg.get("apply_mode") == "fused"
+    window_key = (cfg.get("apply_mode") == "fused"
+                  and not cfg.get("queue_capacity"))
     bw = bandwidth or {}
     per_leaf = jax.vmap(lambda kk: jax.vmap(jax.random.uniform)(
         jax.random.split(kk, n_leaves)))
@@ -82,7 +98,7 @@ def replay_of(cfg, n_data, num_steps=EVENTS, eval_every=EVAL_EVERY,
                                     ("fetch_u", 3, "per_tensor_fetch")):
                 if bw.get(flag):
                     out[name].append(per_leaf(ks[:, col]))
-                elif fused:   # one key draws the whole window's gates
+                elif window_key:   # one key draws the window's gates
                     out[name].append(jax.random.uniform(ks[0, col], (k,)))
                 else:
                     out[name].append(jax.vmap(jax.random.uniform)(ks[:, col]))
@@ -129,9 +145,10 @@ def _same_or_close(a, b, what, worst):
 def check_against_reference(setup, name, case, num_steps=EVENTS):
     """Run `case` through both packages (the port replaying the reference's
     draws) and hold the port to the reference: τ, counters, T, client
-    timestamps (whole-copy and per tensor) exactly, floats within
-    tolerance (server state with the rule's `extra`, client copies, the
-    gradient cache)."""
+    timestamps (whole-copy and per tensor) and the ingress queue's ring
+    indices, timestamps and clients exactly, floats within tolerance
+    (server state with the rule's `extra`, client copies, the gradient
+    cache, the queued payloads)."""
     params, ds = setup
     bw = case.get("bandwidth", {})
     j_cfg = JSimConfig(
@@ -158,7 +175,7 @@ def check_against_reference(setup, name, case, num_steps=EVENTS):
         device="cpu")
 
     np.testing.assert_array_equal(out["tau"].numpy(), np.asarray(j_out["tau"]))
-    assert out["counters"] == j_out["counters"]
+    assert out["counters"] == j_out["counters"], (out["counters"], j_out["counters"])
     assert out["final_timestamp"] == j_out["final_timestamp"]
     assert out["steps"] == j_out["steps"]
     worst = {}
@@ -186,6 +203,22 @@ def check_against_reference(setup, name, case, num_steps=EVENTS):
     else:
         np.testing.assert_array_equal(st.client_leaf_ts.numpy(),
                                       np.asarray(j_st.client_leaf_ts))
+    if j_st.queue is None:
+        assert st.queue is None
+    else:
+        for field in ("head", "size", "ts", "client", "enq_T", "leaf_ts"):
+            want = getattr(j_st.queue, field)
+            got = getattr(st.queue, field)
+            assert (got is None) == (want is None), field
+            if want is not None:
+                np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                              err_msg=f"queue {field}")
+        for field in ("payload", "leaf_mask"):
+            got = leaves(to_numpy(getattr(st.queue, field)))
+            want = jax.tree.leaves(getattr(j_st.queue, field))
+            assert len(got) == len(want), field
+            for i, (a, b) in enumerate(zip(got, want)):
+                _same_or_close(a, b, f"queue_{field} leaf {i}", worst)
     # `pytest -s` shows the parity reached (recorded in PERF.md)
     print(f"\nPARITY fred/{name} max|Δ| " + " ".join(
         f"{k}={v:.3e}" for k, v in sorted(worst.items())))
@@ -301,13 +334,14 @@ def test_port_native_data_and_init_match_the_reference_geometry():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(queue_capacity=4),
+    dict(queue_capacity=4, scenario=object()),
     dict(scenario=object()),
     dict(server_shards=2),
-    dict(apply_mode="fused", fused_mode="cotangent"),
-    # 'auto' resolves to the cotangent path for a v-independent rule with
-    # the kernel off: refused, never silently materialized
-    dict(apply_mode="fused", server=ServerConfig(rule="sasgd")),
+    dict(apply_mode="fused", fused_mode="cotangent", scenario=object()),
+    # the queue and the cotangent path are ported; a queue on a sharded
+    # server is not
+    dict(apply_mode="fused", server=ServerConfig(rule="sasgd"),
+         queue_capacity=4, server_shards=2),
 ])
 def test_unported_configurations_raise(kwargs):
     with pytest.raises(NotImplementedError):

@@ -5,7 +5,8 @@ round-robin dispatcher.  Same method and tolerances as test_torch_fred.py,
 whose helpers this file uses."""
 import pytest
 
-from test_torch_fred import check_against_reference, setup  # noqa: F401
+from test_torch_fred import (check_against_reference, one_thread,  # noqa: F401
+                             setup)
 
 FUSED = dict(num_clients=16, batch_size=8, seed=3, events_per_step=8,
              apply_mode="fused")

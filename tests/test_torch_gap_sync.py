@@ -29,7 +29,8 @@ from repro_torch.utils.convert import (params_from_numpy,
 from repro_torch.utils.trees import leaves
 
 from test_torch_engine import KSUM, TOL, _tree
-from test_torch_fred import check_against_reference, setup  # noqa: F401
+from test_torch_fred import (check_against_reference, one_thread,  # noqa: F401
+                             setup)
 
 LAM = 4
 
