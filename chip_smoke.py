@@ -143,6 +143,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    and latency are printed; the launches of (c) and (d) join the kernels'
    record.
 
+14. The round trainer (`core.round_trainer`) and the scenarios
+   (`core.scenarios`), at the full width on the full synthetic set, the
+   round trainer's minibatches drawn once on the host: (a) serial (C=16,
+   μ=8, fasgd lr=0.0025, kernel on, c_push=0.02, c_fetch=0.1,
+   'local_apply', 125 rounds): `fasgd_update` launches C × rounds, leaf
+   dispatches = ``kernel_launches``; (b) the same fleet fused:
+   `fused_event_apply` once a round, then 8 rounds from one state with the
+   kernel on and off (θ, n, b, v within KSUM_TOL; T, τ, client timestamps
+   and counters equal); (c) cotangent (sasgd 'auto', 'discard', kernel
+   off): every round through `fused_apply_cotangent`, 8 rounds against the
+   materialized path within KSUM_TOL; (d) queued fused rounds (asgd, C=32,
+   capacity 24, 'reject', ``drain_k`` 8, kernel on, 256 rounds): one
+   launch a round, enqueued + rejected = pushes, enqueued − dropped =
+   drained + the final depth; (e) scenario-lite (kasync K=4 of 16 under
+   'stragglers', 125 rounds): ``wall_clock`` bitwise the sum of each
+   round's 4th order statistic of the same draws.  Every run's validation
+   cost must fall.  (f) FRED under scenarios: `benchmarks/scenarios.py`'s
+   operating point at full width (λ=32, μ=4, 'stragglers', asgd lr=0.01
+   with K=8 windows and kasync K=8 lr=0.2 with λ-event rounds, 4096 events
+   each), 'dropout' async on the same fleet (1024 events), and fused
+   fasgd with the kernel under 'hotspot' at phase 4's fleet (40 windows):
+   the wall-clock curve never decreases, the scenario counters agree with
+   the windows and the fleet, `fused_event_apply` launches once a window,
+   the validation cost falls.  (g) The native scenario draws (4096 (c, n) pairs per law,
+   64 churn windows) and round draws are bitwise equal on the CPU and the
+   card.  (h) Each loop under ``set_sync_debug_mode('error')``, then
+   profiled as in phase 6.  Rounds/s, pushes/s and modelled wall units/s
+   are printed; the launches of (a), (b), (d) and (f) join the kernels'
+   record.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -540,7 +570,8 @@ def run_path(label, cfg, ds, params, num_steps, eval_every):
     from repro_torch.utils.trees import leaves
     # warm-up (first use of each CUDA kernel, cuBLAS), not timed or counted
     warm = cfg.events_per_step * (1 if cfg.apply_mode == "fused" else 20)
-    run_simulation(cfg, nll_loss, params, ds.x_train, ds.y_train, warm)
+    run_simulation(cfg, nll_loss, params, ds.x_train, ds.y_train, warm,
+                   eval_every=warm)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -1900,6 +1931,400 @@ def phase_cotangent_and_queue(ds, params, K):
     return n_fasgd, n_fused, rates
 
 
+ROUND_LR = 0.0025
+
+
+def round_batches(ds, C, mu, rounds, seed=0):
+    """[rounds, C, μ] minibatch rows of the synthetic set, drawn once on the
+    host from `seed` and copied to the card before any timed loop."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(ds.x_train.shape[0], (rounds, C, mu), generator=g)
+    return idx.to(ds.x_train.device)
+
+
+class RoundLoop:
+    """One round-trainer configuration on the card: its step (with
+    `nll_loss_event_batched` attached for the cotangent path), its native
+    round draws, and its minibatches (μ rows per client and round)."""
+
+    def __init__(self, tc, mode, ds, params, mu, rounds):
+        from repro_torch.core import round_trainer as rt
+        from repro_torch.models.mlp import nll_loss, nll_loss_event_batched
+        grad_fn = rt.make_grad_fn(nll_loss)
+        grad_fn.event_batched = nll_loss_event_batched
+        self.tc, self.ds, self.params = tc, ds, params
+        self.step = rt.build_round_step(tc, grad_fn, apply_mode=mode)
+        self.draws = rt.native_round_draws(tc, params)
+        self.idx = round_batches(ds, tc.num_round_clients, mu, rounds)
+
+    def init(self):
+        from repro_torch.core import round_trainer as rt
+        return rt.init_round_state(self.tc, self.params)
+
+    def drive(self, state, first, n):
+        """Rounds ``[first, first + n)`` from `state` (no host sync).
+        Returns (state, the last round's metrics, each round's τ)."""
+        taus, m = [], None
+        for r in range(first, first + n):
+            rows = self.idx[r]
+            state, m = self.step(state, (self.ds.x_train[rows],
+                                         self.ds.y_train[rows]),
+                                 self.draws.round(state.round_idx))
+            taus.append(m["mean_tau"])
+        return state, m, taus
+
+
+def val_cost(ds, params) -> float:
+    import torch
+    from repro_torch.models.mlp import nll_loss
+    with torch.no_grad():
+        return float(nll_loss(params, ds.x_valid, ds.y_valid))
+
+
+def round_run(label, drv, rounds):
+    """`rounds` rounds of the round trainer on the card after 4 warm-up
+    rounds of their own, the launch counts set to 0 just before: the
+    validation cost of the server's parameters must be finite and fall.
+    Prints rounds/s, pushes/s and the counts; returns (state, metrics,
+    seconds, leaf dispatches, kernel launches)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.utils.trees import leaves
+    drv.drive(drv.init(), 0, 4)
+    torch.cuda.synchronize()
+    state = drv.init()
+    cost0 = val_cost(drv.ds, state.server.params)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, m, _ = drv.drive(state, 0, rounds)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, device = dict(ops.LAUNCHES), dict(ops.DEVICE_LAUNCHES)
+    cost1 = val_cost(drv.ds, state.server.params)
+    c = {k: float(v) for k, v in state.counters._asdict().items()}
+    print(f"  {label}: {rounds} rounds in {secs:.3f} s = {rounds / secs:.1f} "
+          f"rounds/s, {c['push_actual'] / secs:.1f} pushes/s "
+          f"({c['push_actual']:.0f} of {c['push_potential']:.0f} pushed, "
+          f"{c['fetch_actual']:.0f} fetched); val cost {cost0:.4f} -> "
+          f"{cost1:.4f}; T={int(state.server.timestamp)}; leaf dispatches "
+          f"{launches}; kernel launches {device}; counters.kernel_launches "
+          f"{c['kernel_launches']:.0f}, kernel_events "
+          f"{c['kernel_events']:.0f}")
+    if not (math.isfinite(cost1) and all(
+            bool(torch.isfinite(l).all())
+            for l in leaves(state.server.params))):
+        fail(f"{label}: non-finite server parameters or cost {cost1}")
+    if not cost1 < cost0:
+        fail(f"{label}: validation cost did not fall: {cost0} -> {cost1}")
+    return state, m, secs, launches, device
+
+
+def rounds_agree(label, arms, warm=4, rounds=8, tol=KSUM_TOL):
+    """Drive `rounds` rounds of each arm (name -> RoundLoop; one fleet,
+    the same draws and batches) from one state reached by `warm` rounds of
+    the first: θ, n, b, v within `tol`; T, each round's τ, the client
+    timestamps and the counters (the kernel's own aside) equal.  Returns
+    {name: kernel launches on the card}."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.utils.trees import leaves, tree_map
+    names = list(arms)
+    first = arms[names[0]]
+    state, _, _ = first.drive(first.init(), 0, warm)
+    runs = {}
+    for name, drv in arms.items():
+        ops.reset_launches()
+        st, _, taus = drv.drive(tree_map(torch.clone, state), warm, rounds)
+        torch.cuda.synchronize()
+        runs[name] = (st, torch.stack(taus), dict(ops.DEVICE_LAUNCHES))
+    (a, tau_a, _), (b, tau_b, _) = runs[names[0]], runs[names[1]]
+    counts = lambda st: {k: float(v) for k, v in st.counters._asdict().items()
+                         if not k.startswith("kernel_")}
+    if not (int(a.server.timestamp) == int(b.server.timestamp)
+            and torch.equal(tau_a, tau_b)
+            and torch.equal(a.client_ts, b.client_ts)
+            and counts(a) == counts(b)):
+        fail(f"{label}: T, τ, client timestamps or counters differ: "
+             f"{counts(a)} vs {counts(b)}")
+    worst = {}
+    for field in ("params", "n", "b", "v"):
+        for x, y in zip(leaves(getattr(a.server, field)),
+                        leaves(getattr(b.server, field))):
+            e = (x.float() - y.float()).abs()
+            if not bool(torch.all(e <= tol["atol"] + tol["rtol"]
+                                  * y.float().abs())):
+                fail(f"{label}: {field} differs beyond rtol {tol['rtol']:g} "
+                     f"/ atol {tol['atol']:g}: max|Δ| {float(e.max()):.3e}")
+            worst[field] = max(worst.get(field, 0.0), float(e.max()))
+    print(f"  {label}: {rounds} rounds from one state, {names[0]} vs "
+          f"{names[1]}: T={int(a.server.timestamp)}, τ, client timestamps "
+          f"and counters equal; max|Δ| " + ", ".join(
+              f"{f} {e:.2e}" for f, e in worst.items())
+          + f" (rtol {tol['rtol']:g}, atol {tol['atol']:g}) ok")
+    return {name: run[2] for name, run in runs.items()}
+
+
+def round_breakdown(label, drv, n):
+    """`n` rounds three times after `n` warm ones: under
+    ``set_sync_debug_mode('error')``, timed on the host clock, and under
+    the profiler (device busy, idle share, ops per round)."""
+    import torch
+    state, _, _ = drv.drive(drv.init(), 0, n)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    state, _, _ = drv.drive(state, n, n)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _, _ = drv.drive(state, 2 * n, n)
+    torch.cuda.synchronize()
+    plain_us = 1e6 * (time.perf_counter() - t0)
+    print(f"  {label}: {n} rounds ran with no host sync; "
+          f"{plain_us / n:.1f} us/round on the host clock unprofiled")
+    profiled(label, lambda: drv.drive(state, 3 * n, n), plain_us, n, "round")
+
+
+def scenario_report(label, out, windows, lam, churn):
+    """Hold a FRED scenario run's telemetry: the wall-clock curve never
+    decreases and ends at the counter; one scenario window per step
+    window; the mean active fleet in [1, λ] (λ without churn); under churn,
+    dropouts − rejoins = the clients dark at the end.  Prints the modelled
+    wall clock."""
+    c = out["counters"]
+    walls = out["wall_clock"]
+    dark = int(out["state"].scenario.dropped.sum())
+    mean_active = c["scenario_active_sum"] / c["scenario_windows"]
+    ok = (all(b >= a for a, b in zip(walls, walls[1:]))
+          and walls[-1] == c["wall_clock"] > 0
+          and c["scenario_windows"] == windows
+          and 1 <= mean_active <= lam
+          and (c["scenario_dropouts"] - c["scenario_rejoins"] == dark
+               if churn else mean_active == lam
+               and c["scenario_dropouts"] == c["scenario_rejoins"] == 0))
+    if not ok:
+        fail(f"{label}: scenario telemetry inconsistent: curve {walls}, "
+             f"counters {c}, dark at the end {dark}")
+    print(f"  {label}: wall clock {walls[-1]:.3f} units, nondecreasing over "
+          f"{len(walls)} evaluations; {c['scenario_windows']:.0f} windows, "
+          f"mean active {mean_active:.2f} of {lam}; dropouts "
+          f"{c['scenario_dropouts']:.0f}, rejoins {c['scenario_rejoins']:.0f},"
+          f" dark at the end {dark}")
+
+
+def phase_round_trainer_and_scenarios(ds, params, K):
+    """Phase 14: the round trainer (serial, fused, cotangent, queued,
+    scenario-lite) and FRED under scenarios at the full 784-200-10 width
+    on the full synthetic set.  Returns the kernel launches of
+    `fasgd_update` and `fused_event_apply` on its main runs and its
+    rates."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import TrainerConfig
+    from repro_torch.core import scenarios as scen
+    from repro_torch.core.rules import ServerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.sim.fred import SimConfig
+    from repro_torch.utils.rng import NativeRoundDraws, NativeScenarioDraws
+    print("phase 14: the round trainer and the scenarios")
+    t0 = time.perf_counter()
+    C, mu, R = 16, 8, 125
+    fleet = dict(num_round_clients=C, lr=ROUND_LR, c_push=0.02, c_fetch=0.1,
+                 drop_policy="local_apply")
+    rates, loops = {}, {}
+    n_leaves = len(MLP_SHAPES)
+
+    # (a) serial, fasgd_update once per client and round
+    label = "(a) round trainer serial, fasgd kernel"
+    tc = TrainerConfig(rule="fasgd", use_fused_kernel=True, **fleet)
+    drv = RoundLoop(tc, "serial", ds, params, mu, R + 4)
+    st, _, secs, launches, device = round_run(label, drv, R)
+    c = st.counters
+    if not (device["fasgd_update"] == C * R
+            and launches["fasgd_update"] == int(c.kernel_launches)
+            == C * R * n_leaves and device["fused_event_apply"] == 0):
+        fail(f"{label}: kernel launches {device}, leaf dispatches "
+             f"{launches}, kernel_launches {int(c.kernel_launches)}")
+    print(f"  {label}: fasgd_update launched {device['fasgd_update']} = C x "
+          f"rounds; leaf dispatches = kernel_launches")
+    n_fasgd = device["fasgd_update"]
+    rates[label], loops[label] = R / secs, drv
+
+    # (b) fused, fused_event_apply once per round; kernel on against off
+    label = "(b) round trainer fused, fused_event_apply"
+    drv = RoundLoop(tc, "fused", ds, params, mu, R + 4)
+    st, _, secs, launches, device = round_run(label, drv, R)
+    c = st.counters
+    if not (device["fused_event_apply"] == R
+            and launches["fused_event_apply"] == int(c.kernel_launches)
+            == R * n_leaves and device["fasgd_update"] == 0):
+        fail(f"{label}: kernel launches {device}, leaf dispatches "
+             f"{launches}, kernel_launches {int(c.kernel_launches)}")
+    print(f"  {label}: fused_event_apply launched "
+          f"{device['fused_event_apply']} times, once a round")
+    n_fused = device["fused_event_apply"]
+    rates[label], loops[label] = R / secs, drv
+    off = dataclasses.replace(tc, use_fused_kernel=False)
+    got = rounds_agree("(b) kernel on/off", {
+        "kernel on": drv,
+        "kernel off": RoundLoop(off, "fused", ds, params, mu, R + 4)})
+    if (got["kernel on"]["fused_event_apply"] != 8
+            or got["kernel off"]["fused_event_apply"] != 0):
+        fail(f"(b) kernel on/off: launches {got}")
+
+    # (c) cotangent: sasgd 'auto' with 'discard', the kernel off
+    label = "(c) round trainer cotangent, sasgd 'auto'"
+    tc = TrainerConfig(rule="sasgd", **dict(fleet, lr=0.005,
+                                            drop_policy="discard"))
+    drv = RoundLoop(tc, "fused", ds, params, mu, R + 4)
+    with CountCalls() as calls:
+        _, _, secs, launches, _ = round_run(label, drv, R)
+    if calls["fused_apply"] or calls["fused_apply_cotangent"] != R + 4:
+        fail(f"{label}: {calls} (want {R} rounds + 4 warm-up on the "
+             f"cotangent path)")
+    if sum(launches.values()):
+        fail(f"{label}: a kernel ran ({launches})")
+    print(f"  {label}: fused_apply_cotangent ran "
+          f"{calls['fused_apply_cotangent']} times (warm-up included), "
+          f"fused_apply 0")
+    rates[label], loops[label] = R / secs, drv
+    mat = dataclasses.replace(tc, fused_mode="materialized")
+    rounds_agree("(c) cotangent vs materialized", {
+        "cotangent": drv,
+        "materialized": RoundLoop(mat, "fused", ds, params, mu, R + 4)})
+
+    # (d) queued fused rounds: C=32 pushes a round into 24 slots, 8 drained
+    label = "(d) round trainer queued fused, reject, drain_k 8"
+    Rq = 256
+    tc = TrainerConfig(num_round_clients=32, rule="asgd", lr=0.005,
+                       use_fused_kernel=True, queue_capacity=24,
+                       admission_policy="reject", drain_policy="drain_k",
+                       drain_k=8)
+    drv = RoundLoop(tc, "fused", ds, params, mu, Rq + 4)
+    st, _, secs, launches, device = round_run(label, drv, Rq)
+    c = {k: int(v) for k, v in st.counters._asdict().items()
+         if k != "queue_depth_sum"}
+    size = int(st.queue.size)
+    if not (device["fused_event_apply"] == Rq
+            and launches["fused_event_apply"] == c["kernel_launches"]
+            == Rq * n_leaves and c["kernel_events"] == c["queue_drained"]
+            and c["queue_enqueued"] + c["queue_rejected"]
+            == c["push_potential"] == 32 * Rq
+            and c["queue_enqueued"] - c["queue_dropped"]
+            == c["queue_drained"] + size):
+        fail(f"{label}: kernel launches {device}, counters {c}, depth {size}")
+    print(f"  {label}: fused_event_apply launched "
+          f"{device['fused_event_apply']} times, once a round; enqueued "
+          f"{c['queue_enqueued']} + rejected {c['queue_rejected']} = pushes "
+          f"{c['push_potential']}; enqueued - dropped = drained "
+          f"{c['queue_drained']} + depth {size}; drained "
+          f"{c['queue_drained'] / secs:.1f} pushes/s")
+    n_fused += device["fused_event_apply"]
+    rates[label], loops[label] = Rq / secs, drv
+
+    # (e) scenario-lite: kasync K=4 of 16 under 'stragglers'
+    label = "(e) round trainer scenario-lite, kasync K=4 of 16"
+    cfg = scen.preset("stragglers")
+    tc = TrainerConfig(rule="kasync", kasync_k=4, scenario=cfg,
+                       **dict(fleet, lr=0.05, c_push=0.0))
+    drv = RoundLoop(tc, "serial", ds, params, mu, R + 4)
+    st, _, secs, launches, _ = round_run(label, drv, R)
+    want = torch.zeros((), device=ds.x_train.device)
+    for r in range(R):
+        svc = scen.round_service_times(
+            cfg, C, torch.tensor(r, dtype=torch.int32,
+                                 device=ds.x_train.device))
+        want = want + torch.sort(svc).values[3]
+    wall = st.counters.wall_clock
+    if not torch.equal(wall, want) or int(st.server.timestamp) != R:
+        fail(f"{label}: wall clock {float(wall)} vs the sum of each round's "
+             f"4th order statistic {float(want)}, "
+             f"T={int(st.server.timestamp)}")
+    print(f"  {label}: wall clock {float(wall):.4f} = the sum of each "
+          f"round's 4th order statistic (bitwise); {float(wall) / secs:.1f} "
+          f"modelled wall units/s; T={R}")
+    rates[label], loops[label] = R / secs, drv
+
+    # (f) FRED under scenarios
+    strag = scen.preset("stragglers")
+    bench = dict(num_clients=32, batch_size=4, seed=0)
+    runs = (
+        ("(f) FRED stragglers, asgd serial K=8", SimConfig(
+            server=ServerConfig(rule="asgd", lr=0.01), events_per_step=8,
+            scenario=strag, **bench), 4096, 1024, False),
+        ("(f) FRED stragglers, kasync K=8 of 32", SimConfig(
+            server=ServerConfig(rule="kasync", lr=0.2, num_clients=32,
+                                kasync_k=8),
+            events_per_step=32, scenario=strag, **bench), 4096, 1024, False),
+        ("(f) FRED dropout, asgd serial K=8", SimConfig(
+            server=ServerConfig(rule="asgd", lr=0.01), events_per_step=8,
+            scenario=scen.preset("dropout"), **bench), 1024, 256, True),
+        ("(f) FRED hotspot, fasgd fused K=128", SimConfig(
+            num_clients=256, batch_size=4, seed=0, events_per_step=K,
+            apply_mode="fused", scenario=scen.preset("hotspot"),
+            server=ServerConfig(rule="fasgd", lr=0.0025,
+                                use_fused_kernel=True)), 40 * K, 10 * K,
+         False),
+    )
+    fred_loops = {}
+    for label, cfg, n, every, churn in runs:
+        out, secs, launches, device = run_path(label, cfg, ds, params, n,
+                                               every)
+        windows = n // cfg.events_per_step
+        scenario_report(label, out, windows, cfg.num_clients, churn)
+        if cfg.apply_mode == "fused":
+            if device["fused_event_apply"] != windows:
+                fail(f"{label}: fused_event_apply launched "
+                     f"{device['fused_event_apply']} times for {windows} "
+                     f"windows")
+            print(f"  {label}: fused_event_apply launched "
+                  f"{device['fused_event_apply']} times, once a window")
+            n_fused += device["fused_event_apply"]
+        elif sum(device.values()):
+            fail(f"{label}: a kernel ran ({device})")
+        wall = out["counters"]["wall_clock"]
+        print(f"  {label}: {n / secs:.1f} events/s, {wall / secs:.1f} "
+              f"modelled wall units/s")
+        rates[label], fred_loops[label] = n / secs, cfg
+
+    # (g) the native scenario and round draws, bitwise on the CPU and card
+    dev = ds.x_train.device
+    c = torch.arange(64)[:, None]
+    n = torch.arange(64)[None, :]
+    for kind, alpha in (("pareto", 1.3), ("lognormal", 1.5)):
+        d = NativeScenarioDraws(0, kind, alpha)
+        if not torch.equal(d.service(c, n),
+                           d.service(c.to(dev), n.to(dev)).cpu()):
+            fail(f"(g) {kind} service draws differ between CPU and card")
+        if not all(torch.equal(d.churn(torch.tensor(w), 32),
+                               d.churn(torch.tensor(w, device=dev), 32).cpu())
+                   for w in range(64)):
+            fail("(g) churn draws differ between CPU and card")
+    rd = [NativeRoundDraws(0, 16, n_leaves, per_tensor_push=True, device=d)
+          for d in ("cpu", dev)]
+    if not all(torch.equal(a, b.cpu()) for r in range(8)
+               for a, b in zip(rd[0].round(r), rd[1].round(r))):
+        fail("(g) round draws differ between CPU and card")
+    print("  (g) 4096 (c, n) service draws (pareto, lognormal), 64 churn "
+          "windows and 8 rounds of round draws: bitwise equal on the CPU "
+          "and the card")
+
+    # (h) no host sync in any loop, and where their time goes
+    print("  (h) each loop under torch.cuda.set_sync_debug_mode('error'), "
+          "then profiled:")
+    for label, drv in loops.items():
+        round_breakdown(re.sub(r"[^a-z0-9]+", "_", label.lower()).strip("_"),
+                        drv, 8)
+    for label, cfg in fred_loops.items():
+        tag = re.sub(r"[^a-z0-9]+", "_", label.lower()).strip("_")
+        breakdown(tag, cfg, ds, params,
+                  2 * K if cfg.apply_mode == "fused"
+                  else 2 * cfg.events_per_step)
+    ops.reset_launches()
+    print(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
+    return n_fasgd, n_fused, rates
+
+
 def main() -> int:
     """Run the phases in order; 0 when every one passed."""
     import torch
@@ -2040,12 +2465,20 @@ def main() -> int:
     print(f"  events/s on {smi} (evaluations included; queued runs: "
           f"drained events/s): " + "; ".join(
               f"{label} {r:.1f}" for label, r in rates13.items()))
+    # --- phase 14: the round trainer and the scenarios ---
+    n_fasgd14, n_fused14, rates14 = phase_round_trainer_and_scenarios(
+        ds, params, K)
+    print(f"  rates on {smi} (evaluations excluded for the round trainer, "
+          f"included for FRED): " + "; ".join(
+              f"{label} {r:.1f} {'rounds' if 'round' in label else 'events'}"
+              f"/s" for label, r in rates14.items()))
 
     kernels = [
         dict(name="fasgd_update", route="cuda",
              source="src/repro_torch/kernels/csrc/fasgd_update.cu",
              replaces="src/repro/kernels/fasgd_update.py:50",
-             launches=n_serial + n_gated + n_fasgd12 + n_fasgd13,
+             launches=n_serial + n_gated + n_fasgd12 + n_fasgd13
+             + n_fasgd14,
              max_abs_err=errs["fasgd_update"], ms=fu_ms, plain_ms=fu_plain,
              bound_ms=fu_bound,
              bound_by="bytes" if fu_bytes / bw >= fu_ops / flops
@@ -2053,7 +2486,7 @@ def main() -> int:
         dict(name="fused_event_apply", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_event_apply.cu",
              replaces="src/repro/kernels/fused_event_apply.py:89",
-             launches=n_fused + n_fused12 + n_fused13,
+             launches=n_fused + n_fused12 + n_fused13 + n_fused14,
              max_abs_err=errs["fused_event_apply"],
              library_ms=None, **fused),
         dict(name="flash_attention", route="cuda",

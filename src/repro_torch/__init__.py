@@ -7,6 +7,10 @@ The layout mirrors the JAX package: `repro_torch/<sub>/<mod>.py` ports
                      fasgd), `ServerState`, eqs. 4–8
 - `core.bandwidth` — the eq. 9 B-FASGD transmit probability
 - `core.engine`    — gates, gated / serial / fused application, counters
+- `core.queue`, `core.scenarios` — the bounded ingress queue and the
+                     modelled arrival processes (stragglers, churn, ...)
+- `core.round_trainer` — C divergent copies stepped a round at a time
+                     (`build_round_step`, with `configs.base.TrainerConfig`)
 - `sim.fred`       — the FRED simulator (`run_simulation`)
 - `kernels.ops`    — the two server-update kernels and flash attention,
                      hand-written in CUDA for `sm_90a`; a CPU tensor takes

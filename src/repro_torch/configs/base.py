@@ -1,17 +1,22 @@
-"""Model configuration: the dense decoder family.
+"""Model and trainer configuration.
 
-Ported from `repro.configs.base`.  The fields are those the dense path
-reads (plus `causal` and `is_encoder`, which `supports_decode` and the
-attention masks read); `dtype` is a `torch.dtype`.  The other families'
-fields (MoE, MLA, SSM, hybrid, the modality stubs) come with their modules:
-a config of another `arch_type` raises `NotImplementedError`.
-`TrainerConfig` waits for the LM training slice.
+Ported from `repro.configs.base`.  `ModelConfig` is the dense decoder
+family: the fields are those the dense path reads (plus `causal` and
+`is_encoder`, which `supports_decode` and the attention masks read);
+`dtype` is a `torch.dtype`.  The other families' fields (MoE, MLA, SSM,
+hybrid, the modality stubs) come with their modules: a config of another
+`arch_type` raises `NotImplementedError`.  `TrainerConfig` configures the
+round trainer (`core.round_trainer`), with every field of the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING, Optional
 
 import torch
+
+if TYPE_CHECKING:       # core imports this module: no import cycle at run time
+    from repro_torch.core.scenarios import ScenarioConfig
 
 # the reference's other families, and the modules each still needs here
 NOT_PORTED = {
@@ -71,3 +76,57 @@ class ModelConfig:
 
     def supports_decode(self) -> bool:
         return not self.is_encoder
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    """The round trainer (`core.round_trainer`): the reference's fields,
+    names and defaults."""
+    num_round_clients: int = 4   # C divergent parameter copies
+    rule: str = "fasgd"          # any name in core.rules.registered_rules()
+    lr: float = 0.005
+    gamma: float = 0.9
+    beta: float = 0.9
+    eps: float = 1e-8
+    kappa: float = 0.15          # 'exp' penalty strength
+    poly_power: float = 0.5      # 'poly' exponent p in lr / tau**p
+    variant: str = "intent"
+    c_push: float = 0.0
+    c_fetch: float = 0.0
+    # §5 per-tensor gating: each parameter tensor pushes/fetches on its own
+    # per-leaf eq. 9; staleness is then tracked per tensor (client_leaf_ts)
+    per_tensor_push: bool = False
+    per_tensor_fetch: bool = False
+    drop_policy: str = "local_apply"   # 'local_apply' | 'discard'
+    stats_dtype: str = "float32"       # the reference's >100B dry-run knob
+    use_fused_kernel: bool = False     # the CUDA server-update kernels
+    # 'auto' | 'materialized' | 'cotangent': how the fused apply reduces the
+    # per-client gradients ('cotangent': engine.fused_apply_cotangent, with
+    # a coeffs_are_v_independent or v_separable rule, whole-copy gating,
+    # drop_policy='discard' and an event-batched loss)
+    fused_mode: str = "auto"
+    # the reference's Pallas interpret mode and TPU tile height: kept for
+    # the field set, unused here (the tensors' device picks the kernel path)
+    kernel_interpret: Optional[bool] = None
+    kernel_block_rows: int = 0
+    # --- bounded server ingress queue (core/queue.py) ---
+    # 0 = immediate apply; > 0 admits each round's C pushes into a ring of
+    # this capacity under `admission_policy` and drains `drain_policy`'s
+    # count into the canonical update
+    queue_capacity: int = 0
+    drain_policy: str = "drain_all"
+    drain_k: int = 1
+    drain_adaptive_gain: float = 0.5
+    admission_policy: str = "block"
+    # --- scenario-lite wall clock (core/scenarios.py) ---
+    # each round the C clients draw service times; gradients apply in
+    # arrival (fastest-first) order and the round costs the barrier_k-th
+    # order statistic (t_(C) for an async rule).  Churn/elastic knobs are
+    # FRED-only (build_round_step raises).
+    scenario: Optional[ScenarioConfig] = None
+    kasync_k: int = 0                  # kasync partial-barrier K (0 → C)
+    # --- sharded parameter server: not ported (ROADMAP.md queue 1, item
+    # 7); 1 = replicated server ---
+    server_shards: int = 1
+    server_axis: str = "server"
+    seed: int = 0

@@ -101,12 +101,12 @@ class Counters(NamedTuple):
     the ingress queue rejects is refused before transmission.  The
     `queue_*` fields are the ingress queue's telemetry (`core.queue`,
     folded in by `queue.count_queue`) and stay zero without a queue;
-    `queue_latency_wall_sum` (the latency on a scenario's modelled wall
-    clock) stays zero until scenarios are ported, as it does in the
-    reference's runs without one.
-    `kernel_*` count per-leaf kernel launches and the events they consumed.
-    The reference's scenario and shard fields belong to modules not ported
-    yet.
+    `queue_latency_wall_sum` is its latency on a scenario's modelled wall
+    clock.  `wall_clock` and the `scenario_*` fields are a scenario's
+    telemetry (`core.scenarios.count_scenario`, or `advance_wall` in the
+    round trainer) and stay zero without one.  `kernel_*` count per-leaf
+    kernel launches and the events they consumed.  The reference's
+    `shard_*` fields belong to server sharding, not ported yet.
     """
     push_potential: torch.Tensor   # int32
     push_actual: torch.Tensor
@@ -124,6 +124,11 @@ class Counters(NamedTuple):
     queue_depth_peak: torch.Tensor  # int32 — max post-admission depth
     queue_latency_sum: torch.Tensor  # float32 — Σ admission→drain T-ticks
     queue_windows: torch.Tensor    # int32 — drain windows accumulated
+    wall_clock: torch.Tensor       # float32 — latest modelled wall time
+    scenario_dropouts: torch.Tensor  # int32 — clients lost to churn
+    scenario_rejoins: torch.Tensor   # int32 — clients recovered by churn
+    scenario_active_sum: torch.Tensor  # float32 — Σ active clients per window
+    scenario_windows: torch.Tensor   # int32 — scenario windows accumulated
     queue_latency_wall_sum: torch.Tensor  # float32 — Σ admission→drain wall
     kernel_launches: torch.Tensor  # int32
     kernel_events: torch.Tensor
@@ -137,7 +142,8 @@ def init_counters(device=None) -> Counters:
     i32, f32 = torch.int32, torch.float32
     return Counters(z(i32), z(i32), z(i32), z(i32), z(f32), z(f32), z(f32),
                     z(f32), z(i32), z(i32), z(i32), z(i32), z(f32), z(i32),
-                    z(f32), z(i32), z(f32), z(i32), z(i32))
+                    z(f32), z(i32), z(f32), z(i32), z(i32), z(f32), z(i32),
+                    z(f32), z(i32), z(i32))
 
 
 def count_events(counters: Counters, push, fetch, push_bytes_sent=None,

@@ -33,8 +33,10 @@ hold finite ring garbage (slots start zeroed) that the apply weights 0.
 The ring's leaves are owned by the simulation loop and written in place by
 `enqueue` (a functional copy would write the whole [capacity, P] payload
 every window); `head` and `size` are replaced, and `dequeue` gathers a new
-batch, so a drained batch never aliases the ring.  The reference's
-scenario wall-clock stamps (``enq_wall``) belong to the scenarios slice.
+batch, so a drained batch never aliases the ring.  Under a scenario each
+admitted slot also carries its arrival's modelled wall time
+(``enq_wall``), and a drain's admission→drain latency on the wall clock is
+folded into ``queue_latency_wall_sum``.
 """
 from __future__ import annotations
 
@@ -63,6 +65,8 @@ class QueueState(NamedTuple):
     # per-tensor (§5): per-leaf timestamps and push masks
     leaf_ts: Optional[torch.Tensor] = None    # [capacity, n_leaves] int32
     leaf_mask: Optional[Any] = None           # tree of [capacity] bool
+    # scenario: modelled wall time at admission
+    enq_wall: Optional[torch.Tensor] = None   # [capacity] float32
 
     @property
     def capacity(self) -> int:
@@ -80,6 +84,7 @@ class Arrivals(NamedTuple):
     valid: torch.Tensor           # [K] bool
     leaf_ts: Optional[torch.Tensor] = None    # [K, n_leaves]
     leaf_mask: Optional[Any] = None           # tree of [K] bool
+    wall: Optional[torch.Tensor] = None       # [K] float32 — arrival time
 
 
 class Drained(NamedTuple):
@@ -93,15 +98,17 @@ class Drained(NamedTuple):
     valid: torch.Tensor           # [capacity] bool
     leaf_ts: Optional[torch.Tensor] = None
     leaf_mask: Optional[Any] = None
+    enq_wall: Optional[torch.Tensor] = None   # [capacity] float32
 
 
 def init_queue(capacity: int, payload_example, *, n_leaves: int = 0,
-               mask_like=None) -> QueueState:
+               mask_like=None, track_wall: bool = False) -> QueueState:
     """An empty ring of `capacity` zeroed slots on the payload's device.
 
     `payload_example` is one event's payload (no leading event axis);
-    `n_leaves > 0` adds the per-tensor timestamps ``leaf_ts``, and
-    `mask_like` (a params-like tree) the per-leaf push masks ``leaf_mask``.
+    `n_leaves > 0` adds the per-tensor timestamps ``leaf_ts``, `mask_like`
+    (a params-like tree) the per-leaf push masks ``leaf_mask``, and
+    `track_wall` the scenario's admission wall times ``enq_wall``.
     """
     if capacity < 1:
         raise ValueError(f"queue capacity must be >= 1, got {capacity}")
@@ -119,6 +126,7 @@ def init_queue(capacity: int, payload_example, *, n_leaves: int = 0,
         leaf_ts=zeros((capacity, n_leaves), i32) if n_leaves else None,
         leaf_mask=(tree_map(lambda _: zeros((capacity,), torch.bool),
                             mask_like) if mask_like is not None else None),
+        enq_wall=zeros((capacity,), torch.float32) if track_wall else None,
     )
 
 
@@ -179,6 +187,8 @@ def enqueue(q: QueueState, arrivals: Arrivals, admission: str, enq_T):
         put(q.leaf_ts, arrivals.leaf_ts)
     if q.leaf_mask is not None:
         tree_map(put, q.leaf_mask, arrivals.leaf_mask)
+    if q.enq_wall is not None:
+        put(q.enq_wall, arrivals.wall)
     q = q._replace(head=new_head.to(torch.int32),
                    size=new_size.to(torch.int32))
     return q, admitted, n_rejected, n_dropped
@@ -220,6 +230,7 @@ def dequeue(q: QueueState, k):
         leaf_ts=None if q.leaf_ts is None else q.leaf_ts[slot],
         leaf_mask=(None if q.leaf_mask is None
                    else engine.tree_index(q.leaf_mask, slot)),
+        enq_wall=None if q.enq_wall is None else q.enq_wall[slot],
     )
     return q._replace(head=(q.head + k) % cap, size=q.size - k), batch
 
@@ -235,14 +246,21 @@ def drained_push_arg(batch: Drained, per_tensor_push: bool):
 
 
 def count_queue(counters: Counters, *, enqueued, rejected, dropped, drained,
-                depth_post, depth_peak, latency_sum) -> Counters:
+                depth_post, depth_peak, latency_sum,
+                latency_wall_sum=None) -> Counters:
     """Fold one drain window into the `queue_*` counters: `depth_post` is
     the post-drain backlog (its sum over the windows gives the mean
     standing depth), `depth_peak` the post-admission depth (its running max
     is the high-water mark), `latency_sum` the summed admission→drain
-    latency of the drained events in server-timestamp ticks."""
+    latency of the drained events in server-timestamp ticks, and
+    `latency_wall_sum` the same on a scenario's wall clock (None leaves
+    ``queue_latency_wall_sum`` as it is)."""
     i32 = lambda x: torch.as_tensor(x).to(torch.int32)
     f32 = lambda x: torch.as_tensor(x).to(torch.float32)
+    if latency_wall_sum is not None:
+        counters = counters._replace(
+            queue_latency_wall_sum=(counters.queue_latency_wall_sum
+                                    + f32(latency_wall_sum)))
     return counters._replace(
         queue_enqueued=counters.queue_enqueued + i32(enqueued),
         queue_rejected=counters.queue_rejected + i32(rejected),

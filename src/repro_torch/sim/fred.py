@@ -51,8 +51,19 @@ The host waits for the device only at each evaluation.
 Under per-tensor fetch each client copy keeps one timestamp per tensor
 (`SimState.client_leaf_ts`), so staleness is per leaf in both apply modes.
 
-Not ported yet, and refused with `NotImplementedError`: scenarios, a
-sharded server and a client mesh.
+**Scenarios** (``SimConfig.scenario``, `core.scenarios`): a modelled
+arrival process replaces the dispatcher.  Each window starts with the
+scenario's prologue (elastic activation, churn), then takes its clients
+from the race: `sync_round`'s λ arrivals fastest-first for a barrier rule
+(one round per window, K = λ), `async_window`'s K earliest finishers
+otherwise, on every path (serial, fused, queued).  The wall clock and the
+churn counts fold into the counters, admitted queue slots carry their
+arrival's wall time, and `run_simulation`'s ``wall_clock`` curve is the
+modelled clock.  The scenario's variates come from its own provider
+(``scenario_draws``; `core.scenarios.native_draws` by default).
+
+Not ported yet, and refused with `NotImplementedError`: a sharded server
+and a client mesh.
 """
 from __future__ import annotations
 
@@ -64,6 +75,7 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core import queue as qlib
 from repro_torch.core import rules as server_rules
+from repro_torch.core import scenarios as scen
 from repro_torch.core.bandwidth import BandwidthConfig, masked_bytes, tree_bytes
 from repro_torch.core.engine import (Counters, tree_select, tree_select_axis,
                                      tree_where, tree_where_axis)
@@ -94,8 +106,9 @@ class SimConfig:
                                   # floor of 'adaptive')
     drain_adaptive_gain: float = 0.5    # 'adaptive': drain ceil(gain·depth)
     admission_policy: str = "block"     # 'block' | 'reject' | 'drop_oldest'
-    # kept so that a configuration asking for them is refused, not ignored
-    scenario: Optional[Any] = None
+    # modelled arrival process (core/scenarios.py); None = the dispatcher
+    scenario: Optional[scen.ScenarioConfig] = None
+    # kept so that a configuration asking for it is refused, not ignored
     server_shards: int = 1
 
     def cotangent_serviceable(self) -> bool:
@@ -144,9 +157,10 @@ class SimConfig:
                     f"the kernel off (see SimConfig.cotangent_serviceable)")
         rule = server_rules.get_rule(self.server.rule)
         if rule.synchronous:
-            # a barrier needs a fair schedule (scenarios are not ported), and
-            # a partly transmitted gradient has no meaning at a barrier
-            if self.dispatcher != "roundrobin":
+            # a barrier needs a fair schedule — round-robin, or a scenario
+            # (whose sync_round delivers each client once a round) — and a
+            # partly transmitted gradient has no meaning at a barrier
+            if self.scenario is None and self.dispatcher != "roundrobin":
                 raise ValueError(f"{self.server.rule} requires roundrobin")
             if self.bandwidth.per_tensor_push:
                 raise ValueError(
@@ -157,12 +171,37 @@ class SimConfig:
                 f"rule {self.server.rule!r} does not support "
                 f"apply_mode='fused'")
         self._check_queue(rule)
-        if self.scenario is not None:
-            raise NotImplementedError(
-                "scenarios are not ported to repro_torch yet")
+        self._check_scenario(rule)
         if self.server_shards != 1:
             raise NotImplementedError(
                 "a sharded server is not ported to repro_torch yet")
+
+    def _check_scenario(self, rule):
+        """The reference's scenario validation."""
+        if self.scenario is None:
+            return
+        if self.dispatcher == "heterogeneous":
+            raise ValueError(
+                "a scenario's service-time model replaces the "
+                "heterogeneous dispatcher's speed schedule: configure "
+                "hotspot/straggler client scales in ScenarioConfig "
+                "instead (dispatcher='uniform' or 'roundrobin' are "
+                "accepted and ignored for arrival ordering)")
+        # raises early on inconsistent straggler/hotspot fractions
+        scen.check_fleet(self.scenario, self.num_clients)
+        if rule.synchronous:
+            if self.events_per_step != self.num_clients:
+                raise ValueError(
+                    f"a synchronous rule under a scenario advances one "
+                    f"round of λ arrivals per window: set events_per_step "
+                    f"= num_clients (got {self.events_per_step} != "
+                    f"{self.num_clients})")
+            if self.scenario.has_churn():
+                raise ValueError(
+                    f"synchronous rule {self.server.rule!r} cannot run "
+                    f"under dropout/rejoin/elastic churn: a barrier over a "
+                    f"changing fleet deadlocks — use an async rule, or a "
+                    f"churn-free scenario (stragglers/hotspot)")
 
     def _check_queue(self, rule):
         """The reference's ingress-queue validation: clear errors for
@@ -235,6 +274,8 @@ class SimState(NamedTuple):
     client_leaf_ts: Optional[torch.Tensor] = None
     # bounded server ingress queue (queue_capacity > 0; core/queue.py)
     queue: Optional[qlib.QueueState] = None
+    # modelled arrival process (SimConfig.scenario; core/scenarios.py)
+    scenario: Optional[scen.ScenarioState] = None
 
 
 def _use_cotangent(config: SimConfig) -> bool:
@@ -263,10 +304,11 @@ def _queue_payload_example(config: SimConfig, params):
     return payload
 
 
-def init_sim(config: SimConfig, params) -> SimState:
+def init_sim(config: SimConfig, params, scenario_draws=None) -> SimState:
     """Fresh `SimState` on the params' device: server at T = 0, λ identical
-    client copies, and the gradient cache, per-tensor timestamps and
-    ingress queue when the config needs them."""
+    client copies, and the gradient cache, per-tensor timestamps, ingress
+    queue and scenario state (its first draws from `scenario_draws`, the
+    scenario's native provider by default) when the config needs them."""
     lam = config.num_clients
     device = leaves(params)[0].device
     server = server_rules.init(config.server, params)
@@ -288,8 +330,12 @@ def init_sim(config: SimConfig, params) -> SimState:
             config.queue_capacity, _queue_payload_example(config, params),
             n_leaves=(len(leaves(params))
                       if config.bandwidth.per_tensor_fetch else 0),
-            mask_like=(params if config.bandwidth.per_tensor_push else None))
+            mask_like=(params if config.bandwidth.per_tensor_push else None),
+            track_wall=config.scenario is not None)
             if config.queue_capacity else None),
+        scenario=(scen.init_scenario(config.scenario, lam, device,
+                                     scenario_draws)
+                  if config.scenario is not None else None),
     )
 
 
@@ -364,23 +410,69 @@ def _fetch_window(config: SimConfig, state: SimState, cs, new_server,
     return fetch, fetch_sent
 
 
+class _Race:
+    """A scenario's arrival race for the step functions: the window's
+    clients and finish times in place of the dispatcher's."""
+
+    def __init__(self, config: SimConfig, device, draws):
+        rule = server_rules.get_rule(config.server.rule)
+        self.config = config
+        self.scales = scen.client_scales(config.scenario, config.num_clients,
+                                         device)
+        self.draws = draws
+        # a barrier rule's window is one sync round of λ arrivals
+        self.sync_k = (rule.barrier_k(config.server) if rule.synchronous
+                       else None)
+
+    def window(self, state: SimState, k: int):
+        """The prologue, then the window's K arrivals; the scenario state
+        and its counters advance.  Returns (state, clients [K] int64,
+        finish times [K] float32)."""
+        cfg, lam = self.config.scenario, self.config.num_clients
+        if self.sync_k is not None and k != lam:
+            raise ValueError(
+                f"synchronous scenario rounds advance exactly λ={lam} "
+                f"events per window, got a {k}-event window: num_steps and "
+                f"eval_every must be multiples of num_clients")
+        st, active, n_drop, n_rejoin = scen.window_prologue(
+            cfg, lam, state.scenario, self.scales, self.draws)
+        if self.sync_k is not None:
+            st, cs, t_fin = scen.sync_round(cfg, lam, st, self.scales,
+                                            self.sync_k, self.draws)
+        else:
+            st, cs, t_fin = scen.async_window(cfg, lam, st, self.scales,
+                                              active, k, self.draws)
+        counters = scen.count_scenario(
+            state.counters, now=st.now,
+            active_count=active.to(torch.float32).sum(),
+            dropouts=n_drop, rejoins=n_rejoin)
+        return state._replace(scenario=st, counters=counters), cs, t_fin
+
+
 def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
-                  batched_loss_fn: Optional[Callable] = None):
+                  batched_loss_fn: Optional[Callable] = None,
+                  scenario_draws=None):
     """Returns ``step(state, draws) -> (state, metrics)`` for one window.
 
     `draws` holds the window's K events (`utils.rng.Draws`), which sets the
     window size: the reference's ``events`` override is not needed.
     Metrics are per-event [K] tensors (``loss``, ``tau``, ``client``,
-    ``pushed``, ``fetched``); a queued window's ``loss`` and ``tau`` are
+    ``pushed``, ``fetched``, and ``wall``, the arrivals' modelled finish
+    times, under a scenario); a queued window's ``loss`` and ``tau`` are
     means over its drained events, with its queue telemetry beside them.
     `loss_fn(params, xb, yb) -> scalar`; `batched_loss_fn(W, deltas, xb,
     yb) -> [K]` is the event-batched loss the cotangent path
     differentiates (default: ``loss_fn.event_batched``, else the generic
-    `engine.event_batched_losses`).
+    `engine.event_batched_losses`).  `scenario_draws` provides the
+    scenario's variates (`core.scenarios.native_draws` of
+    ``config.scenario`` by default); the dispatcher's draws go unused
+    under a scenario.
     """
+    race = (_Race(config, torch.as_tensor(data_x).device, scenario_draws)
+            if config.scenario is not None else None)
     if config.queue_capacity:
         return _build_queue_step(config, loss_fn, data_x, data_y,
-                                 batched_loss_fn)
+                                 batched_loss_fn, race)
     grad_fn = torch.func.grad_and_value(loss_fn)
     bw = config.bandwidth
     scfg = config.server
@@ -473,15 +565,22 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
 
     if config.apply_mode == "serial":
         def step(state: SimState, draws: Draws):
-            cs = _clients_of(config, state, draws)
+            k = draws.idx.shape[0]
+            if race is None:
+                cs = _clients_of(config, state, draws)
+            else:
+                state, cs, t_fin = race.window(state, k)
             out = []
-            for j in range(draws.idx.shape[0]):
+            for j in range(k):
                 state, m = event_body(state, cs[j:j + 1], draws.idx[j],
                                       draws.push_u[j], draws.fetch_u[j])
                 out.append(m)
             loss, tau, pushed, fetched = (torch.stack(x) for x in zip(*out))
-            return state, {"loss": loss, "tau": tau, "client": cs,
-                           "pushed": pushed, "fetched": fetched}
+            metrics = {"loss": loss, "tau": tau, "client": cs,
+                       "pushed": pushed, "fetched": fetched}
+            if race is not None:
+                metrics["wall"] = t_fin
+            return state, metrics
         return step
 
     # ----- fused: all K events advance in one batched protocol round -----
@@ -493,9 +592,12 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
 
     def step(state: SimState, draws: Draws):
         k = draws.idx.shape[0]
+        if race is None:
+            cs = _clients_of(config, state, draws)
+        else:
+            state, cs, t_fin = race.window(state, k)
         server = state.server
         model_bytes = tree_bytes(server.params)
-        cs = _clients_of(config, state, draws)
         xb, yb = data_x[draws.idx], data_y[draws.idx]            # [K, μ, ...]
 
         # --- event dedup: clients that fetched at the same T hold identical
@@ -563,14 +665,17 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
                 counters, len(leaves(server.params)), k)
         new_state = state._replace(server=new_server, rr_pos=state.rr_pos + k,
                                    counters=counters)
-        return new_state, {"loss": losses, "tau": taus, "client": cs,
-                           "pushed": push_event, "fetched": fetch}
+        metrics = {"loss": losses, "tau": taus, "client": cs,
+                   "pushed": push_event, "fetched": fetch}
+        if race is not None:
+            metrics["wall"] = t_fin
+        return new_state, metrics
 
     return step
 
 
 def _build_queue_step(config: SimConfig, loss_fn, data_x, data_y,
-                      batched_loss_fn=None):
+                      batched_loss_fn=None, race=None):
     """``step(state, draws)`` for the queued protocol: one drain window.
 
     K arrivals (dispatch, stale-copy gradient, eq.-9 push gate against the
@@ -596,10 +701,14 @@ def _build_queue_step(config: SimConfig, loss_fn, data_x, data_y,
 
     def step(state: SimState, draws: Draws):
         K = draws.idx.shape[0]
+        t_fin = None
+        if race is None:
+            cs = _clients_of(config, state, draws)
+        else:
+            state, cs, t_fin = race.window(state, K)
         server = state.server
         model_bytes = tree_bytes(server.params)
         n_leaves = len(leaves(server.params))
-        cs = _clients_of(config, state, draws)
         idx = draws.idx
 
         # --- push gates at arrival, all against the pre-window server ---
@@ -644,7 +753,7 @@ def _build_queue_step(config: SimConfig, loss_fn, data_x, data_y,
             payload=payload, ts=state.client_ts[cs], client=cs,
             valid=push_event,
             leaf_ts=dedup_key if bw.per_tensor_fetch else None,
-            leaf_mask=push if bw.per_tensor_push else None)
+            leaf_mask=push if bw.per_tensor_push else None, wall=t_fin)
         queue, admitted, n_rejected, n_dropped = qlib.enqueue(
             state.queue, arrivals, config.admission_policy,
             server.timestamp)
@@ -665,6 +774,9 @@ def _build_queue_step(config: SimConfig, loss_fn, data_x, data_y,
         latency_sum = torch.where(
             batch.valid, (server.timestamp - batch.enq_T).to(torch.float32),
             0.0).sum()
+        latency_wall_sum = (
+            torch.where(batch.valid, state.scenario.now - batch.enq_wall,
+                        0.0).sum() if race is not None else None)
         grad_ts = (_leaf_tree(server.params, batch.leaf_ts)
                    if bw.per_tensor_fetch else batch.ts)
         push_arg = qlib.drained_push_arg(batch, bw.per_tensor_push)
@@ -698,7 +810,7 @@ def _build_queue_step(config: SimConfig, loss_fn, data_x, data_y,
             counters, enqueued=admitted.to(torch.int32).sum(),
             rejected=n_rejected, dropped=n_dropped, drained=k_eff,
             depth_post=queue.size, depth_peak=depth_peak,
-            latency_sum=latency_sum)
+            latency_sum=latency_sum, latency_wall_sum=latency_wall_sum)
         # kernel telemetry: a fused drain is one launch per leaf consuming
         # k_eff events; a serial drain computes every row's candidate
         # (capacity launches per leaf) and masks the invalid ones
@@ -713,7 +825,7 @@ def _build_queue_step(config: SimConfig, loss_fn, data_x, data_y,
                                    counters=counters, queue=queue)
         validf = batch.valid.to(torch.float32)
         nz = torch.clamp(k_eff, min=1).to(torch.float32)
-        return new_state, {
+        metrics = {
             # means over the drained (not the arriving) events
             "loss": (validf * dlosses).sum() / nz,
             "tau": (validf * taus).sum() / nz,
@@ -722,6 +834,9 @@ def _build_queue_step(config: SimConfig, loss_fn, data_x, data_y,
             "admitted": admitted.to(torch.int32).sum(),
             "rejected": n_rejected, "dropped": n_dropped,
         }
+        if t_fin is not None:
+            metrics["wall"] = t_fin                 # per-arrival wall time
+        return new_state, metrics
 
     return step
 
@@ -740,6 +855,7 @@ def run_simulation(
     rng=None,
     device=None,
     batched_loss_fn: Optional[Callable] = None,
+    scenario_draws=None,
 ):
     """Run the deterministic simulation; returns a results dict.
 
@@ -750,15 +866,18 @@ def run_simulation(
     `ReplayDraws` to replay recorded draws).  `init_params`, `data_x` and
     `data_y` are moved to `device` (labels as int64): the card unless the
     caller passes another device (`utils.device.resolve_device`).
-    `batched_loss_fn` is the cotangent path's event-batched loss
-    (`build_step_fn`).
+    `batched_loss_fn` is the cotangent path's event-batched loss and
+    `scenario_draws` the scenario's variate provider (`build_step_fn`).
 
     The dict has the reference's keys: ``steps``, ``val_cost``,
-    ``wall_clock`` (the unit event clock), ``counters`` (floats),
+    ``wall_clock`` (the modelled wall clock at each evaluation under a
+    scenario, else the unit event clock), ``counters`` (floats),
     ``final_timestamp``, ``state``, and ``train_loss`` / ``tau`` when
     `collect_step_metrics`.  The final state's `client_leaf_ts` is there
-    under per-tensor fetch, its `queue` under a queue; the `queue_*`
-    counters only under a queue, as in the reference.
+    under per-tensor fetch, its `queue` under a queue, its `scenario`
+    under a scenario; the `queue_*` counters only under a queue and
+    ``wall_clock`` / ``scenario_*`` only under a scenario, as in the
+    reference.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -769,9 +888,10 @@ def run_simulation(
     data_y = torch.as_tensor(data_y).to(device=device, dtype=torch.int64)
     if rng is None:
         rng = native_draws(config, data_x.shape[0], len(leaves(params)))
-    state = init_sim(config, params)
+    state = init_sim(config, params, scenario_draws)
     step = build_step_fn(config, loss_fn, data_x, data_y,
-                         batched_loss_fn=batched_loss_fn)
+                         batched_loss_fn=batched_loss_fn,
+                         scenario_draws=scenario_draws)
     K = config.events_per_step
 
     curve_steps, curve_cost, curve_wall = [], [], []
@@ -794,13 +914,21 @@ def run_simulation(
             curve_steps.append(done)
             with torch.no_grad():
                 curve_cost.append(float(eval_fn(state.server.params)))
-            curve_wall.append(float(done))
+            # error against wall clock: the modelled time under a
+            # scenario, else the unit event clock
+            curve_wall.append(float(state.counters.wall_clock)
+                              if config.scenario is not None
+                              else float(done))
 
     counters = {k: float(v) for k, v in state.counters._asdict().items()}
     if not config.queue_capacity:
         # the queue telemetry only appears when a queue is configured
         counters = {k: v for k, v in counters.items()
                     if not k.startswith("queue_")}
+    if config.scenario is None:
+        # so does the wall-clock and scenario telemetry
+        counters = {k: v for k, v in counters.items()
+                    if k != "wall_clock" and not k.startswith("scenario_")}
     if not config.server.use_fused_kernel:
         # kernel-path telemetry only appears when the kernel path can run
         counters = {k: v for k, v in counters.items()

@@ -1,17 +1,23 @@
-"""Weights carried across: numpy in, tensors out, and back.
+"""Weights and states carried across: numpy in, tensors out, and back.
 
 Both packages hold the MLP as a list of ``{"w", "b"}`` dicts and the LM as
 a dict with stacked [L, ...] layer leaves, so a state written out of one with
-numpy starts the other from the same point.  bfloat16 crosses as its bits:
-numpy holds it as ml_dtypes' ``bfloat16`` (the JAX package's arrays carry
-that type), which torch cannot read directly.
+numpy starts the other from the same point; the round trainer's state, its
+counters and ingress queue, and a scenario's state cross the same way.
+bfloat16 crosses as its bits: numpy holds it as ml_dtypes' ``bfloat16``
+(the JAX package's arrays carry that type), which torch cannot read
+directly.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.engine import Counters
+from repro_torch.core.queue import QueueState
+from repro_torch.core.round_trainer import RoundState
 from repro_torch.core.rules import ServerState
+from repro_torch.core.scenarios import ScenarioState
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.trees import tree_map
 
@@ -48,6 +54,71 @@ def server_state_from_numpy(params, T, n, b, v, device=None,
         b=params_from_numpy(b, device),
         v=params_from_numpy(v, device),
         extra=None if extra is None else params_from_numpy(extra, device))
+
+
+def _fields(obj) -> dict:
+    """A NamedTuple's fields (the reference's states) or a mapping's."""
+    return obj._asdict() if hasattr(obj, "_asdict") else dict(obj)
+
+
+def counters_from_numpy(counters, device=None) -> Counters:
+    """The port's `Counters` from the reference's (a NamedTuple or mapping
+    of numpy scalars), dtypes kept, on `device` (the card unless the
+    caller passes another).  A field the port lacks (the reference's
+    ``shard_*``) must be zero: the run it comes from had no sharded
+    server."""
+    got = _fields(counters)
+    extra = [k for k, v in got.items()
+             if k not in Counters._fields and np.any(np.asarray(v))]
+    if extra:
+        raise ValueError(f"counters the port does not keep are nonzero: "
+                         f"{extra}")
+    device = resolve_device(device)
+    return Counters(*(_tensor(got[k], device) for k in Counters._fields))
+
+
+def queue_state_from_numpy(queue, device=None) -> QueueState:
+    """The port's `QueueState` from the reference's (numpy leaves; its
+    optional fields None where it has none), on `device` (the card unless
+    the caller passes another)."""
+    device = resolve_device(device)
+    got = _fields(queue)
+    return QueueState(**{
+        k: None if got.get(k) is None else params_from_numpy(got[k], device)
+        for k in QueueState._fields})
+
+
+def scenario_state_from_numpy(state, device=None) -> ScenarioState:
+    """The port's `ScenarioState` from the reference's (now, next_t,
+    n_draws, dropped, window as numpy), on `device` (the card unless the
+    caller passes another)."""
+    device = resolve_device(device)
+    got = _fields(state)
+    return ScenarioState(**{k: _tensor(got[k], device)
+                            for k in ScenarioState._fields})
+
+
+def round_state_from_numpy(state, device=None) -> RoundState:
+    """A round trainer's `RoundState` from the reference's, its leaves as
+    numpy (``jax.tree.map(np.asarray, state)``): the server with its
+    `extra`, the divergent client copies, ``client_ts``, ``round_idx``,
+    the counters, and ``client_leaf_ts`` and the ingress queue where the
+    run has them, on `device` (the card unless the caller passes another).
+    A run carried across mid-way continues in the port from where the
+    reference left it."""
+    device = resolve_device(device)
+    srv = state.server
+    return RoundState(
+        server=server_state_from_numpy(srv.params, srv.timestamp, srv.n,
+                                       srv.b, srv.v, device, srv.extra),
+        client_params=params_from_numpy(state.client_params, device),
+        client_ts=_tensor(state.client_ts, device),
+        round_idx=_tensor(state.round_idx, device),
+        counters=counters_from_numpy(state.counters, device),
+        client_leaf_ts=(None if state.client_leaf_ts is None
+                        else _tensor(state.client_leaf_ts, device)),
+        queue=(None if state.queue is None
+               else queue_state_from_numpy(state.queue, device)))
 
 
 def to_numpy(tree):

@@ -9,14 +9,19 @@ interpret mode; the port, on the CPU, runs their plain versions.
 Tolerances: τ, the counters and the final timestamp match exactly; losses,
 parameters and the n/b/v statistics within rtol 1e-4 / atol 1e-5 (float32
 sums and BLAS products taken in another order by each framework, over 48
-events).
+events).  Under a scenario the modelled wall clock (the ``wall_clock`` and
+``queue_latency_wall_sum`` counters, the curve, the scenario's times) is
+held within rtol 1e-6: each framework's exp rounds on its own.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import scenarios as jscen
 from repro.core.bandwidth import BandwidthConfig as JBandwidthConfig
 from repro.core.rules import ServerConfig as JServerConfig
 from repro.data.mnist import make_synth_mnist as j_make_synth_mnist
@@ -26,6 +31,7 @@ from repro.sim.fred import SimConfig as JSimConfig
 from repro.sim.fred import run_simulation as j_run_simulation
 
 from repro_torch.core import engine
+from repro_torch.core import scenarios as scen
 from repro_torch.core.bandwidth import BandwidthConfig
 from repro_torch.core.engine import init_counters
 from repro_torch.core.rules import ServerConfig
@@ -35,12 +41,16 @@ from repro_torch.models.mlp import init_mlp, nll_loss
 from repro_torch.sim.fred import SimConfig, run_simulation
 from repro_torch.utils.convert import (params_from_numpy,
                                        server_state_from_numpy, to_numpy)
-from repro_torch.utils.rng import NativeDraws, ReplayDraws
+from repro_torch.utils.rng import (NativeDraws, ReplayDraws,
+                                   ReplayScenarioDraws)
 from repro_torch.utils.trees import leaves
 
 EVENTS = 48
 EVAL_EVERY = 24
 RTOL, ATOL = 1e-4, 1e-5
+WALL_RTOL = 1e-6
+# counters on the modelled wall clock, held within WALL_RTOL
+WALL_COUNTERS = ("wall_clock", "queue_latency_wall_sum")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -107,6 +117,68 @@ def replay_of(cfg, n_data, num_steps=EVENTS, eval_every=EVAL_EVERY,
                           for k, v in out.items()})
 
 
+def scenario_configs(spec):
+    """The reference's and the port's `ScenarioConfig` for `spec`: a preset
+    name, or a dict of fields (with an optional ``preset`` to start
+    from)."""
+    if isinstance(spec, str):
+        spec = {"preset": spec}
+    spec = dict(spec)
+    name = spec.pop("preset", None)
+    kw = dict(dataclasses.asdict(jscen.preset(name)) if name else {}, **spec)
+    return jscen.ScenarioConfig(**kw), scen.ScenarioConfig(**kw)
+
+
+def scenario_replay_of(j_cfg, lam, n_draws, n_windows):
+    """The variates `jax.random` draws for the scenario `j_cfg` over a
+    λ-client fleet, as the reference keys them: client c's n-th service
+    draw (n < `n_draws`; a standard normal for 'lognormal', a Pareto(α)
+    for 'pareto', unused for 'fixed') and the churn uniforms of windows
+    ``< n_windows``."""
+    base = jax.random.fold_in(jax.random.PRNGKey(j_cfg.seed),
+                              jscen._SVC_SALT)
+
+    def unit(c, n):
+        key = jax.random.fold_in(jax.random.fold_in(base, c), n)
+        if j_cfg.service == "pareto":
+            return jax.random.pareto(key, j_cfg.pareto_alpha)
+        return jax.random.normal(key)
+    cs = jnp.arange(lam)
+    svc = jax.vmap(lambda c: jax.vmap(lambda n: unit(c, n))(
+        jnp.arange(n_draws)))(cs)
+    cbase = jax.random.fold_in(jax.random.PRNGKey(j_cfg.seed),
+                               jscen._CHURN_SALT)
+    churn = jax.vmap(lambda w: jax.vmap(lambda c: jax.random.uniform(
+        jax.random.fold_in(jax.random.fold_in(cbase, c), w), (2,)))(cs))(
+        jnp.arange(n_windows))
+    return ReplayScenarioDraws(np.asarray(svc), np.asarray(churn))
+
+
+def assert_counters_match(got, want):
+    """Counters equal, those on the modelled wall clock within
+    WALL_RTOL."""
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    for k in want:
+        if k in WALL_COUNTERS:
+            np.testing.assert_allclose(got[k], want[k], rtol=WALL_RTOL,
+                                       err_msg=k)
+        else:
+            assert got[k] == want[k], (k, got[k], want[k])
+
+
+def assert_scenario_states_match(got, want):
+    """Integer and boolean fields exactly, times within WALL_RTOL (+inf of
+    a parked client included)."""
+    for f in ("n_draws", "dropped", "window"):
+        np.testing.assert_array_equal(getattr(got, f).cpu().numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    for f in ("now", "next_t"):
+        np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                   np.asarray(getattr(want, f)),
+                                   rtol=WALL_RTOL, err_msg=f)
+
+
 CASES = {
     "fasgd_serial_kernel": dict(
         sim=dict(num_clients=4, batch_size=8, seed=3),
@@ -151,11 +223,17 @@ def check_against_reference(setup, name, case, num_steps=EVENTS):
     cache, the queued payloads)."""
     params, ds = setup
     bw = case.get("bandwidth", {})
+    j_scn = p_scn = scn_rng = None
+    if case.get("scenario") is not None:
+        j_scn, p_scn = scenario_configs(case["scenario"])
+        scn_rng = scenario_replay_of(j_scn, case["sim"]["num_clients"],
+                                     2 * num_steps + 8, num_steps + 1)
     j_cfg = JSimConfig(
         server=JServerConfig(**case["server"], kernel_interpret=True),
-        bandwidth=JBandwidthConfig(**bw), **case["sim"])
+        bandwidth=JBandwidthConfig(**bw), scenario=j_scn, **case["sim"])
     cfg = SimConfig(server=ServerConfig(**case["server"]),
-                    bandwidth=BandwidthConfig(**bw), **case["sim"])
+                    bandwidth=BandwidthConfig(**bw), scenario=p_scn,
+                    **case["sim"])
     j_out = j_run_simulation(
         j_cfg, j_nll_loss, jax.tree.map(jnp.asarray, params),
         jnp.asarray(ds["x_train"]), jnp.asarray(ds["y_train"]), num_steps,
@@ -172,12 +250,19 @@ def check_against_reference(setup, name, case, num_steps=EVENTS):
         eval_fn=lambda p: nll_loss(p, xv, yv), collect_step_metrics=True,
         rng=replay_of(case["sim"], ds["x_train"].shape[0], num_steps,
                       bandwidth=bw),
-        device="cpu")
+        device="cpu", scenario_draws=scn_rng)
 
     np.testing.assert_array_equal(out["tau"].numpy(), np.asarray(j_out["tau"]))
-    assert out["counters"] == j_out["counters"], (out["counters"], j_out["counters"])
+    assert_counters_match(out["counters"], j_out["counters"])
     assert out["final_timestamp"] == j_out["final_timestamp"]
     assert out["steps"] == j_out["steps"]
+    np.testing.assert_allclose(out["wall_clock"], j_out["wall_clock"],
+                               rtol=WALL_RTOL)
+    if j_scn is None:
+        assert out["state"].scenario is None
+    else:
+        assert_scenario_states_match(out["state"].scenario,
+                                     j_out["state"].scenario)
     worst = {}
     _close(out["train_loss"].numpy(), j_out["train_loss"], "train_loss",
            worst)
@@ -213,6 +298,11 @@ def check_against_reference(setup, name, case, num_steps=EVENTS):
             if want is not None:
                 np.testing.assert_array_equal(got.numpy(), np.asarray(want),
                                               err_msg=f"queue {field}")
+        want = j_st.queue.enq_wall
+        assert (st.queue.enq_wall is None) == (want is None)
+        if want is not None:
+            np.testing.assert_allclose(st.queue.enq_wall.numpy(),
+                                       np.asarray(want), rtol=WALL_RTOL)
         for field in ("payload", "leaf_mask"):
             got = leaves(to_numpy(getattr(st.queue, field)))
             want = jax.tree.leaves(getattr(j_st.queue, field))
@@ -334,18 +424,56 @@ def test_port_native_data_and_init_match_the_reference_geometry():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(queue_capacity=4, scenario=object()),
-    dict(scenario=object()),
+    # the queue, the cotangent path and scenarios are ported; a sharded
+    # server is not, under any of them
+    dict(queue_capacity=4, scenario=scen.preset("stragglers"),
+         server_shards=2),
+    dict(scenario=scen.preset("dropout"), server_shards=2),
     dict(server_shards=2),
-    dict(apply_mode="fused", fused_mode="cotangent", scenario=object()),
-    # the queue and the cotangent path are ported; a queue on a sharded
-    # server is not
+    dict(apply_mode="fused", fused_mode="cotangent",
+         scenario=scen.preset("hotspot"), server_shards=2),
     dict(apply_mode="fused", server=ServerConfig(rule="sasgd"),
          queue_capacity=4, server_shards=2),
 ])
 def test_unported_configurations_raise(kwargs):
     with pytest.raises(NotImplementedError):
         SimConfig(**kwargs)
+
+
+SCENARIO_CONFIGS = {
+    "async": dict(),
+    "fused": dict(apply_mode="fused", events_per_step=4),
+    "queued": dict(events_per_step=4, queue_capacity=8),
+    "roundrobin": dict(dispatcher="roundrobin"),
+    "heterogeneous": dict(dispatcher="heterogeneous"),
+    "ssgd": dict(rule="ssgd", events_per_step=4),
+    "ssgd_k2": dict(rule="ssgd", events_per_step=2),
+    "kasync": dict(rule="kasync", events_per_step=4),
+    "kasync_k8": dict(rule="kasync", events_per_step=8),
+}
+
+
+@pytest.mark.parametrize("preset", sorted(scen.SCENARIO_PRESETS))
+@pytest.mark.parametrize("name", sorted(SCENARIO_CONFIGS))
+def test_sim_config_takes_a_scenario_where_the_reference_does(name, preset):
+    """Every preset with every dispatcher, apply mode, queue and barrier
+    rule: the port accepts what the reference accepts and refuses the rest
+    with its `ValueError` (a heterogeneous dispatcher; a barrier under
+    churn or with a window other than λ)."""
+    kw = dict(SCENARIO_CONFIGS[name])
+    rule = kw.pop("rule", "asgd")
+    server = dict(rule=rule, num_clients=4)
+    j_scn, p_scn = scenario_configs(preset)
+    try:
+        JSimConfig(num_clients=4, server=JServerConfig(**server),
+                   scenario=j_scn, **kw)
+    except ValueError as e:
+        with pytest.raises(ValueError, match=str(e).split(":")[0][:30]):
+            SimConfig(num_clients=4, server=ServerConfig(**server),
+                      scenario=p_scn, **kw)
+        return
+    SimConfig(num_clients=4, server=ServerConfig(**server), scenario=p_scn,
+              **kw)
 
 
 def test_mesh_raises(setup):
