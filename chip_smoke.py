@@ -173,6 +173,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    are printed; the launches of (a), (b), (d) and (f) join the kernels'
    record.
 
+15. LM training, `tinyllama-1.1b` (random weights from seed 0, tokens of
+   the synthetic Markov chain of `data/tokens.py` drawn on the card) at
+   `examples/train_lm_fasgd.py`'s operating point: (a) at full width cut
+   to 2 layers, bf16: every leaf's gradient through the round trainer's
+   vmapped `grad_fn` (two clients) finite and nonzero, `attn.wq`, `wk` and
+   `wv` by name, the losses within rtol/atol 5e-2 of the float32 ones,
+   no flash launch, and `ops.attention` refusing an input that requires
+   grad and a vmapped one on the card; (b) the round trainer at full
+   width and depth (22 layers, bf16; C=4, μ=2, S=256, fasgd lr=0.01,
+   c_fetch=0.5, kernel on, 20 rounds): fused on `fused_event_apply` (one
+   launch a round) and serial on `fasgd_update` (one launch per push that
+   reached the server), the held-out CE of a fixed batch printed (it is
+   not required to fall: PERF.md, PR 20), the peak memory beside the
+   reckoning from the shapes; then 4 fused rounds whose gradients are
+   applied with `fused_event_apply` and without it, and 2 serial rounds
+   whose every push is applied with `fasgd_update` and without it, each
+   from the same server state (fused: θ' within one bf16 rounding of the
+   update's terms plus 2 bf16 ulps, n', b', v' within one bf16 rounding
+   of their terms; serial: θ', n', b', v' within one bf16 rounding of the
+   plain update run on the float32 images of the state; τ and T equal);
+   (c) fasgd ``fused_mode='cotangent'``
+   against the materialized path over 4 rounds (float32 at 4 layers),
+   within KSUM_TOL, with one round's peak memory of each; (d) FRED on the
+   LM at 2 layers in float32 (λ=4, μ=2, fasgd, kernel on): serial for 200
+   events at lr 3e-5 (`fasgd_update` once per event) and fused K=4 for 50
+   windows at lr 3e-4 (`fused_event_apply` once per window), the held-out
+   CE printed and finite; (e) each loop under
+   ``set_sync_debug_mode('error')``, then profiled; rounds/s or events/s
+   and tokens/s.  The launches of (b) and (d) join the kernels' record.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -180,6 +210,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -188,6 +219,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# Phase 15's server state, client copies and gradients of a 1.1 B-parameter
+# model nearly fill the card: let the allocator grow its segments rather
+# than keep blocks of earlier sizes that it cannot reuse.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 # Published H100 rates (NVIDIA data sheets, dense, at the full power limit)
 # by the words of the card's name: memory bytes/s, fp32 (non-tensor) op/s and
@@ -558,27 +593,30 @@ def fused_tree_case(ops, ref, ins, K, mode, track, vectors, what, tally):
     return out
 
 
-def run_path(label, cfg, ds, params, num_steps, eval_every):
+def run_path(label, cfg, ds, params, num_steps, eval_every, loss=None,
+             data=None, eval_fn=None, must_fall=True):
     """One run of `run_simulation` on the card after a short warm-up, with
     the launch counts set to 0 just before it; the validation cost must be
-    finite and fall, the server parameters finite.  Prints one line and
+    finite and, unless `must_fall` is off, fall; the server parameters
+    finite.  The MLP on `ds` unless
+    `loss`, `data` (x, y) and `eval_fn` are given.  Prints one line and
     returns (out, seconds, leaf dispatches, kernel launches)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.mlp import nll_loss
     from repro_torch.sim.fred import run_simulation
     from repro_torch.utils.trees import leaves
+    if loss is None:
+        loss, data = nll_loss, (ds.x_train, ds.y_train)
+        eval_fn = lambda p: nll_loss(p, ds.x_valid, ds.y_valid)
     # warm-up (first use of each CUDA kernel, cuBLAS), not timed or counted
     warm = cfg.events_per_step * (1 if cfg.apply_mode == "fused" else 20)
-    run_simulation(cfg, nll_loss, params, ds.x_train, ds.y_train, warm,
-                   eval_every=warm)
+    run_simulation(cfg, loss, params, *data, warm, eval_every=warm)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    out = run_simulation(
-        cfg, nll_loss, params, ds.x_train, ds.y_train, num_steps,
-        eval_every=eval_every,
-        eval_fn=lambda p: nll_loss(p, ds.x_valid, ds.y_valid))
+    out = run_simulation(cfg, loss, params, *data, num_steps,
+                         eval_every=eval_every, eval_fn=eval_fn)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
@@ -600,7 +638,7 @@ def run_path(label, cfg, ds, params, num_steps, eval_every):
     if not all(bool(torch.isfinite(l).all())
                for l in leaves(out["state"].server.params)):
         fail(f"{label}: non-finite server parameters")
-    if not vals[-1] < vals[0]:
+    if must_fall and not vals[-1] < vals[0]:
         fail(f"{label}: validation cost did not fall: {vals}")
     return out, secs, launches, device
 
@@ -645,18 +683,21 @@ def run_main_path(label, cfg, ds, params, num_steps, eval_every, kernel,
     return device[kernel], num_steps / secs
 
 
-def breakdown(label, cfg, ds, params, n_events):
+def breakdown(label, cfg, ds, params, n_events, loss=None, data=None):
     """Drive `n_events` events of the main path three times after a warm
     window: under ``set_sync_debug_mode('error')`` (any host sync in the
     event loop raises), timed on the host clock, and under `torch.profiler`
-    to print the device's busy and idle share and its top kernels."""
+    to print the device's busy and idle share and its top kernels.  The
+    MLP on `ds` unless `loss` and `data` (x, y) are given."""
     import torch
     from repro_torch.models.mlp import nll_loss
     from repro_torch.sim.fred import build_step_fn, init_sim, native_draws
-    dev = ds.x_train.device
+    from repro_torch.utils.trees import leaves
+    x, y = (ds.x_train, ds.y_train) if data is None else data
+    dev = x.device
     state = init_sim(cfg, params)
-    step = build_step_fn(cfg, nll_loss, ds.x_train, ds.y_train)
-    rng = native_draws(cfg, ds.x_train.shape[0], len(MLP_SHAPES))
+    step = build_step_fn(cfg, loss or nll_loss, x, y)
+    rng = native_draws(cfg, x.shape[0], len(leaves(params)))
     K = cfg.events_per_step
     # the draws are made here, outside the loops below; run_simulation
     # makes them inside its timed run (run_main_path prints their share)
@@ -1962,14 +2003,20 @@ class RoundLoop:
         from repro_torch.core import round_trainer as rt
         return rt.init_round_state(self.tc, self.params)
 
+    def batch(self, r):
+        """Round `r`'s batch: a tuple of [C, μ, ...] tensors."""
+        rows = self.idx[r]
+        return self.ds.x_train[rows], self.ds.y_train[rows]
+
+    def val_cost(self, params) -> float:
+        return val_cost(self.ds, params)
+
     def drive(self, state, first, n):
         """Rounds ``[first, first + n)`` from `state` (no host sync).
         Returns (state, the last round's metrics, each round's τ)."""
         taus, m = [], None
         for r in range(first, first + n):
-            rows = self.idx[r]
-            state, m = self.step(state, (self.ds.x_train[rows],
-                                         self.ds.y_train[rows]),
+            state, m = self.step(state, self.batch(r),
                                  self.draws.round(state.round_idx))
             taus.append(m["mean_tau"])
         return state, m, taus
@@ -1982,26 +2029,28 @@ def val_cost(ds, params) -> float:
         return float(nll_loss(params, ds.x_valid, ds.y_valid))
 
 
-def round_run(label, drv, rounds):
+def round_run(label, drv, rounds, must_fall=True):
     """`rounds` rounds of the round trainer on the card after 4 warm-up
     rounds of their own, the launch counts set to 0 just before: the
-    validation cost of the server's parameters must be finite and fall.
-    Prints rounds/s, pushes/s and the counts; returns (state, metrics,
-    seconds, leaf dispatches, kernel launches)."""
+    validation cost of the server's parameters must be finite and, unless
+    `must_fall` is off, fall.  Prints rounds/s, pushes/s and the counts;
+    returns (state, metrics, seconds, leaf dispatches, kernel
+    launches)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.utils.trees import leaves
     drv.drive(drv.init(), 0, 4)
     torch.cuda.synchronize()
-    state = drv.init()
-    cost0 = val_cost(drv.ds, state.server.params)
+    cost0 = drv.val_cost(drv.init().server.params)
     ops.reset_launches()
     t0 = time.perf_counter()
-    state, m, _ = drv.drive(state, 0, rounds)
+    # the initial state goes straight to `drive`, which lets it go after
+    # the first round (an LM's state is 16 bytes a parameter)
+    state, m, _ = drv.drive(drv.init(), 0, rounds)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches, device = dict(ops.LAUNCHES), dict(ops.DEVICE_LAUNCHES)
-    cost1 = val_cost(drv.ds, state.server.params)
+    cost1 = drv.val_cost(state.server.params)
     c = {k: float(v) for k, v in state.counters._asdict().items()}
     print(f"  {label}: {rounds} rounds in {secs:.3f} s = {rounds / secs:.1f} "
           f"rounds/s, {c['push_actual'] / secs:.1f} pushes/s "
@@ -2015,7 +2064,7 @@ def round_run(label, drv, rounds):
             bool(torch.isfinite(l).all())
             for l in leaves(state.server.params))):
         fail(f"{label}: non-finite server parameters or cost {cost1}")
-    if not cost1 < cost0:
+    if must_fall and not cost1 < cost0:
         fail(f"{label}: validation cost did not fall: {cost0} -> {cost1}")
     return state, m, secs, launches, device
 
@@ -2070,19 +2119,22 @@ def round_breakdown(label, drv, n):
     ``set_sync_debug_mode('error')``, timed on the host clock, and under
     the profiler (device busy, idle share, ops per round)."""
     import torch
-    state, _, _ = drv.drive(drv.init(), 0, n)
+    # the state rides in `box` so that no frame here holds a round's
+    # starting state while `drive` makes the next ones
+    box = [drv.drive(drv.init(), 0, n)[0]]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
-    state, _, _ = drv.drive(state, n, n)
+    box.append(drv.drive(box.pop(), n, n)[0])
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, _, _ = drv.drive(state, 2 * n, n)
+    box.append(drv.drive(box.pop(), 2 * n, n)[0])
     torch.cuda.synchronize()
     plain_us = 1e6 * (time.perf_counter() - t0)
     print(f"  {label}: {n} rounds ran with no host sync; "
           f"{plain_us / n:.1f} us/round on the host clock unprofiled")
-    profiled(label, lambda: drv.drive(state, 3 * n, n), plain_us, n, "round")
+    profiled(label, lambda: drv.drive(box.pop(), 3 * n, n), plain_us, n,
+             "round")
 
 
 def scenario_report(label, out, windows, lam, churn):
@@ -2325,6 +2377,499 @@ def phase_round_trainer_and_scenarios(ds, params, K):
     return n_fasgd, n_fused, rates
 
 
+# Phase 15: LM training at tinyllama-1.1b's width (arXiv:2401.02385), at
+# examples/train_lm_fasgd.py's operating point.
+LM_ARCH = "tinyllama-1.1b"
+LM_C, LM_MU, LM_S = 4, 2, 256           # clients, sequences each, positions
+LM_LR, LM_C_FETCH = 0.01, 0.5
+LM_ROUNDS, LM_AGREE, LM_SERIAL_AGREE = 20, 4, 2
+LM_CUT = 2                  # the depth of (a) and (d)
+LM_COT_DEPTH = 4            # the depth of (c), float32
+LM_FRED_EVENTS, LM_FRED_WINDOWS, LM_FRED_K = 200, 50, 4
+# The held-out CE is printed, not required to fall: at (b)'s operating point
+# (bf16, lr 0.01) it does not fall within the run, and (d)'s float32 runs
+# move it by less than 1e-2 (PERF.md, PR 20).  Both must stay finite.
+# (d) runs float32 at lr 3e-5 serial and 3e-4 fused (a fused window
+# advances the statistics once, so its v decays a quarter as fast at K=4).
+LM_FRED_DTYPE = "float32"
+LM_FRED_LR = {"serial": 3e-5, "fused": 3e-4}
+LM_POOL = 512               # FRED's token pool (sequences)
+LM_TEMPERATURE = 1.0
+BF16_LOSS_TOL = dict(rtol=5e-2, atol=5e-2)   # tests/test_lm_properties.py
+# The server keeps n, b, v in the parameters' dtype, as the reference does.
+# With bf16 θ the plain path forms γ·n, γ·b and β·v in bf16 (a float times a
+# bf16 tensor stays bf16 in both frameworks) before adding the float32 term;
+# the kernel reads float32 copies and rounds its statistics once on the way
+# out.  So n', b', v' differ by up to one bf16 rounding of that product and
+# one of the result, and each update term by one bf16 rounding of v.
+BF16_ROUNDING = 2.0 ** -8
+
+
+def lm_tokens(cfg, n, step, dev):
+    """(tokens, targets) [n, LM_S] of the synthetic Markov chain
+    (`data/tokens.py`) at LM_TEMPERATURE, drawn on `dev` from step `step`
+    of seed 0."""
+    from repro_torch.data.tokens import TokenDataConfig, make_batch
+    return make_batch(TokenDataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=LM_S, batch_size=n,
+                                      temperature=LM_TEMPERATURE), step,
+                      device=dev)
+
+
+def lm_params(cfg, dev):
+    """Random weights of `cfg` from seed 0, drawn on the card."""
+    import torch
+    from repro_torch.models.transformer import init_model
+    return init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                      device=dev)
+
+
+def named_leaves(tree, prefix=""):
+    """[(dotted name, leaf)] in JAX leaf order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in named_leaves(tree[k], f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def gib(n_bytes) -> str:
+    return f"{n_bytes / 2 ** 30:.2f} GiB"
+
+
+class LMRoundLoop(RoundLoop):
+    """`RoundLoop` on the LM: the batches of `rounds` rounds, [C, μ, S]
+    token and target tensors drawn once on the card; the held-out CE on
+    a fixed batch is its validation cost; the event-batched loss goes to
+    the cotangent path."""
+
+    def __init__(self, tc, mode, cfg, params, data, eval_fn):
+        from repro_torch.core import round_trainer as rt
+        from repro_torch.models.lm import make_lm_loss
+        loss = make_lm_loss(cfg)
+        self.grad_fn = rt.make_grad_fn(loss)
+        self.tc, self.params, self.eval_fn = tc, params, eval_fn
+        self.step = rt.build_round_step(
+            tc, self.grad_fn, apply_mode=mode,
+            batched_loss_fn=lambda W, d, b: loss.event_batched(W, d, *b))
+        self.draws = rt.native_round_draws(tc, params)
+        C = tc.num_round_clients
+        self.tok, self.tgt = (t.reshape(-1, C, LM_MU, LM_S) for t in data)
+
+    def batch(self, r):
+        r %= self.tok.shape[0]
+        return self.tok[r], self.tgt[r]
+
+    def val_cost(self, params) -> float:
+        return float(self.eval_fn(params))
+
+
+def lm_gradients(cfg, dev):
+    """(a): every leaf's gradient through the round trainer's vmapped
+    `grad_fn` (two clients), bf16, at the cut depth; the flash kernel
+    never runs and refuses a training input."""
+    import torch
+    from repro_torch.core import round_trainer as rt
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import make_lm_loss
+    from repro_torch.utils.trees import tree_map
+    label = f"(a) gradients, {cfg.num_layers} layers, {cfg.param_dtype}"
+    params = lm_params(cfg, dev)
+    loss = make_lm_loss(cfg)
+    tok, tgt = (t.reshape(2, LM_MU, LM_S) for t in lm_tokens(
+        cfg, 2 * LM_MU, 0, dev))
+    copies = tree_map(lambda l: torch.stack([l, l]), params)
+    ops.reset_launches()
+    losses, grads = torch.func.vmap(rt.make_grad_fn(loss))(copies, (tok, tgt))
+    torch.cuda.synchronize()
+    if ops.LAUNCHES["flash_attention"] or ops.DEVICE_LAUNCHES[
+            "flash_attention"]:
+        fail(f"{label}: the flash kernel ran on the training path")
+    rows = []
+    for name, g in named_leaves(grads):
+        per_client = g.float().abs().flatten(1).amax(dim=1)
+        if not (bool(torch.isfinite(g).all())
+                and bool((per_client > 0).all())):
+            fail(f"{label}: {name}'s gradient is not finite and nonzero "
+                 f"for every client: max|g| {per_client.tolist()}")
+        rows.append(f"{name} {float(per_client.min()):.2e}")
+    names = [n for n, _ in named_leaves(grads)]
+    for want in ("layers.attn.wq", "layers.attn.wk", "layers.attn.wv"):
+        if want not in names:
+            fail(f"{label}: no leaf {want} in {names}")
+    with torch.no_grad():
+        p32 = tree_map(lambda l: l.float(), params)
+        want = torch.stack([loss(p32, tok[c], tgt[c]) for c in range(2)])
+    err = (losses.float() - want).abs()
+    if not bool(torch.all(err <= BF16_LOSS_TOL["atol"]
+                          + BF16_LOSS_TOL["rtol"] * want.abs())):
+        fail(f"{label}: bf16 losses {losses.tolist()} vs float32 "
+             f"{want.tolist()}")
+    print(f"  {label}: losses {[round(float(x), 4) for x in losses]} "
+          f"(float32 {[round(float(x), 4) for x in want]}, max|Δ| "
+          f"{float(err.max()):.2e} within rtol/atol 5e-2); every leaf's "
+          f"gradient finite and nonzero for both clients, min over clients "
+          f"of max|g|: " + ", ".join(rows) + "; flash_attention launched 0 "
+          f"times")
+    q = torch.randn(1, 32, 16, 64, device=dev, dtype=torch.bfloat16)
+    for how, call in (
+            ("requires_grad", lambda: ops.attention(
+                q.clone().requires_grad_(), q[:, :4], q[:, :4])),
+            ("vmap", lambda: torch.func.vmap(
+                lambda a: ops.attention(a, q[:, :4], q[:, :4]))(q[None]))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "_sdpa" not in str(e):
+                raise
+        else:
+            fail(f"{label}: ops.attention took a {how} input on the card")
+    if ops.DEVICE_LAUNCHES["flash_attention"]:
+        fail(f"{label}: a refused flash_attention call launched")
+    print(f"  {label}: ops.attention refuses an input that requires grad "
+          f"and a vmapped one on the card, before any launch")
+
+
+def one_leaf_state(srv, i):
+    """Leaf `i` of the server state `srv` as a one-leaf state."""
+    from repro_torch.core.rules import ServerState
+    from repro_torch.utils.trees import leaves
+    one = lambda f: [leaves(getattr(srv, f))[i]]
+    return ServerState(params=one("params"), timestamp=srv.timestamp,
+                       n=one("n"), b=one("b"), v=one("v"))
+
+
+def lm_kernel_on_off(drv, rounds):
+    """(b) fused: `rounds` rounds from one start; in each, the clients'
+    gradients computed once and applied with `fused_event_apply` (one
+    launch over the tree) and with the kernel off (the plain reduction,
+    leaf by leaf to bound memory): θ' within one bf16 rounding
+    (BF16_ROUNDING) of Σ|update terms| plus 2 bf16 ulps; n', b', v' within
+    one bf16 rounding of |γ·old| + |new| (β for v) plus KSUM_TOL's atol;
+    τ and T equal.  The run then goes on with the kernel-on round."""
+    import dataclasses
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core import round_trainer as rt
+    from repro_torch.kernels import ops
+    from repro_torch.utils.trees import leaves
+    tc = drv.tc
+    on_cfg = rt.server_config(tc)
+    off_cfg = dataclasses.replace(on_cfg, use_fused_kernel=False)
+    vgrad = torch.func.vmap(drv.grad_fn)
+    state = drv.init()
+    worst = {"θ share": 0.0, "n": 0.0, "b": 0.0, "v": 0.0}
+    label = "(b) fused kernel on/off"
+    for r in range(rounds):
+        draws = drv.draws.round(state.round_idx)
+        srv = state.server
+        _, grads = vgrad(state.client_params, drv.batch(r))
+        push = engine.transmit_gate(draws.push_u, srv, tc.c_push, tc.eps)
+        ops.reset_launches()
+        on, tau_on = engine.fused_apply(on_cfg, srv, grads, push,
+                                        state.client_ts)
+        torch.cuda.synchronize()
+        if ops.DEVICE_LAUNCHES["fused_event_apply"] != 1:
+            fail(f"{label}: {ops.DEVICE_LAUNCHES}")
+        for i, g in enumerate(leaves(grads)):
+            off, tau_off = engine.fused_apply(
+                off_cfg, one_leaf_state(srv, i), [g], push, state.client_ts)
+            if not (torch.equal(tau_on, tau_off) and int(
+                    off.timestamp) == int(on.timestamp)):
+                fail(f"{label}: τ or T differ")
+            v1 = off.v[0].float()
+            shape = (-1,) + (1,) * v1.dim()
+            mag = (push.float().reshape(shape) * tc.lr
+                   / (v1[None] * tau_off.reshape(shape) + tc.eps)
+                   * g.float().abs()).sum(dim=0)
+            _, share = theta_share(leaves(on.params)[i], off.params[0], mag,
+                                   BF16_ROUNDING)
+            worst["θ share"] = max(worst["θ share"], share)
+            ok = share <= 1.0
+            for f, coef in (("n", tc.gamma), ("b", tc.gamma), ("v", tc.beta)):
+                x, y = leaves(getattr(on, f))[i].float(), getattr(
+                    off, f)[0].float()
+                old = coef * leaves(getattr(srv, f))[i].float().abs()
+                e = (x - y).abs()
+                ok = ok and bool(torch.all(
+                    e <= KSUM_TOL["atol"] + BF16_ROUNDING * (old + y.abs())))
+                worst[f] = max(worst[f], float(e.max()))
+            if not ok:
+                fail(f"{label}, round {r}, leaf {i}: θ share {share:.3f}, "
+                     f"{worst}")
+            del off, mag
+        del on, grads
+        state, _, _ = drv.drive(state, r, 1)
+    torch.cuda.synchronize()
+    print(f"  {label}: {rounds} rounds, each round's gradients applied both "
+          f"ways, one fused_event_apply launch a round: τ and T equal; θ' "
+          f"worst share {worst['θ share']:.3f} of its allowance (2^-8 of "
+          f"Σ|update terms| + 2 bf16 ulp), max|Δ| n {worst['n']:.2e}, b "
+          f"{worst['b']:.2e}, v {worst['v']:.2e} (2^-8 of |γ·old| + |new|, "
+          f"+ {KSUM_TOL['atol']:g})")
+    del state
+    torch.cuda.empty_cache()
+
+
+def lm_serial_kernel_on_off(drv, rounds):
+    """(b) serial: `rounds` rounds from one start; in each, the clients'
+    gradients computed once and each client's push applied to the round's
+    starting server state with `fasgd_update` (one launch over the tree)
+    and with the kernel off, leaf by leaf to bound memory.  The plain path
+    runs on the float32 images of the leaf's θ, n, b, v and gradient: in
+    bf16 it would round each of its ~12 intermediates, the kernel rounds
+    once.  So each of θ', n', b', v' must be within one bf16 rounding
+    (BF16_ROUNDING) of the plain float32 value, plus 2^-16 of its terms'
+    magnitudes for the float32 arithmetic's own order; τ and T equal.  The
+    run then goes on with the kernel-on round, so the second round starts
+    from a state the kernel made."""
+    import dataclasses
+    import torch
+    from repro_torch.core import engine, rules
+    from repro_torch.core import round_trainer as rt
+    from repro_torch.kernels import ops
+    from repro_torch.utils.trees import leaves, tree_map
+    tc = drv.tc
+    on_cfg = rt.server_config(tc)
+    off_cfg = dataclasses.replace(on_cfg, use_fused_kernel=False)
+    vgrad = torch.func.vmap(drv.grad_fn)
+    state = drv.init()
+    worst = {f: 0.0 for f in ("θ", "n", "b", "v")}
+    label = "(b) serial kernel on/off"
+    pushes = 0
+    for r in range(rounds):
+        srv = state.server
+        _, grads = vgrad(state.client_params, drv.batch(r))
+        for k in range(tc.num_round_clients):
+            g_k = engine.tree_index(grads, k)
+            ts = state.client_ts[k]
+            ops.reset_launches()
+            on, aux_on = rules.apply_update(on_cfg, srv, g_k, ts)
+            torch.cuda.synchronize()
+            if ops.DEVICE_LAUNCHES["fasgd_update"] != 1:
+                fail(f"{label}: {ops.DEVICE_LAUNCHES}")
+            for i, g in enumerate(leaves(g_k)):
+                old = tree_map(lambda l: l.float(), one_leaf_state(srv, i))
+                off, aux_off = rules.apply_update(off_cfg, old, [g.float()],
+                                                  ts)
+                if not (torch.equal(aux_on["tau"], aux_off["tau"]) and int(
+                        off.timestamp) == int(on.timestamp)):
+                    fail(f"{label}: τ or T differ")
+                mag = (tc.lr / (off.v[0] * aux_off["tau"].float() + tc.eps)
+                       * g.float().abs())
+                terms = {
+                    "θ": old.params[0].abs() + mag,
+                    "n": off.n[0].abs(),
+                    "b": (tc.gamma * old.b[0].abs()
+                          + (1 - tc.gamma) * g.float().abs()),
+                    "v": off.v[0].abs()}
+                for f, field in (("θ", "params"), ("n", "n"), ("b", "b"),
+                                 ("v", "v")):
+                    x = leaves(getattr(on, field))[i].double()
+                    y = getattr(off, field)[0].double()
+                    allowed = (BF16_ROUNDING * y.abs()
+                               + 2.0 ** -16 * terms[f].double())
+                    share = float(((x - y).abs()
+                                   / allowed.clamp(min=1e-300)).max())
+                    worst[f] = max(worst[f], share)
+                    if not share <= 1.0:
+                        fail(f"{label}, round {r}, push {k}, leaf {i}: {f} "
+                             f"share {share:.3f} of its allowance")
+                    del x, y, allowed
+                del off, old, mag, terms
+            pushes += 1
+            del on
+        del grads, srv
+        state, _, _ = drv.drive(state, r, 1)
+    torch.cuda.synchronize()
+    print(f"  {label}: {rounds} rounds, each of their {pushes} pushes "
+          f"applied both ways from the same gradient, one fasgd_update "
+          f"launch a push: τ and T equal; worst share of the allowance (one "
+          f"bf16 rounding of the plain float32 value + 2^-16 of its terms) "
+          + ", ".join(f"{f} {w:.3f}" for f, w in worst.items()))
+    del state
+    torch.cuda.empty_cache()
+
+
+def round_peak(drv):
+    """Peak device memory (bytes) of one round of `drv` above what was
+    allocated before it, after a first round."""
+    import torch
+    state, _, _ = drv.drive(drv.init(), 0, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state, _, _ = drv.drive(state, 1, 1)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_lm_training(dev, smi):
+    """Phase 15: LM training, tinyllama-1.1b at full width.  Returns the
+    kernel launches of `fasgd_update` and `fused_event_apply` on its main
+    runs and its rates."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainerConfig
+    from repro_torch.core.rules import ServerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import param_count
+    from repro_torch.models.lm import make_eval_fn, make_lm_loss
+    from repro_torch.sim.fred import SimConfig
+    print(f"phase 15: LM training, {LM_ARCH} at full width")
+    t0 = time.perf_counter()
+    full = get_config(LM_ARCH)
+    cut = dataclasses.replace(full, num_layers=LM_CUT)
+    rates = {}
+
+    # (a) every leaf's gradient, bf16 against float32
+    lm_gradients(cut, dev)
+
+    # (b) the round trainer at full width and depth
+    C, tokens_per_round = LM_C, LM_C * LM_MU * LM_S
+    data = lm_tokens(full, C * LM_MU * LM_ROUNDS, 1, dev)
+    val = lm_tokens(full, 8, 2, dev)
+    tc = TrainerConfig(num_round_clients=C, rule="fasgd", lr=LM_LR,
+                       c_fetch=LM_C_FETCH, use_fused_kernel=True)
+    n_fasgd = n_fused = 0
+    params = lm_params(full, dev)
+    P, n_leaves = param_count(params), len(named_leaves(params))
+    for mode, kernel, extra in (("fused", "fused_event_apply", 0),
+                                ("serial", "fasgd_update", 8)):
+        # server θ + n, b, v in bf16 (8P), the kernel's float32 copies of
+        # n, b, v, its outputs and their bf16 casts (12P + 14P + 6P), C
+        # client copies and C gradients (4CP); serial adds the round's
+        # starting state beside the running one (8P)
+        reckoned = (40 + extra + 4 * C) * P
+        label = f"(b) LM round trainer {mode}, {kernel}"
+        print(f"  {label}: {full.num_layers} layers, {P} parameters "
+              f"({full.param_dtype}); C={C}, μ={LM_MU}, S={LM_S}, fasgd "
+              f"lr={LM_LR}, c_fetch={LM_C_FETCH}; peak memory reckoned from "
+              f"the shapes: {gib(reckoned)} + activations")
+        drv = LMRoundLoop(tc, mode, full, params, data,
+                          make_eval_fn(full, *val))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        st, _, secs, launches, device = round_run(label, drv, LM_ROUNDS,
+                                                  must_fall=False)
+        peak = torch.cuda.max_memory_allocated() - base
+        c = st.counters
+        want = int(c.push_actual) if mode == "serial" else LM_ROUNDS
+        other = "fused_event_apply" if mode == "serial" else "fasgd_update"
+        if not (device[kernel] == want and device[other] == 0
+                and launches[kernel] == int(c.kernel_launches)
+                == (C if mode == "serial" else 1) * LM_ROUNDS * n_leaves):
+            fail(f"{label}: kernel launches {device}, leaf dispatches "
+                 f"{launches}, kernel_launches {int(c.kernel_launches)}, "
+                 f"pushes {int(c.push_actual)}")
+        print(f"  {label}: {kernel} launched {device[kernel]} times ("
+              + ("the pushes that reached the server" if mode == "serial"
+                 else "once a round")
+              + f"); {tokens_per_round * LM_ROUNDS / secs:.0f} tokens/s; "
+              f"peak memory {gib(peak)} above the {gib(base)} held before "
+              f"the run, the weights among them (reckoned {gib(reckoned)} "
+              f"with the weights, + activations)")
+        if mode == "serial":
+            n_fasgd += device[kernel]
+        else:
+            n_fused += device[kernel]
+        rates[label] = (LM_ROUNDS / secs, "rounds")
+        del st
+        torch.cuda.empty_cache()
+        if mode == "fused":
+            lm_kernel_on_off(drv, LM_AGREE)
+        else:
+            lm_serial_kernel_on_off(drv, LM_SERIAL_AGREE)
+        print(f"  (e) {label} under torch.cuda.set_sync_debug_mode('error'),"
+              f" then profiled:")
+        round_breakdown(re.sub(r"[^a-z0-9]+", "_", label.lower()).strip("_"),
+                        drv, 4)
+        del drv
+        torch.cuda.empty_cache()
+    del params
+
+    # (c) cotangent against materialized, float32 at a cut depth
+    cot = dataclasses.replace(full, num_layers=LM_COT_DEPTH,
+                              param_dtype="float32")
+    params = lm_params(cot, dev)
+    data = lm_tokens(cot, C * LM_MU * (LM_AGREE + 2), 3, dev)
+    eval_fn = make_eval_fn(cot, *val)
+    arms = {}
+    for fm in ("cotangent", "materialized"):
+        arms[fm] = LMRoundLoop(
+            TrainerConfig(num_round_clients=C, rule="fasgd", lr=LM_LR,
+                          c_fetch=LM_C_FETCH, drop_policy="discard",
+                          fused_mode=fm),
+            "fused", cot, params, data, eval_fn)
+    with CountCalls() as calls:
+        rounds_agree(f"(c) LM cotangent vs materialized, {LM_COT_DEPTH} "
+                     f"layers float32", arms, warm=2, rounds=LM_AGREE)
+    if calls["fused_apply_cotangent"] != 2 + LM_AGREE or calls[
+            "fused_apply"] != LM_AGREE:
+        fail(f"(c): {calls}")
+    peaks = {fm: round_peak(drv) for fm, drv in arms.items()}
+    print(f"  (c) one round's peak memory above the state: cotangent "
+          f"{gib(peaks['cotangent'])}, materialized "
+          f"{gib(peaks['materialized'])} "
+          f"({peaks['cotangent'] / peaks['materialized']:.2f}x)")
+    del arms, params
+    torch.cuda.empty_cache()
+
+    # (d) FRED on the LM at the cut depth, float32
+    cut = dataclasses.replace(cut, param_dtype=LM_FRED_DTYPE)
+    params = lm_params(cut, dev)
+    pool = lm_tokens(cut, LM_POOL, 4, dev)
+    server = lambda mode: ServerConfig(rule="fasgd", lr=LM_FRED_LR[mode],
+                                       use_fused_kernel=True)
+    fleet = dict(num_clients=4, batch_size=LM_MU, seed=0)
+    runs = (
+        ("(d) FRED LM serial, fasgd_update", SimConfig(
+            server=server("serial"), **fleet), LM_FRED_EVENTS, 40,
+         "fasgd_update"),
+        (f"(d) FRED LM fused K={LM_FRED_K}, fused_event_apply", SimConfig(
+            server=server("fused"), events_per_step=LM_FRED_K,
+            apply_mode="fused", **fleet), LM_FRED_WINDOWS * LM_FRED_K, 40,
+         "fused_event_apply"),
+    )
+    fred_loops = {}
+    for label, cfg, n, every, kernel in runs:
+        torch.cuda.reset_peak_memory_stats()
+        out, secs, launches, device = run_path(
+            label, cfg, None, params, n, every, loss=make_lm_loss(cut),
+            data=pool, eval_fn=make_eval_fn(cut, *val), must_fall=False)
+        c = out["counters"]
+        want = n // cfg.events_per_step
+        if not (device[kernel] == want == c["kernel_events"]
+                / cfg.events_per_step
+                and launches[kernel] == c["kernel_launches"]
+                == want * n_leaves):
+            fail(f"{label}: kernel launches {device}, leaf dispatches "
+                 f"{launches}, counters {c}")
+        print(f"  {label}: {kernel} launched {device[kernel]} times, one "
+              f"per {'event' if cfg.apply_mode == 'serial' else 'window'}; "
+              f"{n * cfg.batch_size * LM_S / secs:.0f} tokens/s (evaluations"
+              f" included); peak memory "
+              f"{gib(torch.cuda.max_memory_allocated())}")
+        if kernel == "fasgd_update":
+            n_fasgd += device[kernel]
+        else:
+            n_fused += device[kernel]
+        rates[label] = (n / secs, "events")
+        fred_loops[label] = cfg
+    print("  (e) each FRED loop under torch.cuda.set_sync_debug_mode('error')"
+          ", then profiled:")
+    for label, cfg in fred_loops.items():
+        breakdown(re.sub(r"[^a-z0-9]+", "_", label.lower()).strip("_"), cfg,
+                  None, params, 2 * cfg.events_per_step if cfg.apply_mode
+                  == "fused" else 4, loss=make_lm_loss(cut), data=pool)
+    ops.reset_launches()
+    print(f"  (e) rates on {smi}: " + "; ".join(
+        f"{label} {r:.2f} {unit}/s" for label, (r, unit) in rates.items()))
+    print(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+    return n_fasgd, n_fused, rates
+
+
 def main() -> int:
     """Run the phases in order; 0 when every one passed."""
     import torch
@@ -2454,6 +2999,7 @@ def main() -> int:
           f"{serving['step_ms']:.3f} ms per decode step")
     print("phase 10: where serving's time goes (torch.profiler)")
     serving_breakdown(serving)
+    del serving["params"]       # phase 15 needs the card's memory
     # --- phase 11: batched_scale_apply and its tree entry point ---
     batched = phase_batched(ops, ref, dev, flush, bw, flops)
     # --- phase 12: the rest of FRED's server ---
@@ -2473,12 +3019,15 @@ def main() -> int:
               f"{label} {r:.1f} {'rounds' if 'round' in label else 'events'}"
               f"/s" for label, r in rates14.items()))
 
+    # --- phase 15: LM training ---
+    n_fasgd15, n_fused15, _ = phase_lm_training(dev, smi)
+
     kernels = [
         dict(name="fasgd_update", route="cuda",
              source="src/repro_torch/kernels/csrc/fasgd_update.cu",
              replaces="src/repro/kernels/fasgd_update.py:50",
              launches=n_serial + n_gated + n_fasgd12 + n_fasgd13
-             + n_fasgd14,
+             + n_fasgd14 + n_fasgd15,
              max_abs_err=errs["fasgd_update"], ms=fu_ms, plain_ms=fu_plain,
              bound_ms=fu_bound,
              bound_by="bytes" if fu_bytes / bw >= fu_ops / flops
@@ -2486,7 +3035,8 @@ def main() -> int:
         dict(name="fused_event_apply", route="cuda",
              source="src/repro_torch/kernels/csrc/fused_event_apply.cu",
              replaces="src/repro/kernels/fused_event_apply.py:89",
-             launches=n_fused + n_fused12 + n_fused13 + n_fused14,
+             launches=n_fused + n_fused12 + n_fused13 + n_fused14
+             + n_fused15,
              max_abs_err=errs["fused_event_apply"],
              library_ms=None, **fused),
         dict(name="flash_attention", route="cuda",

@@ -2,7 +2,8 @@
 
 Ported from `repro.configs.base`.  `ModelConfig` is the dense decoder
 family: the fields are those the dense path reads (plus `causal` and
-`is_encoder`, which `supports_decode` and the attention masks read);
+`is_encoder`, which `supports_decode` and the attention masks read, and
+the training path's `remat` and `loss_chunk`);
 `dtype` is a `torch.dtype`.  The other families' fields (MoE, MLA, SSM,
 hybrid, the modality stubs) come with their modules: a config of another
 `arch_type` raises `NotImplementedError`.  `TrainerConfig` configures the
@@ -47,6 +48,11 @@ class ModelConfig:
     is_encoder: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    # checkpoint each layer in the train path: `transformer.loss_fn` raises
+    # NotImplementedError for it (ROADMAP.md queue 1, item 5)
+    remat: bool = False
+    loss_chunk: int = 0          # >0: compute CE in seq chunks (bounds the
+                                 # f32 [B, S, V] logits footprint)
     param_dtype: str = "float32"     # the full-size configs use bfloat16
     citation: str = ""
 

@@ -605,6 +605,24 @@ def _attention_cuda(q, k, v, causal, window, sm_scale):
     return o
 
 
+def _refuse_training(q, k, v):
+    """Raise where the flash kernel would silently cut a gradient: it is
+    launched through raw pointers, so its output has no autograd history
+    and a functorch-batched input has no pointer of its own."""
+    from torch._C._functorch import is_functorch_wrapped_tensor
+    ts = (q, k, v)
+    if any(is_functorch_wrapped_tensor(t) for t in ts):
+        raise RuntimeError(
+            "ops.attention: the flash kernel takes no torch.func-transformed "
+            "(vmapped or grad-tracked) input; the training path attends "
+            "through models.attention._sdpa")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            "ops.attention: the flash kernel has no backward, so an input "
+            "that requires grad would get none; the training path attends "
+            "through models.attention._sdpa")
+
+
 def attention(q, k, v, *, causal=True, window=0, sm_scale=None):
     """Exact GQA attention: q [B, Hq, Lq, D], k/v [B, Hkv, Lk, D] → o like q.
 
@@ -612,12 +630,17 @@ def attention(q, k, v, *, causal=True, window=0, sm_scale=None):
     Lq positions of the kv axis; a row with no visible key outputs 0;
     `sm_scale` defaults to 1/√D.  On the card the tensors may be strided
     views (permuted heads, cache slices) as long as their last dimension is
-    contiguous; the output keeps q's layout.
+    contiguous; the output keeps q's layout.  The kernel is for serving: on
+    the card an input that requires grad (with autograd recording) or is
+    transformed by `torch.func` raises `RuntimeError`.
     """
+    on_card = _device_kind(q) == "cuda"
+    if on_card:
+        _refuse_training(q, k, v)
     LAUNCHES["flash_attention"] += 1
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    if _device_kind(q) == "cpu":
+    if not on_card:
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  sm_scale=sm_scale)
     return _attention_cuda(q, k, v, causal, window, sm_scale)

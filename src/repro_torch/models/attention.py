@@ -8,21 +8,29 @@ Conventions, as in the reference:
  - when `cfg.attn_window > 0` the decode cache is a ring buffer of exactly
    `window` slots, written at pos % window.
 
-Where the reference runs its q-chunked `_sdpa` (prefill) or einsums over the
-whole cache under a validity mask (decode), the port calls `kernels.ops.
-attention`: the hand-written flash-attention kernel on the card, its plain
-version on the CPU.  It takes [B, H, L, D] tensors, so the model passes
-permuted *views* of its [B, S, H, hd] activations and cache; the kernel
-honours their strides, so nothing is transposed or copied.  Decode is the
-kernel with Lq = 1 over a view of the cache's valid slots: the query sits at
-the end of the kv axis, which is the kernel's own semantics.
+The full-sequence path the training loss differentiates (`gqa_forward`)
+runs the reference's exact, q-chunked `_sdpa` in plain PyTorch ops: scores
+and P·V in float32, masked scores set to −1e30 (a row with no visible key
+averages V uniformly), chunks of 512 queries above 512.  Autograd and
+`torch.func.vmap` go through it, and the reference trains through it too:
+neither package has a backward kernel for flash attention.
+
+Serving (prefill and decode) calls `kernels.ops.attention`: the
+hand-written flash-attention kernel on the card, its plain version on the
+CPU.  It takes [B, H, L, D] tensors, so the model passes permuted *views*
+of its [B, S, H, hd] activations and cache; the kernel honours their
+strides, so nothing is transposed or copied.  Decode is the kernel with
+Lq = 1 over a view of the cache's valid slots: the query sits at the end
+of the kv axis, which is the kernel's own semantics.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, rope
+from repro_torch.models.layers import delta_einsum, dense_init, dget, rope
+
+NEG_INF = -1e30
 
 
 def init_attention(generator, cfg, *, layers: int = 0, device=None):
@@ -36,6 +44,48 @@ def init_attention(generator, cfg, *, layers: int = 0, device=None):
         "wv": dense_init(generator, (d, Kv, hd), cfg.dtype, **kw),
         "wo": dense_init(generator, (H, hd, d), cfg.dtype, **kw),
     }
+
+
+def _sdpa(q, k, v, *, causal, window, q_offset=0, chunk=512):
+    """q: [B, S, H, hd]; k, v: [B, Sk, Kv, hd] → [B, S, H, hd] in q's dtype.
+
+    Exact softmax attention, the queries at positions q_offset .. q_offset
+    + S − 1 of the key axis, in float32; masked scores are −1e30, so a row
+    with no visible key averages every value (the flash kernel gives 0
+    there).  For S > chunk the query axis runs in chunks of `chunk` (S
+    must be a multiple of it), which bounds the scores to [chunk, Sk].
+    """
+    B, S, H, hd = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    group = H // Kv
+    scale = 1.0 / (hd ** 0.5)
+    qh = q.reshape(B, S, Kv, group, hd)
+    k32, v32 = k.float(), v.float()
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+
+    def block(q_blk, q_start):
+        c = q_blk.shape[1]
+        s = torch.einsum("bckgh,bskh->bckgs", q_blk.float(), k32) * scale
+        qpos = (q_start + q_offset
+                + torch.arange(c, device=q.device)[:, None])
+        mask = torch.ones((c, Sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window > 0:
+            mask = mask & (kpos > qpos - window)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        o = torch.einsum("bckgs,bskh->bckgh", torch.softmax(s, dim=-1), v32)
+        return o.to(q.dtype)
+
+    if S <= chunk:
+        out = block(qh, 0)
+    else:
+        if S % chunk:
+            raise ValueError(f"{S} queries do not split into chunks of "
+                             f"{chunk}")
+        out = torch.cat([block(qh[:, i:i + chunk], i)
+                         for i in range(0, S, chunk)], dim=1)
+    return out.reshape(B, S, H, hd)
 
 
 def _heads(t):
@@ -57,15 +107,26 @@ def _attend_and_project(p, cfg, q, k, v):
     return torch.einsum("bshk,hkd->bsd", _heads(o), p["wo"])
 
 
-def gqa_forward(p, cfg, x, positions):
-    """Full-sequence attention.  x: [B, S, d]; positions: [B, S]."""
-    q, k, v = _qkv(p, cfg, x, positions)
-    return _attend_and_project(p, cfg, q, k, v)
+def gqa_forward(p, cfg, x, positions, dp=None):
+    """Full-sequence attention (the training path).  x: [B, S, d];
+    positions: [B, S].
+
+    `dp` optionally carries a stale offset; the four projections then run
+    in the shared/delta split form (`delta_einsum`).  Attention is `_sdpa`,
+    never the flash kernel, which has no backward.
+    """
+    q = delta_einsum("bsd,dhk->bshk", x, p["wq"], dget(dp, "wq"))
+    k = delta_einsum("bsd,dhk->bshk", x, p["wk"], dget(dp, "wk"))
+    v = delta_einsum("bsd,dhk->bshk", x, p["wv"], dget(dp, "wv"))
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    o = _sdpa(q, k, v, causal=cfg.causal, window=cfg.attn_window)
+    return delta_einsum("bshk,hkd->bsd", o, p["wo"], dget(dp, "wo"))
 
 
 def gqa_prefill(p, cfg, x, positions):
-    """Like `gqa_forward`, and also returns the (post-RoPE) cache
-    {k, v: [B, S, Kv, hd]}."""
+    """Full-sequence attention through the flash kernel, and the
+    (post-RoPE) cache {k, v: [B, S, Kv, hd]}."""
     q, k, v = _qkv(p, cfg, x, positions)
     return _attend_and_project(p, cfg, q, k, v), {"k": k, "v": v}
 

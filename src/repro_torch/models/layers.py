@@ -5,8 +5,9 @@ tensors; initializers draw from an explicit `torch.Generator` and create
 every weight in the config's dtype.  RMSNorm and RoPE upcast to float32
 and cast back to the working dtype where the reference does, so bfloat16
 rounds at the same places.  The GEMMs stay `torch.einsum`, as the
-reference leaves them to XLA.  The stale-offset forms (`delta_einsum`,
-`dget`, `eff`) wait for the LM training slice.
+reference leaves them to XLA.  The stale-offset forms (`dget`, `eff`,
+`delta_einsum`) carry an event's offset δ = p_k − W through the training
+forward for the cotangent fused path.
 """
 from __future__ import annotations
 
@@ -14,6 +15,35 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+
+def dget(dp, key):
+    """Sub-delta lookup: `dp[key]`, passing an absent delta tree
+    through."""
+    return None if dp is None else dp[key]
+
+
+def eff(w, dw):
+    """Effective parameter `w + dw` (plain `w` when there is no delta).
+
+    For small or elementwise-consumed leaves (norm gains) the add is cheap;
+    the shared/delta GEMM split below is kept for the large contractions,
+    where a per-event [K, ...] weight gradient would hurt.
+    """
+    return w if dw is None else w + dw
+
+
+def delta_einsum(eq, x, w, dw=None):
+    """`einsum(eq, x, w)` with an optional stale offset `dw` (detached).
+
+    Split as `einsum(x, w) + einsum(x, dw)` so that the shared `w` stays
+    the differentiable operand of its GEMM: under `torch.func.vmap` with
+    `w` unbatched, the weight gradient contracts over the combined
+    event × token batch in one pass and never forms a per-event [K, ...]
+    weight gradient.  This is not `einsum(x, w + dw)` to the last bit.
+    """
+    y = torch.einsum(eq, x, w)
+    return y if dw is None else y + torch.einsum(eq, x, dw)
 
 
 def dense_init(generator: torch.Generator, shape, dtype, scale=None, *,
@@ -66,11 +96,17 @@ def init_mlp(generator, d_model: int, d_ff: int, dtype, *, layers: int = 0,
     }
 
 
-def mlp_forward(p, x):
-    """SwiGLU MLP: (silu(x·W_gate) ⊙ x·W_up)·W_down."""
-    gate = F.silu(torch.einsum("...d,df->...f", x, p["w_gate"]))
-    up = torch.einsum("...d,df->...f", x, p["w_up"])
-    return torch.einsum("...f,fd->...d", gate * up, p["w_down"])
+def mlp_forward(p, x, dp=None):
+    """SwiGLU MLP: (silu(x·W_gate) ⊙ x·W_up)·W_down.
+
+    `dp` optionally carries a stale offset (the structure of `p`); every
+    GEMM then runs in the shared/delta split form (`delta_einsum`).
+    """
+    gate = F.silu(delta_einsum("...d,df->...f", x, p["w_gate"],
+                               dget(dp, "w_gate")))
+    up = delta_einsum("...d,df->...f", x, p["w_up"], dget(dp, "w_up"))
+    return delta_einsum("...f,fd->...d", gate * up, p["w_down"],
+                        dget(dp, "w_down"))
 
 
 def init_embedding(generator, vocab: int, d_model: int, dtype, device=None):

@@ -16,7 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import mlp_forward, rms_norm
-from repro_torch.models.transformer import _embed_inputs, layer, unembed
+from repro_torch.models.transformer import _embed_inputs, layer_views, unembed
 from repro_torch.utils.device import resolve_device
 
 
@@ -71,8 +71,7 @@ def prefill(params, cfg: ModelConfig, batch):
         raise ValueError(f"{cfg.name} is encoder-only")
     x, positions = _embed_inputs(params, cfg, batch)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        lp = layer(params, i)
+    for lp in layer_views(params["layers"]):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, kv = attn.gqa_prefill(lp["attn"], cfg, h, positions)
         x = x + a
@@ -92,8 +91,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int):
     if not cfg.supports_decode():
         raise ValueError(f"{cfg.name} is encoder-only")
     x = params["embed"][token]
-    for i in range(cfg.num_layers):
-        lp = layer(params, i)
+    for i, lp in enumerate(layer_views(params["layers"])):
         kv = {"k": cache["k"][i], "v": cache["v"][i]}
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _ = attn.gqa_decode(lp["attn"], cfg, h, kv, pos)

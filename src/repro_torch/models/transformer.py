@@ -1,11 +1,21 @@
-"""The dense decoder stack: [ln→GQA→res, ln→SwiGLU→res] × L.
+"""The dense decoder stack: [ln→GQA→res, ln→SwiGLU→res] × L, and its
+training loss.
 
 Ported from `repro.models.transformer` (the dense family; the MoE, SSM,
-hybrid, audio and VLM families and the training loss wait).  Parameters are
-a plain dict of tensors with the reference's structure and its stacked
-[L, ...] layer leaves, so weights carry across one to one
+hybrid, audio and VLM families wait).  Parameters are a plain dict of
+tensors with the reference's structure and its stacked [L, ...] layer
+leaves, so weights carry across one to one
 (`utils.convert.lm_params_from_numpy`).  The reference's `lax.scan` over
-layers is a Python loop that indexes the stacked leaves (views, no copies).
+layers is a Python loop over per-layer views of the stacked leaves
+(`layer_views`), and so is its scan over the loss's sequence chunks.
+
+`deltas`, where a function takes it, is an event's stale offset
+δ = p_k − W (detached, the structure of the parameters): the forward is
+evaluated at W + δ with W the differentiable operand of every large GEMM
+and of the embedding gather (`layers.delta_einsum`), which is what
+`models.lm` maps over events for the cotangent fused path.  Everything on
+the training path is free of in-place writes, host syncs and
+data-dependent control flow, so `torch.func.vmap` and `grad` go through it.
 """
 from __future__ import annotations
 
@@ -15,10 +25,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (dense_init, init_embedding, init_mlp,
-                                       mlp_forward, rms_norm)
+from repro_torch.models.layers import (delta_einsum, dense_init, dget, eff,
+                                       init_embedding, init_mlp, mlp_forward,
+                                       rms_norm)
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.trees import tree_map
+from repro_torch.utils.trees import leaves, unflatten
 
 
 def init_model(generator: torch.Generator, cfg: ModelConfig, device=None):
@@ -44,22 +55,46 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, device=None):
     return params
 
 
-def layer(params, i: int):
-    """Layer `i`'s parameters: views into the stacked [L, ...] leaves."""
-    return tree_map(lambda t: t[i], params["layers"])
+def _attn_block(lp, cfg, x, positions, dl=None):
+    h = rms_norm(x, eff(lp["ln1"], dget(dl, "ln1")), cfg.norm_eps)
+    x = x + attn.gqa_forward(lp["attn"], cfg, h, positions,
+                             dp=dget(dl, "attn"))
+    h = rms_norm(x, eff(lp["ln2"], dget(dl, "ln2")), cfg.norm_eps)
+    return x + mlp_forward(lp["mlp"], h, dp=dget(dl, "mlp"))
 
 
-def _attn_block(lp, cfg, x, positions):
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    x = x + attn.gqa_forward(lp["attn"], cfg, h, positions)
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_forward(lp["mlp"], h)
+def layer_views(tree):
+    """Each layer's tree of the stacked [L, ...] leaves (views), from one
+    `unbind` per leaf.  On the training path its backward stacks the L
+    layer gradients once, where indexing one layer at a time would give
+    each leaf L full-size zero-filled gradients to add: O(L²) traffic."""
+    cols = [leaf.unbind(0) for leaf in leaves(tree)]
+    return [unflatten(tree, [c[i] for c in cols])
+            for i in range(len(cols[0]))]
 
 
-def _embed_inputs(params, cfg, batch):
-    """→ (x [B, S, d], positions [B, S]) for a batch of `tokens` [B, S]."""
+def _run_stack(params, cfg, x, positions, deltas=None):
+    """The layers over x [B, S, d] → (x, moe_aux).  The dense family has no
+    MoE, so moe_aux is 0.0, as in the reference."""
+    lps = layer_views(params["layers"])
+    dls = ([None] * len(lps) if deltas is None
+           else layer_views(deltas["layers"]))
+    for lp, dl in zip(lps, dls):
+        x = _attn_block(lp, cfg, x, positions, dl)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _embed_inputs(params, cfg, batch, deltas=None):
+    """→ (x [B, S, d], positions [B, S]) for a batch of `tokens` [B, S].
+
+    Under `deltas` the gather stays split, `W[tokens] + δ[tokens]`: the
+    backward of a gather from the shared W is one scatter-add over the
+    combined event × token batch, never a per-event [K, V, d] gradient.
+    """
     tokens = batch["tokens"]
     x = params["embed"][tokens]
+    if deltas is not None:
+        x = x + deltas["embed"][tokens]
     B, S = tokens.shape
     pos = torch.arange(S, device=tokens.device).expand(B, S)
     return x, pos
@@ -71,22 +106,82 @@ def mask_vocab_pad(cfg: ModelConfig, logits):
     if cfg.padded_vocab == cfg.vocab_size:
         return logits
     pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
-    return torch.where(pad, torch.tensor(-1e30, dtype=logits.dtype,
-                                         device=logits.device), logits)
+    return logits.masked_fill(pad, -1e30)
+
+
+def _final_norm(params, cfg, x, deltas=None):
+    return rms_norm(x, eff(params["final_norm"],
+                           dget(deltas, "final_norm")), cfg.norm_eps)
+
+
+def _logits(params, cfg, x, deltas=None):
+    """x [B, S, d] (normed) → masked logits [B, S, V] in x's dtype."""
+    return mask_vocab_pad(cfg, delta_einsum(
+        "bsd,dv->bsv", x, params["unembed"], dget(deltas, "unembed")))
 
 
 def unembed(params, cfg, x):
     """Final norm and unembedding: x [B, S, d] → masked logits [B, S, V]."""
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,dv->bsv", x, params["unembed"])
-    return mask_vocab_pad(cfg, logits)
+    return _logits(params, cfg, _final_norm(params, cfg, x))
 
 
-def forward(params, cfg: ModelConfig, batch):
-    """Full-sequence forward → (logits [B, S, V], moe_aux).  The dense
-    family has no MoE, so moe_aux is 0.0, as in the reference."""
-    x, positions = _embed_inputs(params, cfg, batch)
-    for i in range(cfg.num_layers):
-        x = _attn_block(layer(params, i), cfg, x, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return unembed(params, cfg, x), aux
+def forward(params, cfg: ModelConfig, batch, deltas=None):
+    """Full-sequence forward → (logits [B, S, V], moe_aux)."""
+    x, positions = _embed_inputs(params, cfg, batch, deltas)
+    x, aux = _run_stack(params, cfg, x, positions, deltas)
+    x = _final_norm(params, cfg, x, deltas)
+    return _logits(params, cfg, x, deltas), aux
+
+
+def _nll_sum(params, cfg, x, targets, deltas=None):
+    """Σ of the token NLLs of x [B, c, d] (normed) against `targets` [B, c],
+    the logits in float32."""
+    logits = mask_vocab_pad(cfg, delta_einsum(
+        "bsd,dv->bsv", x, params["unembed"],
+        dget(deltas, "unembed")).float())
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets[..., None].long())[..., 0].sum()
+
+
+def _ce_dense(params, cfg, x, targets, deltas=None):
+    """Mean token cross-entropy over [B, S] from one [B, S, V] float32
+    logits tensor."""
+    return _nll_sum(params, cfg, x, targets, deltas) / targets.numel()
+
+
+def _ce_chunked(params, cfg, x, targets, deltas=None):
+    """Mean token cross-entropy in chunks of `cfg.loss_chunk` positions, so
+    that the float32 logits are [B, chunk, V] at a time (a Python loop
+    where the reference scans; its per-chunk checkpoint is not taken, as
+    `torch.utils.checkpoint` does not run under `torch.func`)."""
+    c = cfg.loss_chunk
+    total = sum(_nll_sum(params, cfg, x[:, i:i + c], targets[:, i:i + c],
+                         deltas) for i in range(0, x.shape[1], c))
+    return total / targets.numel()
+
+
+def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01,
+            deltas=None):
+    """Cross-entropy (+ the MoE aux term, 0 for the dense family) →
+    (loss, {"ce", "moe_aux"}), for a batch of `tokens` and `targets`
+    [B, S].
+
+    With `deltas` the forward is evaluated at the stale point W + δ in the
+    shared/delta split form (see the module docstring).  `cfg.remat` raises
+    `NotImplementedError`: activation checkpointing does not run under
+    `torch.func.vmap(grad)` (its saved-tensor hooks are refused there).
+    """
+    if cfg.remat:
+        raise NotImplementedError(
+            f"{cfg.name}: remat=True needs activation checkpointing under "
+            f"torch.func.vmap(grad), which torch.utils.checkpoint does not "
+            f"support (ROADMAP.md queue 1, item 5); use remat=False")
+    x, positions = _embed_inputs(params, cfg, batch, deltas)
+    x, aux = _run_stack(params, cfg, x, positions, deltas)
+    x = _final_norm(params, cfg, x, deltas)
+    targets = batch["targets"]
+    if cfg.loss_chunk and x.shape[1] % cfg.loss_chunk == 0:
+        ce = _ce_chunked(params, cfg, x, targets, deltas)
+    else:
+        ce = _ce_dense(params, cfg, x, targets, deltas)
+    return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
