@@ -2,7 +2,8 @@
 
 Ported from `repro.configs`: one module per architecture, each exporting
 FULL (the published configuration, bfloat16) and SMOKE (2 layers, d_model
-256, float32, for the CPU tests).  Only the dense family is ported; the
+256, float32, for the CPU tests).  The dense decoders, the audio encoder
+(hubert-xlarge) and the VLM (phi-3-vision-4.2b) are ported; the
 reference's other architectures raise `NotImplementedError`, naming what
 they still need.
 """
@@ -13,15 +14,14 @@ import importlib
 
 from repro_torch.configs.base import NOT_PORTED, ModelConfig
 
-ARCH_NAMES = ["tinyllama-1.1b", "llama3-8b", "yi-9b", "yi-34b"]
+ARCH_NAMES = ["phi-3-vision-4.2b", "hubert-xlarge", "tinyllama-1.1b",
+              "llama3-8b", "yi-34b", "yi-9b"]
 
 # the reference's other architectures, by the families they wait for
 NOT_PORTED_ARCHS = {
-    "phi-3-vision-4.2b": ("vlm",),
     "grok-1-314b": ("moe",),
     "mamba2-1.3b": ("ssm",),
     "zamba2-7b": ("hybrid",),
-    "hubert-xlarge": ("audio",),
     "deepseek-v2-236b": ("moe", "mla"),
 }
 

@@ -1,11 +1,12 @@
 """Model and trainer configuration.
 
-Ported from `repro.configs.base`.  `ModelConfig` is the dense decoder
-family: the fields are those the dense path reads (plus `causal` and
-`is_encoder`, which `supports_decode` and the attention masks read, and
-the training path's `remat` and `loss_chunk`);
-`dtype` is a `torch.dtype`.  The other families' fields (MoE, MLA, SSM,
-hybrid, the modality stubs) come with their modules: a config of another
+Ported from `repro.configs.base`.  `ModelConfig` covers the dense
+decoders and the two modality families built on them, the audio encoder
+and the VLM: the fields are those these paths read (`causal` and
+`is_encoder`, which `supports_decode` and the attention masks read, the
+modality stubs' input widths, and the training path's `remat` and
+`loss_chunk`); `dtype` is a `torch.dtype`.  The other families' fields
+(MoE, MLA, SSM, hybrid) come with their modules: a config of another
 `arch_type` raises `NotImplementedError`.  `TrainerConfig` configures the
 round trainer (`core.round_trainer`), with every field of the reference.
 """
@@ -26,16 +27,17 @@ NOT_PORTED = {
     "ssm": "the Mamba2 mixer (models/ssm.py)",
     "hybrid": "the Mamba2 mixer and the shared attention block "
               "(models/ssm.py, the hybrid stack of models/transformer.py)",
-    "audio": "the audio encoder (frame projection, bidirectional stack)",
-    "vlm": "the vision stub (image projection, image-token inputs)",
 }
+PORTED_ARCH_TYPES = ("dense", "audio", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One dense GQA decoder: [ln→GQA→res, ln→SwiGLU→res] × L."""
+    """One GQA stack, [ln→GQA→res, ln→SwiGLU→res] × L: a dense decoder,
+    an audio encoder over frame embeddings or a VLM decoder over image
+    and text tokens."""
     name: str
-    arch_type: str               # only "dense" is ported
+    arch_type: str               # dense | audio | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -45,7 +47,11 @@ class ModelConfig:
     head_dim: int = 0            # 0 → d_model // num_heads
     attn_window: int = 0         # 0 = full attention; >0 = sliding window
     causal: bool = True
-    is_encoder: bool = False
+    is_encoder: bool = False     # hubert: bidirectional, no decode step
+    # modality stubs
+    num_image_tokens: int = 0    # vlm: patch embeddings prepended to text
+    image_embed_dim: int = 0
+    frame_embed_dim: int = 0     # audio: precomputed frame embeddings
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     # checkpoint each layer in the train path: `transformer.loss_fn` raises
@@ -57,7 +63,7 @@ class ModelConfig:
     citation: str = ""
 
     def __post_init__(self):
-        if self.arch_type != "dense":
+        if self.arch_type not in PORTED_ARCH_TYPES:
             missing = NOT_PORTED.get(self.arch_type, "an unknown family")
             raise NotImplementedError(
                 f"{self.name}: arch_type {self.arch_type!r} is not ported "

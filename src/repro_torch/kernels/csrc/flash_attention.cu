@@ -45,8 +45,12 @@
 //   log2 units; masks only on the tiles at a mask's edge, a
 //   warpgroup-uniform branch); O += P·V is `wgmma` m64nDk16 with P from
 //   registers and V from shared memory through the transpose bit (V is
-//   MN-major as it lies).  D = 32 is padded to 64 with zero columns in
-//   shared memory; D = 128 is two 64-column halves.
+//   MN-major as it lies).  The head dim is padded in shared memory to DP,
+//   the next multiple of 64 (64 for D = 32 and 64; two 64-column halves
+//   for D = 80, 96 and 128), with zero columns that no copy writes: S runs
+//   D/16 k16 steps over the real columns only, P·V runs at nDP and only
+//   D output columns are stored.  The padding lives in shared memory, so
+//   the host passes its views as they are (no pad copy per call).
 //   Why P is split: the plain version, like the TPU kernel, keeps P in fp32
 //   through P·V, and bf16 outputs are held within one bf16 ulp of it.  P
 //   rounded once to bf16 misses that by up to ~80x on near-zero outputs, so
@@ -75,8 +79,9 @@
 //   coalesced 16-byte `cp.async` copies, a thread takes its key's K row in
 //   16-byte reads and computes that key's score for every (q head, query)
 //   row; the rows' max, exponentials and sums are then taken once per key,
-//   by a warp per row, and P·V runs with threads owning (row, 4 dims).  The
-//   keys are split across blocks (flash-decoding: at the main path's shape
+//   by a warp per row, and P·V runs with threads owning (row, 4 dims), D/4
+//   threads a row (for D = 80 and 96 the block's last 8 threads own none).
+//   The keys are split across blocks (flash-decoding: at the main path's shape
 //   B·Hkv = 16 groups for 132 SMs) into whole 128-key chunks, about two
 //   blocks per SM; each split writes its (m, l, acc) to a scratch buffer
 //   the wrapper allocates, and the merge launch rescales and sums them in
@@ -310,8 +315,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 // swizzle, which the wgmma descriptors below name with layout type 1).
 template <int D>
 struct WgLayout {
-  static constexpr int DP = D < 64 ? 64 : D;   // padded head dim
+  static_assert(D % 16 == 0 && D <= 128, "head dim: a multiple of 16, <= 128");
+  static constexpr int DP = (D + 63) / 64 * 64;  // padded head dim: 64 or 128
   static constexpr int NH = DP / 64;           // 64-column halves
+  static constexpr int KS = D / 16;            // k16 steps of S = Q·Kᵀ
   static constexpr int Q_HALF = kWgBQ * kSwRow;
   static constexpr int KV_HALF = kBK * kSwRow;
   static constexpr int Q_BYTES = NH * Q_HALF;
@@ -539,7 +546,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q_offset = p.Lk - p.Lq;
   bf16* op = o + b * p.o.b + h * p.o.h;
 
-  if (D < 64) {  // the padding columns stay zero: no copy writes them
+  if (D != L::DP) {  // the padding columns stay zero: no copy writes them
     for (int i = tid; i < L::USED / 16; i += kWgThreads)
       reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
@@ -619,7 +626,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 32; ++i) s[i] = 0.0f;
     wg_fence();
 #pragma unroll
-    for (int ks = 0; ks < L::DP / 16; ++ks) {
+    for (int ks = 0; ks < L::KS; ++ks) {  // the real columns only
       const uint64_t da =
           wg_desc(Qw + (ks >> 2) * L::Q_HALF + (ks & 3) * 32, 16, 1024);
       const uint64_t db =
@@ -857,7 +864,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int PER = 16 / static_cast<int>(sizeof(T));
   constexpr int TPR = D / 4;               // threads per output row
   constexpr int RP = kDecThreads / TPR;    // output rows per pass
-  constexpr int NI = kDecOut / D / RP;     // passes: 8
+  constexpr int NI = (kDecOut / D + RP - 1) / RP;  // passes: 8, or 9 for
+                                                   // D = 80 and 96
   extern __shared__ float4 dsm4[];
 
   const int split = blockIdx.x;
@@ -898,7 +906,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     ls[r] = 0.0f;
   }
   const int rq = tid / TPR, d0 = (tid % TPR) * 4;
-  const int ni = rq < R ? (R - rq + RP - 1) / RP : 0;  // this thread's rows
+  // this thread's rows; where TPR does not divide the block, the threads
+  // past RP·TPR own none
+  const int ni = rq < RP && rq < R ? (R - rq + RP - 1) / RP : 0;
   float acc[NI][4];
 #pragma unroll
   for (int i = 0; i < NI; ++i)
@@ -1143,6 +1153,8 @@ cudaError_t launch_dim(int head_dim, const void* q, const void* k,
   switch (head_dim) {
     case 32: return launch<T, 32>(q, k, v, o, scratch, scratch_floats, p, stream);
     case 64: return launch<T, 64>(q, k, v, o, scratch, scratch_floats, p, stream);
+    case 80: return launch<T, 80>(q, k, v, o, scratch, scratch_floats, p, stream);
+    case 96: return launch<T, 96>(q, k, v, o, scratch, scratch_floats, p, stream);
     case 128: return launch<T, 128>(q, k, v, o, scratch, scratch_floats, p, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -1160,7 +1172,7 @@ bool aligned16(const void* ptr, const int64_t* strides, int esize) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike); head_dim in
-// {32, 64, 128}.  `strides` (host memory) holds the batch, head and sequence
+// {32, 64, 80, 96, 128}.  `strides` (host memory) holds the batch, head and sequence
 // element strides of q, k, v and o, in that order (12 values).  Decode
 // (Lq <= 16) writes per-split partials to `scratch`, a float32 device buffer
 // of `scratch_floats` >= B·Hq·Lq·32·(head_dim + 2), which a second launch

@@ -1,15 +1,21 @@
 """LM serving: batched prefill, then token-by-token decode.
 
-Ported from `repro.launch.serve` (dense decoders):
+Ported from `repro.launch.serve` (the dense decoders and the VLM):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --batch 4 --prompt-len 2048 --gen 32 --temperature 0
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch phi-3-vision-4.2b --batch 4 --prompt-len 2048 --gen 32
 
 It runs on the card unless given ``--device cpu`` (use ``--smoke`` there:
 the reduced configuration).  Weights are random, from ``--seed``, at the
-reference's scales; prompts are uniform random tokens from ``--seed + 1``.
-Prints prefill and decode tokens/s.  `serve` is the loop itself, for
-callers that bring their own weights and prompts.
+reference's scales; prompts are uniform random tokens from ``--seed + 1``
+(`models.api.make_batch`: for the VLM ``--prompt-len`` counts its image
+tokens, whose embeddings are random too).  Prints prefill and decode
+tokens/s.  An encoder (hubert-xlarge) has no decode step and is refused,
+as the reference refuses it; `models.serving.encode` is its inference
+entry point.  `serve` is the loop itself, for callers that bring their
+own weights and prompts.
 """
 from __future__ import annotations
 
@@ -43,8 +49,11 @@ def _next_token(logits, temperature: float, generator):
 
 
 def serve(cfg: ModelConfig, params, tokens, gen: int, *,
-          temperature: float = 0.0, seed: int = 0, device=None):
-    """Prefill `tokens` [B, S], then generate `gen` tokens per row.
+          temperature: float = 0.0, seed: int = 0, device=None,
+          image_embeds=None):
+    """Prefill `tokens` [B, S_text] (after `image_embeds` [B, P, F] for the
+    VLM, S = P + S_text positions in all), then generate `gen` tokens per
+    row.
 
     The prefill's cache grows to S + gen slots (`grow_cache`), then gen − 1
     decode steps follow (the first token comes from the prefill's logits).
@@ -58,16 +67,24 @@ def serve(cfg: ModelConfig, params, tokens, gen: int, *,
     device = resolve_device(device)
     if gen < 1:
         raise ValueError(f"gen must be at least 1, got {gen}")
+    if not cfg.supports_decode():
+        raise ValueError(f"{cfg.name} is encoder-only: it has no decode "
+                         f"step (models.serving.encode runs it)")
+    if (image_embeds is not None) != (cfg.arch_type == "vlm"):
+        raise ValueError(f"{cfg.name}: image_embeds go with a VLM, and a "
+                         f"VLM needs them")
     for t in leaves(params):
         if t.device.type != device.type:
             raise ValueError(f"params are on {t.device}, serving on {device}")
-    tokens = tokens.to(device)
-    B, S = tokens.shape
+    batch = {"tokens": tokens.to(device)}
+    if image_embeds is not None:
+        batch["image_embeds"] = image_embeds.to(device)
     generator = torch.Generator(device=device).manual_seed(seed)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, cfg, {"tokens": tokens})
+    logits, cache = prefill(params, cfg, batch)
+    S = logits.shape[1]
     tok = _next_token(logits, temperature, generator)
     _sync(device)
     prefill_s = time.perf_counter() - t0
@@ -102,6 +119,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if not cfg.supports_decode():
+        ap.error(f"{cfg.name} is encoder-only: it has no decode step")
     device = resolve_device(args.device)
     params = init_model(torch.Generator(device=device).manual_seed(args.seed),
                         cfg, device=device)
@@ -112,7 +131,7 @@ def main(argv=None):
         args.seed + 1))
     res = serve(cfg, params, batch["tokens"], args.gen,
                 temperature=args.temperature, seed=args.seed + 2,
-                device=device)
+                device=device, image_embeds=batch.get("image_embeds"))
     print(f"  prefill: {B * S} tokens in {res['prefill_s']:.3f}s "
           f"({B * S / res['prefill_s']:.0f} tok/s)")
     n_dec = B * (args.gen - 1)

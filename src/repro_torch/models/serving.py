@@ -1,6 +1,11 @@
-"""Serving runtime: prefill (full sequence → cache) and single-token decode.
+"""Serving runtime: prefill (full sequence → cache) and single-token decode
+for the decoders, and `encode`, the encoder's full-sequence inference.
 
-Ported from `repro.models.serving` (the dense GQA branch).  The cache is
+Ported from `repro.models.serving` (the GQA branch, the dense decoders and
+the VLM) and from the encoder branch of `repro.launch.steps.
+make_prefill_step`.  A VLM prefill takes the image embeddings with its
+prompt tokens; decode then continues the text at positions P + S_text + i.
+The cache is
 {"k": [L, B, W, Kv, hd], "v": ...} with W = attn_window when set (a ring
 buffer) else the longest sequence served; keys are stored post-RoPE.
 
@@ -62,13 +67,10 @@ def grow_cache(cfg: ModelConfig, cache, max_seq: int):
     return out
 
 
-def prefill(params, cfg: ModelConfig, batch):
-    """Full-sequence forward that also builds the cache.
-
-    Returns (logits [B, S, V], cache {k, v: [L, B, S, Kv, hd]}).
-    """
-    if not cfg.supports_decode():
-        raise ValueError(f"{cfg.name} is encoder-only")
+def _serve_stack(params, cfg, batch, keep_cache):
+    """The layers over the embedded batch with attention through
+    `ops.attention` (the flash kernel on the card) → (logits [B, S, V],
+    the per-layer post-RoPE keys and values if `keep_cache`)."""
     x, positions = _embed_inputs(params, cfg, batch)
     ks, vs = [], []
     for lp in layer_views(params["layers"]):
@@ -76,10 +78,35 @@ def prefill(params, cfg: ModelConfig, batch):
         a, kv = attn.gqa_prefill(lp["attn"], cfg, h, positions)
         x = x + a
         x = x + mlp_forward(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
-        ks.append(kv["k"])
-        vs.append(kv["v"])
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
-    return unembed(params, cfg, x), cache
+        if keep_cache:
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+    return unembed(params, cfg, x), (ks, vs)
+
+
+def prefill(params, cfg: ModelConfig, batch):
+    """Full-sequence forward that also builds the cache: `batch` holds
+    `tokens` [B, S], and for the VLM `image_embeds` [B, P, F] before them.
+
+    Returns (logits [B, S, V], cache {k, v: [L, B, S, Kv, hd]}), S counting
+    the image tokens.
+    """
+    if not cfg.supports_decode():
+        raise ValueError(f"{cfg.name} is encoder-only")
+    logits, (ks, vs) = _serve_stack(params, cfg, batch, True)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def encode(params, cfg: ModelConfig, batch):
+    """The encoder's inference forward: `frames` [B, S, F] → logits
+    [B, S, V], each layer's attention through `ops.attention` with the
+    config's mask (bidirectional for hubert), no cache.  A bidirectional
+    row sees every key, so the kernel and the training path's `_sdpa`
+    compute the same attention.  Raises for a decoder (use `prefill`)."""
+    if cfg.supports_decode():
+        raise ValueError(f"{cfg.name} is a decoder: serve it with prefill "
+                         f"and decode_step")
+    return _serve_stack(params, cfg, batch, False)[0]
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos: int):

@@ -1,8 +1,15 @@
-"""The dense decoder stack: [ln→GQA→res, ln→SwiGLU→res] × L, and its
-training loss.
+"""The GQA stack, [ln→GQA→res, ln→SwiGLU→res] × L, and its training loss,
+for three families:
+ - dense (tinyllama / llama3 / yi): a causal decoder over tokens;
+ - audio (hubert): a bidirectional encoder over precomputed frame
+   embeddings (`frame_proj`; the conv frontend is a stub, as in the
+   reference);
+ - vlm (phi-3-vision): a causal decoder over projected patch embeddings
+   (`img_proj`; the vision tower is a stub) followed by text tokens, its
+   loss over the text positions only.
 
-Ported from `repro.models.transformer` (the dense family; the MoE, SSM,
-hybrid, audio and VLM families wait).  Parameters are a plain dict of
+Ported from `repro.models.transformer` (the MoE, SSM and hybrid families
+wait).  Parameters are a plain dict of
 tensors with the reference's structure and its stacked [L, ...] layer
 leaves, so weights carry across one to one
 (`utils.convert.lm_params_from_numpy`).  The reference's `lax.scan` over
@@ -52,6 +59,14 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, device=None):
         "ln2": torch.ones(L, d, dtype=dt, device=device),
         "mlp": init_mlp(generator, d, cfg.d_ff, dt, layers=L, **kw),
     }
+    # the modality stubs' input projections, drawn after the layers so that
+    # the dense family's draws are those it always had
+    if cfg.arch_type == "vlm":
+        params["img_proj"] = dense_init(generator, (cfg.image_embed_dim, d),
+                                        dt, **kw)
+    if cfg.arch_type == "audio":
+        params["frame_proj"] = dense_init(generator, (cfg.frame_embed_dim, d),
+                                          dt, **kw)
     return params
 
 
@@ -74,7 +89,7 @@ def layer_views(tree):
 
 
 def _run_stack(params, cfg, x, positions, deltas=None):
-    """The layers over x [B, S, d] → (x, moe_aux).  The dense family has no
+    """The layers over x [B, S, d] → (x, moe_aux).  These families have no
     MoE, so moe_aux is 0.0, as in the reference."""
     lps = layer_views(params["layers"])
     dls = ([None] * len(lps) if deltas is None
@@ -85,18 +100,30 @@ def _run_stack(params, cfg, x, positions, deltas=None):
 
 
 def _embed_inputs(params, cfg, batch, deltas=None):
-    """→ (x [B, S, d], positions [B, S]) for a batch of `tokens` [B, S].
+    """→ (x [B, S, d], positions [B, S]) for the family's batch:
+    `tokens` [B, S] (dense); `frames` [B, S, F] through `frame_proj`
+    (audio); `image_embeds` [B, P, F] through `img_proj`, then `tokens`
+    [B, S_text], at positions 0 .. P + S_text − 1 (vlm).
 
     Under `deltas` the gather stays split, `W[tokens] + δ[tokens]`: the
     backward of a gather from the shared W is one scatter-add over the
-    combined event × token batch, never a per-event [K, V, d] gradient.
+    combined event × token batch, never a per-event [K, V, d] gradient;
+    the projections are `delta_einsum`s.
     """
-    tokens = batch["tokens"]
-    x = params["embed"][tokens]
-    if deltas is not None:
-        x = x + deltas["embed"][tokens]
-    B, S = tokens.shape
-    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    if cfg.arch_type == "audio":
+        x = delta_einsum("bsf,fd->bsd", batch["frames"], params["frame_proj"],
+                         dget(deltas, "frame_proj"))
+    else:
+        tokens = batch["tokens"]
+        x = params["embed"][tokens]
+        if deltas is not None:
+            x = x + deltas["embed"][tokens]
+        if cfg.arch_type == "vlm":
+            img = delta_einsum("bpf,fd->bpd", batch["image_embeds"],
+                               params["img_proj"], dget(deltas, "img_proj"))
+            x = torch.cat([img, x], dim=1)
+    B, S = x.shape[:2]
+    pos = torch.arange(S, device=x.device).expand(B, S)
     return x, pos
 
 
@@ -162,9 +189,11 @@ def _ce_chunked(params, cfg, x, targets, deltas=None):
 
 def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01,
             deltas=None):
-    """Cross-entropy (+ the MoE aux term, 0 for the dense family) →
-    (loss, {"ce", "moe_aux"}), for a batch of `tokens` and `targets`
-    [B, S].
+    """Cross-entropy (+ the MoE aux term, 0 for these families) →
+    (loss, {"ce", "moe_aux"}), for the family's batch (`_embed_inputs`)
+    and its `targets`: [B, S], or [B, S_text] for the VLM, whose image
+    positions carry no targets, so its loss is over the text positions
+    only.
 
     With `deltas` the forward is evaluated at the stale point W + δ in the
     shared/delta split form (see the module docstring).  `cfg.remat` raises
@@ -180,6 +209,8 @@ def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01,
     x, aux = _run_stack(params, cfg, x, positions, deltas)
     x = _final_norm(params, cfg, x, deltas)
     targets = batch["targets"]
+    if cfg.arch_type == "vlm":
+        x = x[:, batch["image_embeds"].shape[1]:]
     if cfg.loss_chunk and x.shape[1] % cfg.loss_chunk == 0:
         ce = _ce_chunked(params, cfg, x, targets, deltas)
     else:

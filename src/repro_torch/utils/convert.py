@@ -30,6 +30,8 @@ def _tensor(a, device):
 
 
 LM_KEYS = {"embed", "final_norm", "unembed", "layers"}
+# the modality stubs' input projections: the VLM's and the audio encoder's
+LM_OPTIONAL_KEYS = ({"img_proj"}, {"frame_proj"})
 LM_LAYER_KEYS = {"ln1", "attn", "ln2", "mlp"}
 
 
@@ -132,7 +134,10 @@ def to_numpy(tree):
 
 
 def _check_lm(params):
-    if set(params) != LM_KEYS or set(params["layers"]) != LM_LAYER_KEYS:
+    extra = set(params) - LM_KEYS
+    if (not LM_KEYS <= set(params)
+            or (extra and extra not in LM_OPTIONAL_KEYS)
+            or set(params["layers"]) != LM_LAYER_KEYS):
         raise ValueError(f"not a dense LM parameter tree: keys "
                          f"{sorted(params)} / layers "
                          f"{sorted(params.get('layers', {}))}")
@@ -140,7 +145,8 @@ def _check_lm(params):
 
 def lm_params_from_numpy(params, device=None):
     """A dense LM's parameters (numpy, the JAX package's structure with
-    stacked [L, ...] layer leaves) as tensors on `device` (the card unless
+    stacked [L, ...] layer leaves; the VLM's `img_proj` or the audio
+    encoder's `frame_proj` besides) as tensors on `device` (the card unless
     the caller passes another), dtypes kept, bfloat16 included."""
     _check_lm(params)
     return params_from_numpy(params, device)

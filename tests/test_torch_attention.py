@@ -7,7 +7,9 @@ card.  Here it is held against the JAX package's Pallas kernel, run in
 interpret mode as `tests/test_kernels_flash.py` runs it, and against the JAX
 `attention_ref`, over that file's sweep: causal square L ∈ {128, 200
 (ragged), 256}, GQA (8,2) / (8,1) / (4,4), windows {64, 200}, non-causal,
-Lq < Lk, D ∈ {64, 128}, fp32 and bf16.  Inputs come from numpy, seeded.
+Lq < Lk, D ∈ {64, 128}, fp32 and bf16; and at the head dims the kernel pads
+in shared memory, D ∈ {80, 96} (hubert-xlarge, phi-3-vision-4.2b), causal
+and not, prefill and decode shapes.  Inputs come from numpy, seeded.
 
 Tolerances:
 - fp32: atol 1e-5 / rtol 1e-5 against both.  All three take exact softmax
@@ -101,6 +103,33 @@ def test_head_dims(D):
     _run(_qkv(1, 2, 2, 128, 128, D, seed=6))
 
 
+PADDED_DIMS = [(D, dt, causal) for D in (80, 96)
+               for dt in ("float32", "bfloat16") for causal in (True, False)]
+
+
+@pytest.mark.parametrize("D,dtype,causal", PADDED_DIMS,
+                         ids=[f"D{D}-{dt}-{'causal' if c else 'bidir'}"
+                              for D, dt, c in PADDED_DIMS])
+def test_padded_head_dims(D, dtype, causal):
+    """D = 80 (hubert-xlarge) and 96 (phi-3-vision-4.2b): MHA over a
+    ragged L = 136 and a GQA decode query, the scale 1/√D of the true D."""
+    _run(_qkv(1, 4, 4, 136, 136, D, seed=D), dtype, causal=causal)
+    _run(_qkv(2, 8, 2, 1, 150, D, seed=D + 1), dtype, causal=causal)
+
+
+@pytest.mark.parametrize("D", [48, 112, 160])
+def test_the_card_refuses_other_head_dims(monkeypatch, D):
+    """On the card `ops.attention` takes D in {32, 64, 80, 96, 128} and
+    raises for any other, before a launch and with no fallback to the
+    plain version (the card's branch is taken with `_device_kind`
+    monkeypatched, as `tests/test_torch_lm_training.py` does)."""
+    monkeypatch.setattr(ops, "_device_kind", lambda t: "cuda")
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 2, 8, 8, D, seed=D))
+    with pytest.raises(ValueError, match=f"head dim {D} not in"):
+        ops.attention(q, k, v)
+    assert ops._HEAD_DIMS == (32, 64, 80, 96, 128)
+
+
 def test_decode_shape_window_bf16():
     """Lq = 1 over a ragged kv axis (the decode call), windowed, bf16."""
     _run(_qkv(2, 8, 2, 1, 200, 64, seed=7), "bfloat16", window=64)
@@ -152,21 +181,31 @@ def _bf16_trunc(x):
     return (x.view(torch.int32) & -65536).view(torch.float32)
 
 
-def _tensor_core_emulation(q, k, v, *, causal, window, split, tile=64):
+def _tensor_core_emulation(q, k, v, *, causal, window, split, tile=64,
+                           scale_dim=None):
     """What `flash_wgmma_kernel` computes, in torch on the CPU: bf16 inputs
     (given as their fp32 values), fp32 scores, an online softmax over
     64-key tiles in log2 units, P either split into P_hi = trunc_bf16(P)
     and P_lo = bf16(P - P_hi) (`split`) or rounded once to bf16, both
-    products accumulated in fp32, one division by l, one rounding to bf16."""
+    products accumulated in fp32, one division by l, one rounding to bf16.
+
+    A head dim D that is no multiple of 64 lies in shared memory padded
+    with zero columns to DP = 128: S = Q·Kᵀ runs D/16 k16 steps over the
+    real columns, P·V runs over all DP columns of V, and only the first D
+    output columns are stored (the rest come out 0, which is checked).
+    The scale is 1/√D of the true D (`scale_dim` overrides it, to show the
+    check bites)."""
     B, Hq, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
+    DP = -(-D // 64) * 64
+    pad = lambda t: torch.nn.functional.pad(t, (0, DP - D))
     kk = torch.repeat_interleave(k, Hq // Hkv, dim=1)
-    vv = torch.repeat_interleave(v, Hq // Hkv, dim=1)
-    sl2 = (1.0 / D ** 0.5) * 1.4426950408889634
+    vv = pad(torch.repeat_interleave(v, Hq // Hkv, dim=1))
+    sl2 = (1.0 / (scale_dim or D) ** 0.5) * 1.4426950408889634
     qpos = torch.arange(Lq)[:, None] + (Lk - Lq)
     m = torch.full((B, Hq, Lq, 1), -1e30)
     l = torch.zeros((B, Hq, Lq, 1))
-    acc = torch.zeros((B, Hq, Lq, D))
+    acc = torch.zeros((B, Hq, Lq, DP))
     for kb in range(0, Lk, tile):
         kpos = torch.arange(kb, min(kb + tile, Lk))[None, :]
         vis = torch.ones((Lq, kpos.shape[1]), dtype=torch.bool)
@@ -189,7 +228,8 @@ def _tensor_core_emulation(q, k, v, *, causal, window, split, tile=64):
         m = m_new
     out = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0),
                       torch.tensor(0.0))
-    return _bf16_round(out)
+    assert not out[..., D:].any()          # V's zero columns give zeros
+    return _bf16_round(out[..., :D])
 
 
 def _allowance_share(got, want32):
@@ -230,6 +270,27 @@ def test_tensor_core_numerics_need_p_split(window, split):
         assert share <= 1.0
     else:
         assert share > 1.0
+
+
+@pytest.mark.parametrize("window", [0, 300])
+def test_tensor_core_numerics_at_padded_head_dim(window):
+    """D = 96 (phi-3-vision-4.2b), padded to two 64-column halves with
+    zero columns: the emulated kernel, P split, stays within the bf16
+    allowance `test_tensor_core_numerics_need_p_split` states, causal over
+    1024 keys with and without a window; the same emulation with the scale
+    of the padded width (1/√128) is caught by the criterion."""
+    q, k, v = (_bf16_round(torch.from_numpy(a))
+               for a in _qkv(1, 8, 2, 1024, 1024, 96, seed=13))
+    want32 = ref.attention_ref(q, k, v, causal=True, window=window)
+    got = _tensor_core_emulation(q, k, v, causal=True, window=window,
+                                 split=True)
+    share = _allowance_share(got, want32)
+    print(f"\nEMULATION D=96 padded to 128, window={window}: worst share "
+          f"of the bf16 allowance {share:.3f}")
+    assert share <= 1.0
+    bad = _tensor_core_emulation(q, k, v, causal=True, window=window,
+                                 split=True, scale_dim=128)
+    assert _allowance_share(bad, want32) > 1.0
 
 
 # --- the decode kernel's key splits and merge, emulated on the CPU ---

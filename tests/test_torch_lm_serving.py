@@ -306,8 +306,8 @@ def test_configs_mirror_the_reference():
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.hd, full.d_ff, full.vocab_size) == (22, 2048, 32, 4, 64,
                                                      5632, 32000)
-    for name in ("grok-1-314b", "mamba2-1.3b", "zamba2-7b", "hubert-xlarge",
-                 "phi-3-vision-4.2b", "deepseek-v2-236b"):
+    for name in ("grok-1-314b", "mamba2-1.3b", "zamba2-7b",
+                 "deepseek-v2-236b"):
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config(name)
     with pytest.raises(NotImplementedError, match="moe"):
