@@ -53,13 +53,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    path's prefill and decode shapes (permuted views and cache slices, as
    the model passes them) in bf16 and fp32, GQA groupings, windows, a
    ragged tail, non-causal, queries at the end of a longer kv axis, rows
-   with no visible key, D in {32, 64, 80, 96, 128} (80 and 96 padded to
-   128 inside the kernels: causal, non-causal and windowed prefill over
-   ragged lengths, decode with MHA and GQA 8/1, unaligned views), a ragged
+   with no visible key, D in {32, 64, 80, 96, 128, 192} (80 and 96 padded
+   to 128 inside the kernels: causal, non-causal and windowed prefill over
+   ragged lengths, decode with MHA and GQA 8/1, unaligned views; 192,
+   deepseek-v2-236b's MLA prefill, in three 64-column parts: MHA with 128
+   heads, causal, non-causal and windowed over ragged lengths, decode with
+   MHA and GQA 8/1, unaligned views), grok-1-314b's grouping of 48 q heads
+   over 8 kv heads at D = 128, a ragged
    last q block with a window over several kv tiles, views that are not
    16-byte aligned, decode with a GQA group of 8 at Lq in {1, 4, 16} over
-   a key count that is no multiple of a split, and phase 16's three
-   full-width shapes.  fp32 within atol 1e-5 / rtol 1e-5; bf16
+   a key count that is no multiple of a split, and phase 16's and phase
+   17's full-width shapes.  fp32 within atol 1e-5 / rtol 1e-5; bf16
    within one bf16 ulp (plus 1e-5) of the plain version computed in fp32
    and rounded once.  The check must reject the plain version with the
    scale 1% off and with the window one key wider.
@@ -71,11 +75,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain attention on the card (max |Δ| printed against the logits' spread;
    the decoded tokens' agreement is printed, not gated: random weights give
    near-ties under bf16).
-9. Times of `flash_attention` at the two main-path shapes and at phase
+9. Times of `flash_attention` at the two main-path shapes, at phase
    16's three (phi-3-vision-4.2b's prefill q [4, 32, 2048, 96] causal and
    decode over 2079 keys, hubert-xlarge's encode q [8, 16, 1024, 80]
-   non-causal; as in phase 5) beside its bound (and, for prefill, the
-   padded work), its plain version and `scaled_dot_product_attention`
+   non-causal) and at phase 17's three (grok-1-314b's prefill q [4, 48,
+   2048, 128] against k/v [4, 8, 2048, 128], causal: bound 206.3 GFLOP,
+   208.5 µs at 989 TFLOP/s; its decode [4, 48, 1, 128] over 2079 keys:
+   34.2 MB, 10.2 µs at 3.35 TB/s; deepseek-v2-236b's MLA prefill [4, 128,
+   2048, 192] causal: 687.5 GFLOP of useful work, Q·Kᵀ at 192 and P·V at
+   the 128 value columns that are not the zero padding, 695.2 µs; the
+   padded V makes it 1.20×), as in phase 5, beside its bound (and, for
+   prefill, the padded work), its plain version and
+   `scaled_dot_product_attention`
    (the library yardstick, never called by the port; its max |Δ| and its
    share of the bf16 allowance are printed, not gated).  The built flash
    library's SASS (`cuobjdump -sass`) must hold `HGMMA` instructions in
@@ -233,6 +244,40 @@ Phases, in order; any failure exits non-zero and prints no result:
    reference's curve as `BENCH_lm_training.json` records it (6.3858,
    6.2394).  Each arm's time is printed.  The launches of (a)-(e) join
    the kernels' record.
+
+17. The MoE family at full width (random weights from seed 0, bf16):
+   (a) grok-1-314b (GQA 48/8 at D = 128, 8 experts of 32768, top-2)
+   served through `launch.serve.serve`, cut to 4 of its 64 layers (the
+   weights are 316.5 B, 4.920 B a layer: 4 layers and the embeddings are
+   21.29 B, 42.6 GB), batch 4 x 2048 prompt tokens, 32 generated, greedy:
+   `flash_attention` 4 + 4 x 31 times, the peak memory beside the
+   reckoning; each layer run with its attention through the kernel and
+   through `_sdpa` (the training path) from the same input: the tokens
+   routed otherwise (a near-tie flipped by bf16 roundings, or a capacity
+   boundary moved by one) must be under 1% of the batch's in every layer,
+   and the layer's output within phase 8's bound on the others; the
+   tokens routed otherwise end to end against `transformer.forward` are
+   printed (flips compound), and the prefill logits are held within
+   phase 8's bound against `transformer.forward` with each layer's
+   routing held to the flash path's; prefill and decode tokens/s, then
+   profiled as in phase 10; (b) deepseek-v2-236b
+   (MLA, 160 experts of 1536 top-6 and 2 shared) the same way, cut to 6
+   of its 60 layers (244.2 B weights, 4.052 B a layer; 25.36 B, 50.7 GB):
+   6 launches, the prefill at D = 192 and the decode absorbed, without
+   the kernel; (c) the round trainer on both SMOKE configs (float32, the
+   `models.api.make_dict_grad_fn` gradient vmapped over C = 4 clients,
+   S = 64), fused and serial, fasgd with the kernels, 20 rounds each,
+   launches as in phase 15 (b), each kernel held against the plain path
+   as in phase 15 (b), rounds/s; (d) one full-width gradient at 1 layer
+   (a cut: at full width the round trainer's (40 + 4C) bytes a parameter
+   do not fit even one layer of either) over 2 x 256 tokens through
+   `make_dict_grad_fn`, for each config: `moe_aux` > 0, every gradient
+   finite, the router's nonzero, one SGD step of 0.5 (the reference's
+   `test_one_sgd_step_reduces_loss_on_same_batch`) lowering the loss on
+   the same batch, the peak memory beside the reckoning (grok-1: 6.53 B
+   weights, 13.1 GB, as much again for the gradients and for the stepped
+   copy).  Each arm's time is printed.  The launches of (a)-(c) join the
+   kernels' record.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -945,6 +990,32 @@ ATTN_CASES = (
      "cache"),
     ("hubert-xlarge encode (phase 16)", 8, 16, 16, 1024, 1024, 80, False, 0,
      "model"),
+    # grok-1-314b's GQA grouping, 48 q heads over 8 kv heads at D = 128;
+    # D = 192, deepseek-v2-236b's MLA prefill (128 + 64 rope columns):
+    # MHA with 128 heads, causal, non-causal and windowed over ragged
+    # lengths, unaligned views, decode with MHA and GQA 8/1
+    ("grok-1 GQA 48/8, D=128, ragged 300", 1, 48, 8, 300, 300, 128, True, 0,
+     "model"),
+    ("decode grok-1 48/8, D=128, Lq=1", 2, 48, 8, 1, 1001, 128, True, 0,
+     "cache"),
+    ("D=192 MHA 128 heads causal, ragged 300", 1, 128, 128, 300, 300, 192,
+     True, 0, "model"),
+    ("D=192 non-causal, ragged 200", 2, 16, 16, 200, 200, 192, False, 0,
+     "model"),
+    ("D=192 window 150, ragged 333", 1, 8, 2, 333, 333, 192, True, 150,
+     "model"),
+    ("unaligned views D=192, prefill", 1, 8, 8, 200, 200, 192, True, 0,
+     "odd"),
+    ("decode D=192 MHA, Lq=1", 2, 16, 16, 1, 1001, 192, True, 0, "cache"),
+    ("decode D=192 8/1, Lq=16, window 300", 2, 16, 2, 16, 1001, 192, True,
+     300, "cache"),
+    ("unaligned views D=192, decode", 1, 8, 2, 3, 200, 192, True, 0, "odd"),
+    # phase 17's full-width shapes
+    ("grok-1 prefill (phase 17)", 4, 48, 8, 2048, 2048, 128, True, 0,
+     "model"),
+    ("grok-1 decode (phase 17)", 4, 48, 8, 1, 2079, 128, True, 0, "cache"),
+    ("deepseek-v2 MLA prefill (phase 17)", 4, 128, 128, 2048, 2048, 192,
+     True, 0, "model"),
 )
 
 
@@ -1027,7 +1098,8 @@ def phase_attention(ops, ref, dev):
             if window:
                 wrong.append(("window one key wider",
                               dict(window=window + 1)))
-            if "main path" in label or "phase 16" in label or window:
+            if ("main path" in label or "phase 1" in label or "D=192" in label
+                    or window):
                 for what, change in wrong:
                     bad = ref.attention_ref(q32, k32, v32, **{**kw, **change})
                     if attention_check(got, bad)[0]:
@@ -1128,18 +1200,28 @@ def phase_serving(ops, ref, dev):
                 decode_tps=dec_tps, step_ms=step_ms)
 
 
-# (JSON key prefix, shape, B, Hq, Hkv, Lq, Lk, D, layout, causal): the main
-# path's prefill and decode (tinyllama-1.1b; the entry's own fields), then
-# phase 16's: phi-3-vision-4.2b's prefill and decode, hubert-xlarge's encode
+# (JSON key prefix, shape, B, Hq, Hkv, Lq, Lk, D, layout, causal, DV): the
+# main path's prefill and decode (tinyllama-1.1b; the entry's own fields),
+# then phase 16's: phi-3-vision-4.2b's prefill and decode, hubert-xlarge's
+# encode; then phase 17's: grok-1-314b's prefill and decode,
+# deepseek-v2-236b's MLA prefill.  DV: the value columns that carry work
+# (MLA's V is padded from 128 to 192 with zero columns, so its useful P·V
+# is at 128)
 ATTN_TIMES = (
-    ("", "prefill", 4, 32, 4, 2048, 2048, 64, "model", True),
-    ("decode_", "decode", 4, 32, 4, 1, 2079, 64, "cache", True),
+    ("", "prefill", 4, 32, 4, 2048, 2048, 64, "model", True, 64),
+    ("decode_", "decode", 4, 32, 4, 1, 2079, 64, "cache", True, 64),
     ("phi3_prefill_", "phi-3-vision prefill", 4, 32, 32, 2048, 2048, 96,
-     "model", True),
+     "model", True, 96),
     ("phi3_decode_", "phi-3-vision decode", 4, 32, 32, 1, 2079, 96, "cache",
-     True),
+     True, 96),
     ("hubert_encode_", "hubert-xlarge encode", 8, 16, 16, 1024, 1024, 80,
-     "model", False),
+     "model", False, 80),
+    ("grok_prefill_", "grok-1 prefill", 4, 48, 8, 2048, 2048, 128, "model",
+     True, 128),
+    ("grok_decode_", "grok-1 decode", 4, 48, 8, 1, 2079, 128, "cache", True,
+     128),
+    ("deepseek_prefill_", "deepseek-v2 MLA prefill", 4, 128, 128, 2048, 2048,
+     192, "model", True, 128),
 )
 
 
@@ -1152,7 +1234,7 @@ def phase_attention_times(ops, ref, dev, flush, bw, bf16_flops):
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {}
     us = lambda ms: f"{ms * 1e3:.2f} us"
-    for pre, shape, B, Hq, Hkv, Lq, Lk, D, layout, causal in ATTN_TIMES:
+    for pre, shape, B, Hq, Hkv, Lq, Lk, D, layout, causal, DV in ATTN_TIMES:
         q, k, v = attention_inputs(B, Hq, Hkv, Lq, Lk, D, torch.bfloat16,
                                    gen, dev, layout)
         # SDPA aligns a causal mask to the top left; a single query at the
@@ -1167,7 +1249,7 @@ def phase_attention_times(ops, ref, dev, flush, bw, bf16_flops):
                            flush, reps=20)
         lib_ms, _ = time_ms(lib, flush)
         pairs = Lq * (Lq + 1) // 2 + Lq * (Lk - Lq) if causal else Lq * Lk
-        flops = 4 * B * Hq * D * pairs
+        flops = 2 * B * Hq * (D + DV) * pairs     # Q·Kᵀ at D, P·V at DV
         nbytes = 2 * (2 * B * Hq * Lq * D + 2 * B * Hkv * Lk * D)
         bound = 1e3 * max(flops / bf16_flops, nbytes / bw)
         by = "operations" if flops / bf16_flops >= nbytes / bw else "bytes"
@@ -1180,6 +1262,8 @@ def phase_attention_times(ops, ref, dev, flush, bw, bf16_flops):
                 f"({padded / flops:.2f}x), with the split P "
                 f"{own / 1e9:.3f} ({own / flops:.2f}x)"
                 if Lq > 16 else "")
+        if DV != D:
+            work += f"; useful P·V at {DV} of the {D} value columns"
         print(f"  flash_attention {shape} q [{B},{Hq},{Lq},{D}] k/v "
               f"[{B},{Hkv},{Lk},{D}] bf16 causal={causal}: device "
               f"{us(ms)} (host-incl. {us(host)}); bound {us(bound)} ({by}: "
@@ -3352,6 +3436,364 @@ def phase_audio_vlm(ops, dev, smi):
     return n_flash_a + n_flash_b, n_fasgd, n_fused
 
 
+# Phase 17: the MoE family (ROADMAP queue 1, items 6b and 6c).  Neither
+# model fits one 80 GB card (grok-1-314b: 316.5 B weights, 4.920 B a layer;
+# deepseek-v2-236b: 244.2 B, 4.052 B a layer), so serving runs at full
+# width with depth cut: grok-1 at 4 of 64 layers (21.29 B weights, 42.6
+# GB), deepseek-v2 at 6 of 60 (25.36 B, 50.7 GB).
+MOE_ARCHS = ("grok-1-314b", "deepseek-v2-236b")
+MOE_SERVE_DEPTH = {"grok-1-314b": 4, "deepseek-v2-236b": 6}
+MOE_B, MOE_S, MOE_GEN = 4, 2048, 32
+# a near-tie in the router flips a token's experts between the flash path
+# and the _sdpa path (bf16 roundings of the attention output differ), and
+# a flip into or out of an expert that overflows moves its capacity
+# boundary across another token, which is then dropped in one path only.
+# Each layer runs both ways from the same input (the flash path's hidden
+# state): its flipped tokens must stay under MOE_FLIP_SHARE of the batch's,
+# and its output is held within phase 8's bound on the others.  End to
+# end, flips compound: a flipped token's FFN output (at the reference's
+# expert scale) moves its residual stream, and through attention every
+# later token's of its sequence: at deepseek-v2's six layers a third of
+# the tokens, every sequence from its first positions.  So the end-to-end
+# count is printed, and the prefill logits are held against the _sdpa path run
+# with every layer's routing held to the flash path's (each token then
+# routed alike in every layer).
+MOE_FLIP_SHARE = 0.01
+MOE_TRAIN_S, MOE_ROUNDS, MOE_AGREE, MOE_SERIAL_AGREE = 64, 20, 4, 2
+# (d): one full-width gradient at 1 layer over 2 x 256 tokens, then one SGD
+# step of the reference's size (tests/test_models_smoke.py's 0.5)
+MOE_GRAD_B, MOE_GRAD_S, MOE_SGD_LR = 2, 256, 0.5
+
+
+def layer_flips(params, cfg, batch):
+    """Each layer run with its attention through the flash kernel
+    (`ops.attention`, serving's path) and through `_sdpa` (the training
+    path), both from the same input: the flash path's hidden state,
+    carried layer to layer.  Returns, per layer, the [B·S] mask of tokens
+    routed otherwise (`routing_key`), and (max |Δ|, std) of the two layer
+    outputs over the other tokens."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.serving import _ffn
+    from repro_torch.models.transformer import _embed_inputs, layer_views
+    flips = []
+    with torch.no_grad():
+        x, positions = _embed_inputs(params, cfg, batch)
+        for lp in layer_views(params["layers"]):
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            if cfg.use_mla:
+                a, _ = attn.mla_prefill(lp["attn"], cfg, h, positions)
+                b = attn.mla_forward(lp["attn"], cfg, h, positions)
+            else:
+                a, _ = attn.gqa_prefill(lp["attn"], cfg, h, positions)
+                b = attn.gqa_forward(lp["attn"], cfg, h, positions)
+            ids, outs = [], []
+            for y in (x + a, x + b):
+                h = rms_norm(y, lp["ln2"], cfg.norm_eps)
+                r = moe.route(lp["moe"], cfg, h.reshape(-1, cfg.d_model))
+                ids.append(routing_key(r))
+                outs.append(y + _ffn(lp, cfg, h))
+            flip = (ids[0] != ids[1]).any(dim=1)
+            keep = ~flip.reshape(x.shape[:2])
+            got, want = outs[0][keep].float(), outs[1][keep].float()
+            flips.append((flip, float((got - want).abs().max()),
+                          float(want.std())))
+            x = outs[0]
+            del outs, got, want
+    return flips
+
+
+def routing_key(r):
+    """A token's routing as `models.moe.route` gives it ([T, k]): each of
+    its (expert, dropped by the capacity) pairs, sorted within the token.
+    A token routed to the same experts is still routed otherwise where an
+    earlier flip moved an expert's capacity boundary across it."""
+    return (2 * r["ids"] + (r["slots"] == r["cap"])).sort(dim=1).values
+
+
+class RouteLog:
+    """Records each MoE call's routing (`models.moe.route`'s dict in
+    `routes`, its `routing_key` in `ids`) while active; with `replay`, a
+    list of such dicts, call i computes its routing and then takes
+    replay[i] instead."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.ids, self.routes, self.real = [], [], moe.route
+
+        def recording(*a, **kw):
+            r = self.real(*a, **kw)
+            self.ids.append(routing_key(r))
+            if self.replay is not None:
+                r = self.replay[len(self.routes)]
+            self.routes.append(r)
+            return r
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self.real
+
+
+def phase_moe_serving(ops, dev, name, tag):
+    """(a) grok-1-314b / (b) deepseek-v2-236b served at full width, depth
+    cut, batch 4 x 2048 prompt tokens, 32 generated, greedy.  Returns the
+    flash launches and the rates."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.api import make_batch, param_count
+    from repro_torch.models.transformer import forward, init_model
+    full = get_config(name)
+    cfg = dataclasses.replace(full, num_layers=MOE_SERVE_DEPTH[name])
+    L = cfg.num_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    tokens = make_batch(cfg, MOE_B, MOE_S, torch.Generator(
+        device=dev).manual_seed(1))["tokens"]
+    torch.cuda.synchronize()
+    P = param_count(params)
+    label = f"({tag}) {cfg.name} served"
+    attn = (f"MLA (latent {cfg.kv_lora_rank} + rope 64), {cfg.num_heads} "
+            f"heads of {cfg.hd} (+ 64)" if cfg.use_mla else
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd}")
+    print(f"  {label}: {P:,} params, {L} of {full.num_layers} layers (a "
+          f"cut: the {full.num_layers} layers' weights do not fit the card), "
+          f"d_model {cfg.d_model}, {attn}, {cfg.num_experts} experts of "
+          f"{cfg.moe_d_ff} top-{cfg.num_experts_per_tok}"
+          + (f" + {cfg.num_shared_experts} shared" if cfg.num_shared_experts
+             else "")
+          + f", {cfg.param_dtype}; batch {MOE_B} x {MOE_S}, gen {MOE_GEN}, "
+          f"greedy; init {time.perf_counter() - t0:.2f} s")
+    serve(cfg, params, tokens[:, :128], 3, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with RouteLog() as got_routes:
+        res = serve(cfg, params, tokens, MOE_GEN, device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(ops.LAUNCHES)
+    want = L + (0 if cfg.use_mla else L * (MOE_GEN - 1))
+    if launches["flash_attention"] != want or launches[
+            "fasgd_update"] or launches["fused_event_apply"]:
+        fail(f"{label}: launches {launches}, want flash_attention = {want} "
+             f"({L} per prefill" + ("; MLA decode is absorbed, without the "
+                                    "kernel)" if cfg.use_mla else
+                                    f" + {L} x {MOE_GEN - 1} decode steps)")
+             + " and no server update")
+    out = res["tokens"]
+    if out.shape != (MOE_B, MOE_GEN) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()) or not all(
+            bool(torch.isfinite(res[nm][..., :cfg.vocab_size].float()).all())
+            for nm in ("prefill_logits", "last_logits")):
+        fail(f"{label}: tokens {tuple(out.shape)} or non-finite logits")
+    weights = 2 * P
+    cache = (L * MOE_B * (MOE_S + MOE_GEN) * 2 * (
+        cfg.kv_lora_rank + 64 if cfg.use_mla
+        else 2 * cfg.num_kv_heads * cfg.hd))
+    logits = 2 * MOE_B * MOE_S * cfg.padded_vocab
+    pre_tps = MOE_B * MOE_S / res["prefill_s"]
+    dec_tps = MOE_B * (MOE_GEN - 1) / res["decode_s"]
+    print(f"  {label}: flash_attention launched {launches['flash_attention']}"
+          f" times ({L} per prefill" + (", decode absorbed" if cfg.use_mla
+                                        else f" + {L} x {MOE_GEN - 1}")
+          + f"); prefill {MOE_B * MOE_S} tokens in {res['prefill_s']:.4f} s "
+          f"= {pre_tps:.1f} tokens/s; decode {MOE_GEN - 1} steps x {MOE_B} "
+          f"in {res['decode_s']:.4f} s = {dec_tps:.1f} tokens/s (host clock, "
+          f"ending in a sync); peak memory {gib(peak)} (reckoned: weights "
+          f"{gib(weights)}, cache {gib(cache)}, prefill logits {gib(logits)}"
+          f", + the layers' activations)")
+    # each layer's attention both ways from the same input: the tokens a
+    # rounding near-tie routes otherwise, layer by layer
+    layers = layer_flips(params, cfg, {"tokens": tokens})
+    local = [int(f.sum()) for f, _, _ in layers]
+    n_tok = MOE_B * MOE_S
+    print(f"  {label}: tokens routed otherwise when a layer's attention "
+          f"runs through _sdpa instead of the flash kernel, from the same "
+          f"input, per layer: {local} of {n_tok} (at most "
+          f"{max(local) / n_tok:.4%}; bound {MOE_FLIP_SHARE:.0%}); the "
+          f"layer outputs on the others: max|Δ| " + ", ".join(
+              f"{d:.4g}" for _, d, _ in layers) + " against their std "
+          + ", ".join(f"{sd:.4g}" for _, _, sd in layers))
+    if max(local) >= MOE_FLIP_SHARE * n_tok:
+        fail(f"{label}: {max(local)} of {n_tok} tokens flipped in one "
+             f"layer, want under {MOE_FLIP_SHARE:.0%}")
+    for i, (_, d, sd) in enumerate(layers):
+        if not d <= 0.25 * sd:
+            fail(f"{label}: layer {i}'s output max|Δ| {d:.4g} above a "
+                 f"quarter of its std {sd:.4g} on the tokens routed alike")
+    del layers
+    # the same prefill end to end through the _sdpa path: flips compound
+    with torch.no_grad(), RouteLog() as ref_routes:
+        forward(params, cfg, {"tokens": tokens})
+    if len(ref_routes.ids) != L:
+        fail(f"{label}: {len(ref_routes.ids)} routed layers, want {L}")
+    flipped = torch.zeros(n_tok, dtype=torch.bool, device=dev)
+    per_layer = []
+    for a, b in zip(got_routes.ids[:L], ref_routes.ids):
+        f = (a != b).any(dim=1)
+        per_layer.append(int(f.sum()))
+        flipped |= f
+    n_flip = int(flipped.sum())
+    first = [int(f.nonzero()[0]) if f.any() else MOE_S
+             for f in flipped.reshape(MOE_B, MOE_S)]
+    print(f"  {label}: end to end against transformer.forward (_sdpa), "
+          f"{n_flip} of {n_tok} tokens ({n_flip / n_tok:.4%}) take other "
+          f"experts in some layer (per layer {per_layer}; each sequence's "
+          f"first at position {first})")
+    del ref_routes
+    # the _sdpa path with each layer's routing held to the flash path's
+    with torch.no_grad(), RouteLog(replay=got_routes.routes[:L]):
+        ref_logits, aux = forward(params, cfg, {"tokens": tokens})
+    logits_agree(f"{label}: prefill logits against transformer.forward "
+                 f"(_sdpa) routed as the flash path, every token",
+                 res["prefill_logits"], ref_logits, cfg.vocab_size)
+    print(f"  {label}: moe_aux of the prefill {float(aux):.4f}")
+    del ref_logits, res
+    torch.cuda.empty_cache()
+    print(f"  {label}: where the time goes (torch.profiler):")
+    serving_breakdown(dict(cfg=cfg, params=params, gen=MOE_GEN,
+                           batch={"tokens": tokens},
+                           label=cfg.name.split("-")[0] + "_serve"))
+    del params
+    torch.cuda.empty_cache()
+    return launches["flash_attention"], pre_tps, dec_tps
+
+
+def phase_moe_training(dev):
+    """(c) the round trainer on both SMOKE configs, serial and fused, each
+    kernel held against the plain path.  Returns the launches of
+    `fasgd_update` and `fused_event_apply` and the rates."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainerConfig
+    from repro_torch.models.api import make_batch, param_count
+    n_fasgd = n_fused = 0
+    rates = {}
+    tc = TrainerConfig(num_round_clients=LM_C, rule="fasgd", lr=LM_LR,
+                       c_fetch=LM_C_FETCH, use_fused_kernel=True)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    for name in MOE_ARCHS:
+        cfg = get_smoke_config(name)
+        params = lm_params(cfg, dev)
+        P = param_count(params)
+        data = make_batch(cfg, LM_C * LM_MU * (MOE_ROUNDS + 4), MOE_TRAIN_S,
+                          gen(7))
+        val = make_batch(cfg, 8, MOE_TRAIN_S, gen(8))
+        for mode, extra in (("fused", 0), ("serial", 8)):
+            label = f"(c) {name} SMOKE round trainer {mode}"
+            print(f"  {label}: {cfg.num_layers} layers, d_model "
+                  f"{cfg.d_model}, {cfg.num_experts} experts top-"
+                  f"{cfg.num_experts_per_tok}, {P} parameters "
+                  f"({cfg.param_dtype}); C={LM_C}, μ={LM_MU}, "
+                  f"S={MOE_TRAIN_S}, fasgd lr={LM_LR}, c_fetch={LM_C_FETCH}")
+            drv = ModalRoundLoop(tc, mode, cfg, params, data, val)
+            n, rate = round_arm(label, drv, mode, MOE_ROUNDS, "tokens",
+                                LM_C * LM_MU * MOE_TRAIN_S,
+                                (40 + extra + 4 * LM_C) * P)
+            if mode == "fused":
+                n_fused += n
+                lm_kernel_on_off(drv, MOE_AGREE, f"{label} kernel on/off")
+            else:
+                n_fasgd += n
+                lm_serial_kernel_on_off(drv, MOE_SERIAL_AGREE,
+                                        f"{label} kernel on/off")
+            rates[label] = (rate, "rounds")
+            del drv
+    return n_fasgd, n_fused, rates
+
+
+def phase_moe_gradient(dev):
+    """(d) one full-width gradient at 1 layer through
+    `make_dict_grad_fn`, for each config: `moe_aux` > 0, every gradient
+    finite, the router's nonzero; one SGD step of MOE_SGD_LR on the same
+    batch lowers the loss; the peak memory beside the reckoning."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import (make_batch, make_dict_grad_fn,
+                                        param_count)
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.utils.trees import leaves, tree_map
+    for name in MOE_ARCHS:
+        cfg = dataclasses.replace(get_config(name), num_layers=1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = lm_params(cfg, dev)
+        P = param_count(params)
+        batch = make_batch(cfg, MOE_GRAD_B, MOE_GRAD_S, torch.Generator(
+            device=dev).manual_seed(9))
+        label = f"(d) {cfg.name} full-width gradient, 1 layer"
+        loss, grads = make_dict_grad_fn(cfg)(params, batch)
+        with torch.no_grad():
+            _, m = loss_fn(params, cfg, batch)
+        bad = [n for n, g in named_leaves(grads)
+               if not bool(torch.isfinite(g.float()).all())]
+        router = float(grads["layers"]["moe"]["router"].float().abs().max())
+        if bad or not float(m["moe_aux"]) > 0.0 or not router > 0.0:
+            fail(f"{label}: non-finite gradients {bad}, moe_aux "
+                 f"{float(m['moe_aux'])}, max|router grad| {router}")
+        with torch.no_grad():
+            stepped = tree_map(
+                lambda p, g: (p.float() - MOE_SGD_LR * g.float()).to(p.dtype),
+                params, grads)
+            del grads
+            loss1 = float(loss_fn(stepped, cfg, batch)[0])
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {label}: {P:,} params ({cfg.param_dtype}), batch "
+              f"{MOE_GRAD_B} x {MOE_GRAD_S}; loss {float(loss):.4f} (CE "
+              f"{float(m['ce']):.4f} + 0.01 x moe_aux "
+              f"{float(m['moe_aux']):.4f}); all {len(leaves(params))} "
+              f"gradients finite, max|router grad| {router:.3e}; one SGD "
+              f"step of {MOE_SGD_LR} on the same batch: loss {loss1:.4f}; "
+              f"peak memory {gib(peak)} (reckoned: weights, gradients and "
+              f"the stepped copy {gib(3 * 2 * P)} + activations)")
+        if not loss1 < float(loss):
+            fail(f"{label}: the SGD step did not lower the loss "
+                 f"({float(loss):.4f} -> {loss1:.4f})")
+        del params, stepped
+        torch.cuda.empty_cache()
+
+
+def phase_moe(ops, dev, smi):
+    """Phase 17: (a)-(d).  Returns the launches of the three kernels on
+    its paths."""
+    print(f"phase 17: the MoE family at full width, on {smi}")
+    t0 = time.perf_counter()
+    rates = {}
+    n_flash = 0
+    for name, tag in zip(MOE_ARCHS, "ab"):
+        t = time.perf_counter()
+        n, pre, dec = phase_moe_serving(ops, dev, name, tag)
+        n_flash += n
+        rates[f"({tag}) {name} prefill"] = (pre, "tokens")
+        rates[f"({tag}) {name} decode"] = (dec, "tokens")
+        print(f"  ({tag}) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    n_fasgd, n_fused, train = phase_moe_training(dev)
+    rates.update(train)
+    print(f"  (c) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_moe_gradient(dev)
+    print(f"  (d) took {time.perf_counter() - t:.1f} s")
+    ops.reset_launches()
+    print(f"  rates on {smi}: " + "; ".join(
+        f"{label} {r:.2f} {unit}/s" for label, (r, unit) in rates.items()))
+    print(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    return n_flash, n_fasgd, n_fused
+
+
 def main() -> int:
     """Run the phases in order; 0 when every one passed."""
     import torch
@@ -3510,13 +3952,15 @@ def main() -> int:
     n_fasgd15, n_fused15, _ = phase_lm_training(dev, smi)
     # --- phase 16: the audio and VLM families ---
     n_flash16, n_fasgd16, n_fused16 = phase_audio_vlm(ops, dev, smi)
+    # --- phase 17: the MoE family ---
+    n_flash17, n_fasgd17, n_fused17 = phase_moe(ops, dev, smi)
 
     kernels = [
         dict(name="fasgd_update", route="cuda",
              source="src/repro_torch/kernels/csrc/fasgd_update.cu",
              replaces="src/repro/kernels/fasgd_update.py:50",
              launches=n_serial + n_gated + n_fasgd12 + n_fasgd13
-             + n_fasgd14 + n_fasgd15 + n_fasgd16,
+             + n_fasgd14 + n_fasgd15 + n_fasgd16 + n_fasgd17,
              max_abs_err=errs["fasgd_update"], ms=fu_ms, plain_ms=fu_plain,
              bound_ms=fu_bound,
              bound_by="bytes" if fu_bytes / bw >= fu_ops / flops
@@ -3525,13 +3969,14 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/fused_event_apply.cu",
              replaces="src/repro/kernels/fused_event_apply.py:89",
              launches=n_fused + n_fused12 + n_fused13 + n_fused14
-             + n_fused15 + n_fused16,
+             + n_fused15 + n_fused16 + n_fused17,
              max_abs_err=errs["fused_event_apply"],
              library_ms=None, **fused),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:98",
-             launches=serving["launches"] + n_flash16, max_abs_err=attn_err,
+             launches=serving["launches"] + n_flash16 + n_flash17,
+             max_abs_err=attn_err,
              **attn_times),
         batched,
     ]

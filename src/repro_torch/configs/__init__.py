@@ -3,9 +3,9 @@
 Ported from `repro.configs`: one module per architecture, each exporting
 FULL (the published configuration, bfloat16) and SMOKE (2 layers, d_model
 256, float32, for the CPU tests).  The dense decoders, the audio encoder
-(hubert-xlarge) and the VLM (phi-3-vision-4.2b) are ported; the
-reference's other architectures raise `NotImplementedError`, naming what
-they still need.
+(hubert-xlarge), the VLM (phi-3-vision-4.2b) and the MoE decoders
+(grok-1-314b, deepseek-v2-236b with MLA) are ported; the reference's other
+architectures raise `NotImplementedError`, naming what they still need.
 """
 from __future__ import annotations
 
@@ -14,15 +14,14 @@ import importlib
 
 from repro_torch.configs.base import NOT_PORTED, ModelConfig
 
-ARCH_NAMES = ["phi-3-vision-4.2b", "hubert-xlarge", "tinyllama-1.1b",
-              "llama3-8b", "yi-34b", "yi-9b"]
+ARCH_NAMES = ["phi-3-vision-4.2b", "grok-1-314b", "hubert-xlarge",
+              "tinyllama-1.1b", "llama3-8b", "yi-34b", "deepseek-v2-236b",
+              "yi-9b"]
 
 # the reference's other architectures, by the families they wait for
 NOT_PORTED_ARCHS = {
-    "grok-1-314b": ("moe",),
     "mamba2-1.3b": ("ssm",),
     "zamba2-7b": ("hybrid",),
-    "deepseek-v2-236b": ("moe", "mla"),
 }
 
 _MODULES = {n: "repro_torch.configs." + n.replace("-", "_").replace(".", "_")

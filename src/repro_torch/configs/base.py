@@ -1,13 +1,14 @@
 """Model and trainer configuration.
 
 Ported from `repro.configs.base`.  `ModelConfig` covers the dense
-decoders and the two modality families built on them, the audio encoder
-and the VLM: the fields are those these paths read (`causal` and
-`is_encoder`, which `supports_decode` and the attention masks read, the
-modality stubs' input widths, and the training path's `remat` and
-`loss_chunk`); `dtype` is a `torch.dtype`.  The other families' fields
-(MoE, MLA, SSM, hybrid) come with their modules: a config of another
-`arch_type` raises `NotImplementedError`.  `TrainerConfig` configures the
+decoders, the two modality families built on them (the audio encoder and
+the VLM) and the MoE family (GQA or MLA attention, a top-k MoE FFN): the
+fields are those these paths read (`causal` and `is_encoder`, which
+`supports_decode` and the attention masks read, the modality stubs' input
+widths, the MoE and MLA widths, and the training path's `remat` and
+`loss_chunk`); `dtype` is a `torch.dtype`.  The SSM and hybrid families'
+fields come with their modules: a config of either `arch_type` raises
+`NotImplementedError`.  `TrainerConfig` configures the
 round trainer (`core.round_trainer`), with every field of the reference.
 """
 from __future__ import annotations
@@ -22,22 +23,21 @@ if TYPE_CHECKING:       # core imports this module: no import cycle at run time
 
 # the reference's other families, and the modules each still needs here
 NOT_PORTED = {
-    "moe": "the MoE FFN (models/moe.py)",
-    "mla": "the MLA paths of models/attention.py",
     "ssm": "the Mamba2 mixer (models/ssm.py)",
     "hybrid": "the Mamba2 mixer and the shared attention block "
               "(models/ssm.py, the hybrid stack of models/transformer.py)",
 }
-PORTED_ARCH_TYPES = ("dense", "audio", "vlm")
+PORTED_ARCH_TYPES = ("dense", "audio", "vlm", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One GQA stack, [ln→GQA→res, ln→SwiGLU→res] × L: a dense decoder,
-    an audio encoder over frame embeddings or a VLM decoder over image
-    and text tokens."""
+    """One attention stack, [ln→attn→res, ln→FFN→res] × L: a dense
+    decoder, an audio encoder over frame embeddings, a VLM decoder over
+    image and text tokens (GQA, SwiGLU), or an MoE decoder (GQA or MLA, a
+    top-k MoE FFN)."""
     name: str
-    arch_type: str               # dense | audio | vlm
+    arch_type: str               # dense | audio | vlm | moe
     num_layers: int
     d_model: int
     num_heads: int
@@ -45,6 +45,14 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0            # 0 → d_model // num_heads
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0            # per-expert hidden dim (d_ff for dense archs)
+    # MLA (deepseek-v2)
+    use_mla: bool = False
+    kv_lora_rank: int = 0
     attn_window: int = 0         # 0 = full attention; >0 = sliding window
     causal: bool = True
     is_encoder: bool = False     # hubert: bidirectional, no decode step
@@ -85,6 +93,10 @@ class ModelConfig:
     @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
 
     def supports_decode(self) -> bool:
         return not self.is_encoder

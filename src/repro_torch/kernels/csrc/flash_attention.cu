@@ -47,10 +47,14 @@
 //   registers and V from shared memory through the transpose bit (V is
 //   MN-major as it lies).  The head dim is padded in shared memory to DP,
 //   the next multiple of 64 (64 for D = 32 and 64; two 64-column halves
-//   for D = 80, 96 and 128), with zero columns that no copy writes: S runs
-//   D/16 k16 steps over the real columns only, P·V runs at nDP and only
-//   D output columns are stored.  The padding lives in shared memory, so
-//   the host passes its views as they are (no pad copy per call).
+//   for D = 80, 96 and 128; three parts for D = 192, deepseek-v2's MLA
+//   prefill), with zero columns that no copy writes: S runs D/16 k16 steps
+//   over the real columns only, P·V runs at nDP and only D output columns
+//   are stored.  The padding lives in shared memory, so the host passes its
+//   views as they are (no pad copy per call).  At D = 192, P·V is
+//   m64n192k16 with 96 fp32 accumulators a thread, and Q (48 KB) with the
+//   two-stage K/V ring (2 x 48 KB) takes 145 KB of shared memory: one block
+//   an SM.
 //   Why P is split: the plain version, like the TPU kernel, keeps P in fp32
 //   through P·V, and bf16 outputs are held within one bf16 ulp of it.  P
 //   rounded once to bf16 misses that by up to ~80x on near-zero outputs, so
@@ -80,7 +84,8 @@
 //   16-byte reads and computes that key's score for every (q head, query)
 //   row; the rows' max, exponentials and sums are then taken once per key,
 //   by a warp per row, and P·V runs with threads owning (row, 4 dims), D/4
-//   threads a row (for D = 80 and 96 the block's last 8 threads own none).
+//   threads a row (for D = 80 and 96 the block's last 8 threads own none,
+//   for D = 192 the last 32).
 //   The keys are split across blocks (flash-decoding: at the main path's shape
 //   B·Hkv = 16 groups for 132 SMs) into whole 128-key chunks, about two
 //   blocks per SM; each split writes its (m, l, acc) to a scratch buffer
@@ -315,9 +320,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 // swizzle, which the wgmma descriptors below name with layout type 1).
 template <int D>
 struct WgLayout {
-  static_assert(D % 16 == 0 && D <= 128, "head dim: a multiple of 16, <= 128");
-  static constexpr int DP = (D + 63) / 64 * 64;  // padded head dim: 64 or 128
-  static constexpr int NH = DP / 64;           // 64-column halves
+  static_assert(D % 16 == 0 && D <= 192, "head dim: a multiple of 16, <= 192");
+  static constexpr int DP = (D + 63) / 64 * 64;  // padded head dim: 64, 128, 192
+  static constexpr int NH = DP / 64;           // 64-column parts
   static constexpr int KS = D / 16;            // k16 steps of S = Q·Kᵀ
   static constexpr int Q_HALF = kWgBQ * kSwRow;
   static constexpr int KV_HALF = kBK * kSwRow;
@@ -507,13 +512,62 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[0..95] += A·B: m64n192k16, A from registers (4 bf16 pairs a
+// thread), B from shared memory MN-major (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n192(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95}"
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int DP>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
                                          uint64_t db) {
   if constexpr (DP == 64) {
     wgmma_rs_n64(o, a, db);
-  } else {
+  } else if constexpr (DP == 128) {
     wgmma_rs_n128(o, a, db);
+  } else {
+    wgmma_rs_n192(o, a, db);
   }
 }
 
@@ -864,8 +918,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int PER = 16 / static_cast<int>(sizeof(T));
   constexpr int TPR = D / 4;               // threads per output row
   constexpr int RP = kDecThreads / TPR;    // output rows per pass
-  constexpr int NI = (kDecOut / D + RP - 1) / RP;  // passes: 8, or 9 for
-                                                   // D = 80 and 96
+  constexpr int NI = (kDecOut / D + RP - 1) / RP;  // passes: 8; 9 for D =
+                                                   // 80 and 96; 11 for 192
   extern __shared__ float4 dsm4[];
 
   const int split = blockIdx.x;
@@ -1156,6 +1210,7 @@ cudaError_t launch_dim(int head_dim, const void* q, const void* k,
     case 80: return launch<T, 80>(q, k, v, o, scratch, scratch_floats, p, stream);
     case 96: return launch<T, 96>(q, k, v, o, scratch, scratch_floats, p, stream);
     case 128: return launch<T, 128>(q, k, v, o, scratch, scratch_floats, p, stream);
+    case 192: return launch<T, 192>(q, k, v, o, scratch, scratch_floats, p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1172,7 +1227,7 @@ bool aligned16(const void* ptr, const int64_t* strides, int esize) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike); head_dim in
-// {32, 64, 80, 96, 128}.  `strides` (host memory) holds the batch, head and sequence
+// {32, 64, 80, 96, 128, 192}.  `strides` (host memory) holds the batch, head and sequence
 // element strides of q, k, v and o, in that order (12 values).  Decode
 // (Lq <= 16) writes per-split partials to `scratch`, a float32 device buffer
 // of `scratch_floats` >= B·Hq·Lq·32·(head_dim + 2), which a second launch

@@ -1,11 +1,20 @@
 """LM serving: batched prefill, then token-by-token decode.
 
-Ported from `repro.launch.serve` (the dense decoders and the VLM):
+Ported from `repro.launch.serve` (the dense decoders, the VLM and the MoE
+decoders):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --batch 4 --prompt-len 2048 --gen 32 --temperature 0
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch phi-3-vision-4.2b --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \\
+      --smoke --device cpu
+
+grok-1-314b and deepseek-v2-236b do not fit one card at their published
+depth, and the CLI, like the reference's, has no depth flag: a caller
+serves them through `serve` with a config cut in depth only,
+``dataclasses.replace(get_config(name), num_layers=4)`` (`chip_smoke.py`
+phase 17).
 
 It runs on the card unless given ``--device cpu`` (use ``--smoke`` there:
 the reduced configuration).  Weights are random, from ``--seed``, at the

@@ -1,6 +1,6 @@
-"""Models of the port: the paper's MLP and the GQA transformers — the
-dense LM decoders, the audio encoder and the VLM (`layers`, `attention`,
-`transformer`, `serving`, `api`).
+"""Models of the port: the paper's MLP and the transformers — the dense LM
+decoders, the audio encoder, the VLM and the MoE decoders (`layers`,
+`attention`, `moe`, `transformer`, `serving`, `api`).
 
 Float32 matrix products on the card run in full float32, not TF32: the
 statistics of eqs. 4–6 and the parity with the reference need all of

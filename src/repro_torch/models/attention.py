@@ -1,6 +1,7 @@
-"""GQA attention (llama family) with full-sequence, prefill and decode paths.
+"""Attention: GQA (llama family) and MLA (deepseek-v2), each with
+full-sequence, prefill and decode paths.
 
-Ported from `repro.models.attention` (the GQA half; MLA waits).
+Ported from `repro.models.attention`.
 
 Conventions, as in the reference:
  - keys are stored in the cache *post-RoPE*, so a ring-buffer overwrite
@@ -22,22 +23,50 @@ of its [B, S, H, hd] activations and cache; the kernel honours their
 strides, so nothing is transposed or copied.  Decode is the kernel with
 Lq = 1 over a view of the cache's valid slots: the query sits at the end
 of the kv axis, which is the kernel's own semantics.
+
+MLA caches the compressed latent c [B, S, r] and the shared rope key kr
+[B, S, 64] (decoupled RoPE, as in DeepSeek-V2).  Its full-sequence paths
+fold the rope columns into the head dim, hd + 64 (192 at deepseek-v2's
+width), and pad V with 64 zero columns, as the reference does, so prefill
+attends through the flash kernel at that head dim and slices the output
+back to hd columns.  Its decode is the reference's absorbed form (q
+projected into latent space, scores and values over the latent cache), in
+plain PyTorch: no kernel computes it on either side.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import delta_einsum, dense_init, dget, rope
+from repro_torch.models.layers import (delta_einsum, dense_init, dget,
+                                       rms_norm, rope)
+from repro_torch.utils.trees import tree_map
 
 NEG_INF = -1e30
+MLA_ROPE_DIM = 64        # the reference's dr: the shared rope key's width
 
 
 def init_attention(generator, cfg, *, layers: int = 0, device=None):
-    """{wq: [d, H, hd], wk, wv: [d, Kv, hd], wo: [H, hd, d]}, stacked over
-    `layers` when > 0."""
+    """GQA: {wq: [d, H, hd], wk, wv: [d, Kv, hd], wo: [H, hd, d]}; MLA:
+    {wq_nope: [d, H, hd], wq_rope: [d, H, 64], w_dkv: [d, r], kv_norm:
+    ones [r], w_uk, w_uv: [r, H, hd], w_kr: [d, 64], wo: [H, hd, d]};
+    stacked over `layers` when > 0."""
     d, H, Kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     kw = dict(layers=layers, device=device)
+    if cfg.use_mla:
+        r, dr = cfg.kv_lora_rank, MLA_ROPE_DIM
+        norm = ((layers,) if layers else ()) + (r,)
+        return {
+            "wq_nope": dense_init(generator, (d, H, hd), cfg.dtype, **kw),
+            "wq_rope": dense_init(generator, (d, H, dr), cfg.dtype, **kw),
+            "w_dkv": dense_init(generator, (d, r), cfg.dtype, **kw),
+            "kv_norm": torch.ones(norm, dtype=cfg.dtype,
+                                  device=device or generator.device),
+            "w_uk": dense_init(generator, (r, H, hd), cfg.dtype, **kw),
+            "w_uv": dense_init(generator, (r, H, hd), cfg.dtype, **kw),
+            "w_kr": dense_init(generator, (d, dr), cfg.dtype, **kw),
+            "wo": dense_init(generator, (H, hd, d), cfg.dtype, **kw),
+        }
     return {
         "wq": dense_init(generator, (d, H, hd), cfg.dtype, **kw),
         "wk": dense_init(generator, (d, Kv, hd), cfg.dtype, **kw),
@@ -156,4 +185,95 @@ def gqa_decode(p, cfg, x, cache, pos: int):
     o = ops.attention(_heads(q), _heads(cache["k"][:, :n]),
                       _heads(cache["v"][:, :n]), causal=causal, window=0)
     out = torch.einsum("bshk,hkd->bsd", _heads(o), p["wo"])
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2)
+# ---------------------------------------------------------------------------
+
+def _mla_qkv(p, cfg, x, positions):
+    """The non-absorbed MLA projections of x [B, S, d] → (q, k, v) with the
+    rope columns folded into the head dim, [B, S, H, hd + 64] each (v
+    padded with zeros), and the cache entries c [B, S, r], kr [B, S, 64]."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    c = rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dkv"]), p["kv_norm"],
+                 cfg.norm_eps)
+    k_nope = torch.einsum("bsr,rhk->bshk", c, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", c, p["w_uv"])
+    k_rope = rope(torch.einsum("bsd,dk->bsk", x, p["w_kr"])[:, :, None, :],
+                  positions, cfg.rope_theta)                    # [B, S, 1, dr]
+    q_nope = torch.einsum("bsd,dhk->bshk", x, p["wq_nope"])
+    q_rope = rope(torch.einsum("bsd,dhk->bshk", x, p["wq_rope"]), positions,
+                  cfg.rope_theta)
+    dr = k_rope.shape[-1]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
+    v = torch.nn.functional.pad(v, (0, dr))
+    return q, k, v, c, k_rope[:, :, 0, :]
+
+
+def mla_forward(p, cfg, x, positions, dp=None):
+    """MLA over the full sequence (the training path), attention through
+    `_sdpa`, never the flash kernel, which has no backward.  `dp` (the
+    event's stale offset) is folded into effective weights, as in the
+    reference: the latent c feeds K and V through an rms_norm, so a
+    shared/delta split of the products would not commute through it."""
+    if dp is not None:
+        p = tree_map(lambda w, dl: w + dl, p, dp)
+    q, k, v, _, _ = _mla_qkv(p, cfg, x, positions)
+    o = _sdpa(q, k, v, causal=cfg.causal, window=cfg.attn_window)
+    return torch.einsum("bshk,hkd->bsd", o[..., :cfg.hd], p["wo"])
+
+
+def mla_prefill(p, cfg, x, positions):
+    """MLA over the full sequence through the flash kernel at head dim
+    hd + 64 (scale 1/√(hd + 64), as the reference's `_sdpa` of the folded
+    q, k takes it), the output sliced back to hd columns; and the cache
+    {c: [B, S, r], kr: [B, S, 64]}."""
+    q, k, v, c, kr = _mla_qkv(p, cfg, x, positions)
+    o = ops.attention(_heads(q), _heads(k), _heads(v), causal=cfg.causal,
+                      window=cfg.attn_window)
+    out = torch.einsum("bshk,hkd->bsd", _heads(o)[..., :cfg.hd], p["wo"])
+    return out, {"c": c, "kr": kr}
+
+
+def mla_decode(p, cfg, x, cache, pos: int):
+    """Absorbed MLA decode: the query projected into latent space, scores
+    and values over the latent cache, in float32.  x: [B, 1, d]; cache
+    {c: [B, W, r], kr: [B, W, 64]}; `pos` the token's position (a Python
+    int).
+
+    Writes c and kr IN PLACE at slot pos (pos % W for a ring buffer, when
+    `cfg.attn_window` > 0), as `gqa_decode` does, and attends over the
+    written slots only (the reference masks the others to −1e30, whose
+    weights are exactly 0).  Returns (out [B, 1, d], cache).
+    """
+    B = x.shape[0]
+    W = cache["c"].shape[1]
+    hd = cfg.hd
+    posv = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    c_t = rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dkv"]), p["kv_norm"],
+                   cfg.norm_eps)
+    kr_t = rope(torch.einsum("bsd,dk->bsk", x, p["w_kr"])[:, :, None, :],
+                posv, cfg.rope_theta)[:, :, 0, :]
+    windowed = cfg.attn_window > 0
+    slot = pos % W if windowed else pos
+    cache["c"][:, slot] = c_t[:, 0]
+    cache["kr"][:, slot] = kr_t[:, 0]
+    n = min(pos + 1, W) if windowed else pos + 1
+    cc, ckr = cache["c"][:, :n], cache["kr"][:, :n]
+
+    q_nope = torch.einsum("bd,dhk->bhk", x[:, 0], p["wq_nope"].to(x.dtype))
+    q_rope = rope(torch.einsum("bsd,dhk->bshk", x, p["wq_rope"]), posv,
+                  cfg.rope_theta)[:, 0]                         # [B, H, dr]
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope, p["w_uk"])     # absorb w_uk
+    scale = 1.0 / ((hd + q_rope.shape[-1]) ** 0.5)
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), cc.float())
+         + torch.einsum("bhk,bsk->bhs", q_rope.float(), ckr.float())) * scale
+    pattn = torch.softmax(s, dim=-1)
+    lat = torch.einsum("bhs,bsr->bhr", pattn, cc.float()).to(x.dtype)
+    o = torch.einsum("bhr,rhk->bhk", lat, p["w_uv"])            # absorb w_uv
+    out = torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None, :]
     return out, cache

@@ -1,4 +1,5 @@
-"""LM loss adapters: the dense decoders in the engine's loss convention.
+"""LM loss adapters: the token decoders (dense and MoE) in the engine's
+loss convention.
 
 Ported from `repro.models.lm`.  FRED (`sim.fred`) and the round trainer
 (`core.round_trainer`) take
@@ -25,8 +26,9 @@ from repro_torch.models import transformer
 
 
 def make_lm_loss(cfg: ModelConfig, aux_weight: float = 0.01):
-    """Scalar LM loss `(params, tokens, targets) -> loss` with its
-    ``.event_batched`` shared/delta form attached."""
+    """Scalar LM loss `(params, tokens, targets) -> loss` (CE + `aux_weight`
+    · the MoE aux term) with its ``.event_batched`` shared/delta form
+    attached."""
 
     def loss(params, tokens, targets):
         value, _ = transformer.loss_fn(

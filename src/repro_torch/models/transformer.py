@@ -1,14 +1,18 @@
-"""The GQA stack, [ln→GQA→res, ln→SwiGLU→res] × L, and its training loss,
-for three families:
- - dense (tinyllama / llama3 / yi): a causal decoder over tokens;
+"""The attention stack, [ln→attn→res, ln→FFN→res] × L, and its training
+loss, for four families:
+ - dense (tinyllama / llama3 / yi): a causal GQA decoder over tokens;
  - audio (hubert): a bidirectional encoder over precomputed frame
    embeddings (`frame_proj`; the conv frontend is a stub, as in the
    reference);
  - vlm (phi-3-vision): a causal decoder over projected patch embeddings
    (`img_proj`; the vision tower is a stub) followed by text tokens, its
-   loss over the text positions only.
+   loss over the text positions only;
+ - moe (grok-1 / deepseek-v2): a causal decoder whose FFN is a top-k MoE
+   (`models.moe`) and whose attention is GQA or, with `use_mla`, MLA; the
+   layers' switch aux losses sum into `moe_aux`, which `loss_fn` weighs
+   by `aux_weight`.
 
-Ported from `repro.models.transformer` (the MoE, SSM and hybrid families
+Ported from `repro.models.transformer` (the SSM and hybrid families
 wait).  Parameters are a plain dict of
 tensors with the reference's structure and its stacked [L, ...] layer
 leaves, so weights carry across one to one
@@ -20,9 +24,11 @@ layers is a Python loop over per-layer views of the stacked leaves
 δ = p_k − W (detached, the structure of the parameters): the forward is
 evaluated at W + δ with W the differentiable operand of every large GEMM
 and of the embedding gather (`layers.delta_einsum`), which is what
-`models.lm` maps over events for the cotangent fused path.  Everything on
-the training path is free of in-place writes, host syncs and
-data-dependent control flow, so `torch.func.vmap` and `grad` go through it.
+`models.lm` maps over events for the cotangent fused path.  (MLA and the
+MoE FFN fold δ into effective weights instead, as the reference does.)
+Everything on the training path is free of in-place writes, host syncs
+and data-dependent control flow, so `torch.func.vmap` and `grad` go
+through it.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (delta_einsum, dense_init, dget, eff,
                                        init_embedding, init_mlp, mlp_forward,
                                        rms_norm)
@@ -43,7 +50,10 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, device=None):
     """Random weights at the reference's scales (N(0, 1/fan_in), embedding
     and unembedding 0.02, norm gains 1) in `cfg.dtype`, on `device` (the
     card unless the caller passes another).  Draws come from `generator`, on
-    its own device: a CUDA generator keeps a full-width init on the card."""
+    its own device: a CUDA generator keeps a full-width init on the card.
+    An MoE config draws the `moe` leaves where the others draw `mlp`, and
+    MLA's attention leaves where the others draw GQA's; the other families'
+    draws are unchanged."""
     device = resolve_device(device)
     L, d, dt = cfg.num_layers, cfg.d_model, cfg.dtype
     kw = dict(device=device)
@@ -57,8 +67,13 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, device=None):
         "ln1": torch.ones(L, d, dtype=dt, device=device),
         "attn": attn.init_attention(generator, cfg, layers=L, **kw),
         "ln2": torch.ones(L, d, dtype=dt, device=device),
-        "mlp": init_mlp(generator, d, cfg.d_ff, dt, layers=L, **kw),
     }
+    if cfg.is_moe:
+        params["layers"]["moe"] = moe_mod.init_moe(generator, cfg, layers=L,
+                                                   **kw)
+    else:
+        params["layers"]["mlp"] = init_mlp(generator, d, cfg.d_ff, dt,
+                                           layers=L, **kw)
     # the modality stubs' input projections, drawn after the layers so that
     # the dense family's draws are those it always had
     if cfg.arch_type == "vlm":
@@ -71,11 +86,15 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, device=None):
 
 
 def _attn_block(lp, cfg, x, positions, dl=None):
+    """One layer → (x, its MoE aux loss, or None without experts)."""
     h = rms_norm(x, eff(lp["ln1"], dget(dl, "ln1")), cfg.norm_eps)
-    x = x + attn.gqa_forward(lp["attn"], cfg, h, positions,
-                             dp=dget(dl, "attn"))
+    forward_attn = attn.mla_forward if cfg.use_mla else attn.gqa_forward
+    x = x + forward_attn(lp["attn"], cfg, h, positions, dp=dget(dl, "attn"))
     h = rms_norm(x, eff(lp["ln2"], dget(dl, "ln2")), cfg.norm_eps)
-    return x + mlp_forward(lp["mlp"], h, dp=dget(dl, "mlp"))
+    if cfg.is_moe:
+        h, aux = moe_mod.moe_forward(lp["moe"], cfg, h, dp=dget(dl, "moe"))
+        return x + h, aux
+    return x + mlp_forward(lp["mlp"], h, dp=dget(dl, "mlp")), None
 
 
 def layer_views(tree):
@@ -89,14 +108,18 @@ def layer_views(tree):
 
 
 def _run_stack(params, cfg, x, positions, deltas=None):
-    """The layers over x [B, S, d] → (x, moe_aux).  These families have no
-    MoE, so moe_aux is 0.0, as in the reference."""
+    """The layers over x [B, S, d] → (x, moe_aux): the sum of the layers'
+    switch aux losses (float32), 0.0 for a family without experts, as in
+    the reference."""
     lps = layer_views(params["layers"])
     dls = ([None] * len(lps) if deltas is None
            else layer_views(deltas["layers"]))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, dl in zip(lps, dls):
-        x = _attn_block(lp, cfg, x, positions, dl)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = _attn_block(lp, cfg, x, positions, dl)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _embed_inputs(params, cfg, batch, deltas=None):
@@ -189,7 +212,7 @@ def _ce_chunked(params, cfg, x, targets, deltas=None):
 
 def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01,
             deltas=None):
-    """Cross-entropy (+ the MoE aux term, 0 for these families) →
+    """Cross-entropy + `aux_weight` · the MoE aux term (0 without experts) →
     (loss, {"ce", "moe_aux"}), for the family's batch (`_embed_inputs`)
     and its `targets`: [B, S], or [B, S_text] for the VLM, whose image
     positions carry no targets, so its loss is over the text positions

@@ -32,7 +32,11 @@ def _tensor(a, device):
 LM_KEYS = {"embed", "final_norm", "unembed", "layers"}
 # the modality stubs' input projections: the VLM's and the audio encoder's
 LM_OPTIONAL_KEYS = ({"img_proj"}, {"frame_proj"})
-LM_LAYER_KEYS = {"ln1", "attn", "ln2", "mlp"}
+# a layer's FFN: the SwiGLU MLP or the MoE; its attention: GQA or MLA
+LM_LAYER_KEYS = ({"ln1", "attn", "ln2", "mlp"}, {"ln1", "attn", "ln2", "moe"})
+LM_ATTN_KEYS = ({"wq", "wk", "wv", "wo"},
+                {"wq_nope", "wq_rope", "w_dkv", "kv_norm", "w_uk", "w_uv",
+                 "w_kr", "wo"})
 
 
 def params_from_numpy(params, device=None):
@@ -135,25 +139,29 @@ def to_numpy(tree):
 
 def _check_lm(params):
     extra = set(params) - LM_KEYS
+    layers = params.get("layers", {})
     if (not LM_KEYS <= set(params)
             or (extra and extra not in LM_OPTIONAL_KEYS)
-            or set(params["layers"]) != LM_LAYER_KEYS):
-        raise ValueError(f"not a dense LM parameter tree: keys "
-                         f"{sorted(params)} / layers "
-                         f"{sorted(params.get('layers', {}))}")
+            or set(layers) not in LM_LAYER_KEYS
+            or set(layers["attn"]) not in LM_ATTN_KEYS):
+        raise ValueError(f"not a dense LM (nor a modal or MoE LM) "
+                         f"parameter tree: keys "
+                         f"{sorted(params)} / layers {sorted(layers)} / "
+                         f"attention {sorted(layers.get('attn', {}))}")
 
 
 def lm_params_from_numpy(params, device=None):
-    """A dense LM's parameters (numpy, the JAX package's structure with
-    stacked [L, ...] layer leaves; the VLM's `img_proj` or the audio
-    encoder's `frame_proj` besides) as tensors on `device` (the card unless
-    the caller passes another), dtypes kept, bfloat16 included."""
+    """An LM's parameters (numpy, the JAX package's structure with stacked
+    [L, ...] layer leaves: GQA or MLA attention, an MLP or an MoE FFN; the
+    VLM's `img_proj` or the audio encoder's `frame_proj` besides) as
+    tensors on `device` (the card unless the caller passes another), dtypes
+    kept, bfloat16 included."""
     _check_lm(params)
     return params_from_numpy(params, device)
 
 
 def lm_params_to_numpy(params):
-    """The port's dense LM parameters as numpy, dtypes kept: bfloat16 comes
+    """The port's LM parameters as numpy, dtypes kept: bfloat16 comes
     back as ml_dtypes' ``bfloat16``, which numpy knows once ml_dtypes (a
     JAX dependency) is imported."""
     _check_lm(params)

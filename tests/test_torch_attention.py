@@ -7,9 +7,11 @@ card.  Here it is held against the JAX package's Pallas kernel, run in
 interpret mode as `tests/test_kernels_flash.py` runs it, and against the JAX
 `attention_ref`, over that file's sweep: causal square L ∈ {128, 200
 (ragged), 256}, GQA (8,2) / (8,1) / (4,4), windows {64, 200}, non-causal,
-Lq < Lk, D ∈ {64, 128}, fp32 and bf16; and at the head dims the kernel pads
+Lq < Lk, D ∈ {64, 128}, fp32 and bf16; at the head dims the kernel pads
 in shared memory, D ∈ {80, 96} (hubert-xlarge, phi-3-vision-4.2b), causal
-and not, prefill and decode shapes.  Inputs come from numpy, seeded.
+and not, prefill and decode shapes; and at D = 192, deepseek-v2's MLA
+prefill (128 + 64 rope columns, V padded with 64 zero columns).  Inputs
+come from numpy, seeded.
 
 Tolerances:
 - fp32: atol 1e-5 / rtol 1e-5 against both.  All three take exact softmax
@@ -117,17 +119,50 @@ def test_padded_head_dims(D, dtype, causal):
     _run(_qkv(2, 8, 2, 1, 150, D, seed=D + 1), dtype, causal=causal)
 
 
+MLA_CASES = [(dt, causal) for dt in ("float32", "bfloat16")
+             for causal in (True, False)]
+
+
+@pytest.mark.parametrize("dtype,causal", MLA_CASES,
+                         ids=[f"{dt}-{'causal' if c else 'bidir'}"
+                              for dt, c in MLA_CASES])
+def test_mla_head_dim_192(dtype, causal):
+    """D = 192 (deepseek-v2-236b's MLA prefill folds 64 rope columns into
+    its 128-wide heads): MHA over a ragged L = 136, GQA and MHA decode
+    queries, the scale 1/√192; then V with its last 64 columns zero, as
+    `attention.mla_prefill` pads it, whose output columns come out 0 and
+    whose first 128 columns are the attention over the unpadded V."""
+    _run(_qkv(1, 4, 4, 136, 136, 192, seed=192), dtype, causal=causal)
+    _run(_qkv(2, 8, 2, 1, 150, 192, seed=193), dtype, causal=causal)
+    _run(_qkv(1, 4, 4, 16, 150, 192, seed=194), dtype, causal=causal)
+    q, k, v = _qkv(1, 4, 4, 72, 72, 192, seed=195)
+    v[..., 128:] = 0.0
+    _run((q, k, v), dtype, causal=causal)
+    T = torch.from_numpy
+    got = ref.attention_ref(T(q), T(k), T(v), causal=causal)
+    assert not got[..., 128:].any()
+    # the first 128 columns are P·V over the 128 real columns alone: the
+    # kernel's padding and the reference's pad agree
+    scale = 1.0 / 192 ** 0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", T(q), T(k)) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(72, 72, dtype=torch.bool).triu(1),
+                          float("-inf"))
+    want = torch.einsum("bhqk,bhkd->bhqd", s.softmax(-1), T(v)[..., :128])
+    torch.testing.assert_close(got[..., :128], want, **F32)
+
+
 @pytest.mark.parametrize("D", [48, 112, 160])
 def test_the_card_refuses_other_head_dims(monkeypatch, D):
-    """On the card `ops.attention` takes D in {32, 64, 80, 96, 128} and
-    raises for any other, before a launch and with no fallback to the
+    """On the card `ops.attention` takes D in {32, 64, 80, 96, 128, 192}
+    and raises for any other, before a launch and with no fallback to the
     plain version (the card's branch is taken with `_device_kind`
     monkeypatched, as `tests/test_torch_lm_training.py` does)."""
     monkeypatch.setattr(ops, "_device_kind", lambda t: "cuda")
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 2, 8, 8, D, seed=D))
     with pytest.raises(ValueError, match=f"head dim {D} not in"):
         ops.attention(q, k, v)
-    assert ops._HEAD_DIMS == (32, 64, 80, 96, 128)
+    assert ops._HEAD_DIMS == (32, 64, 80, 96, 128, 192)
 
 
 def test_decode_shape_window_bf16():
@@ -293,6 +328,22 @@ def test_tensor_core_numerics_at_padded_head_dim(window):
     assert _allowance_share(bad, want32) > 1.0
 
 
+def test_tensor_core_numerics_at_head_dim_192():
+    """D = 192 (deepseek-v2-236b's MLA prefill), three 64-column parts with
+    no padding and P·V as m64n192k16: the emulated kernel, P split, stays
+    within the bf16 allowance `test_tensor_core_numerics_need_p_split`
+    states, causal over 512 keys with V's last 64 columns zero, as the
+    model pads it."""
+    q, k, v = (_bf16_round(torch.from_numpy(a))
+               for a in _qkv(1, 4, 4, 512, 512, 192, seed=14))
+    v[..., 128:] = 0.0
+    want32 = ref.attention_ref(q, k, v, causal=True)
+    got = _tensor_core_emulation(q, k, v, causal=True, window=0, split=True)
+    share = _allowance_share(got, want32)
+    print(f"\nEMULATION D=192: worst share of the bf16 allowance {share:.3f}")
+    assert share <= 1.0 and not got[..., 128:].any()
+
+
 # --- the decode kernel's key splits and merge, emulated on the CPU ---
 
 def _split_decode_emulation(q, k, v, *, causal, window, chunk=128,
@@ -348,3 +399,14 @@ def test_decode_key_splits_merge_to_the_plain_version(Lq, Lk, window, Hkv):
     got = _split_decode_emulation(q, k, v, causal=True, window=window)
     want = ref.attention_ref(q, k, v, causal=True, window=window)
     torch.testing.assert_close(got, want, **F32)
+
+
+@pytest.mark.parametrize("Lq,Hkv", [(1, 8), (16, 2)])
+def test_decode_key_splits_merge_at_head_dim_192(Lq, Hkv):
+    """The same split and merge at D = 192 (the decode kernel's
+    instantiation for a deepseek-v2 prompt of at most 16 tokens), MHA and
+    GQA 4/1 over 2079 keys, within atol 1e-5 / rtol 1e-5."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, Hkv, Lq, 2079, 192,
+                                                  seed=15))
+    got = _split_decode_emulation(q, k, v, causal=True, window=0)
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v), **F32)

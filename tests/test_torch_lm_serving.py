@@ -306,12 +306,17 @@ def test_configs_mirror_the_reference():
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.hd, full.d_ff, full.vocab_size) == (22, 2048, 32, 4, 64,
                                                      5632, 32000)
-    for name in ("grok-1-314b", "mamba2-1.3b", "zamba2-7b",
-                 "deepseek-v2-236b"):
+    # the MoE family is ported: field for field the reference's
+    for name in ("grok-1-314b", "deepseek-v2-236b"):
+        cfg, jcfg = get_config(name), j_get_config(name)
+        for f in dataclasses.fields(cfg):
+            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+        assert cfg.is_moe and cfg.hd == jcfg.hd
+    for name in ("mamba2-1.3b", "zamba2-7b"):
         with pytest.raises(NotImplementedError, match="not ported"):
             get_config(name)
-    with pytest.raises(NotImplementedError, match="moe"):
-        dataclasses.replace(full, arch_type="moe")
+    with pytest.raises(NotImplementedError, match="ssm"):
+        dataclasses.replace(full, arch_type="ssm")
 
 
 def test_mask_vocab_pad_and_padded_vocab():
