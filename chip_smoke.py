@@ -53,17 +53,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    path's prefill and decode shapes (permuted views and cache slices, as
    the model passes them) in bf16 and fp32, GQA groupings, windows, a
    ragged tail, non-causal, queries at the end of a longer kv axis, rows
-   with no visible key, D in {32, 64, 80, 96, 128, 192} (80 and 96 padded
-   to 128 inside the kernels: causal, non-causal and windowed prefill over
-   ragged lengths, decode with MHA and GQA 8/1, unaligned views; 192,
+   with no visible key, D in {32, 64, 80, 96, 112, 128, 192} (80, 96 and
+   112 padded to 128 inside the kernels: causal, non-causal and windowed
+   prefill over ragged lengths, decode with MHA and GQA 8/1, unaligned
+   views; 192,
    deepseek-v2-236b's MLA prefill, in three 64-column parts: MHA with 128
    heads, causal, non-causal and windowed over ragged lengths, decode with
    MHA and GQA 8/1, unaligned views), grok-1-314b's grouping of 48 q heads
    over 8 kv heads at D = 128, a ragged
    last q block with a window over several kv tiles, views that are not
    16-byte aligned, decode with a GQA group of 8 at Lq in {1, 4, 16} over
-   a key count that is no multiple of a split, and phase 16's and phase
-   17's full-width shapes.  fp32 within atol 1e-5 / rtol 1e-5; bf16
+   a key count that is no multiple of a split, and phase 16's, phase 17's
+   and phase 18's full-width shapes.  fp32 within atol 1e-5 / rtol 1e-5; bf16
    within one bf16 ulp (plus 1e-5) of the plain version computed in fp32
    and rounded once.  The check must reject the plain version with the
    scale 1% off and with the window one key wider.
@@ -84,14 +85,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    34.2 MB, 10.2 µs at 3.35 TB/s; deepseek-v2-236b's MLA prefill [4, 128,
    2048, 192] causal: 687.5 GFLOP of useful work, Q·Kᵀ at 192 and P·V at
    the 128 value columns that are not the zero padding, 695.2 µs; the
-   padded V makes it 1.20×), as in phase 5, beside its bound (and, for
+   padded V makes it 1.20×) and at phase 18's two (zamba2-7b's shared
+   attention, prefill q [4, 32, 2048, 112] causal: bound 120.3 GFLOP,
+   121.6 µs, the padding to 128 columns 1.14×; decode [4, 32, 1, 112]
+   over 2079 keys: 119.3 MB, 35.6 µs), as in phase 5, beside its bound
+   (and, for
    prefill, the padded work), its plain version and
    `scaled_dot_product_attention`
    (the library yardstick, never called by the port; its max |Δ| and its
    share of the bf16 allowance are printed, not gated).  The built flash
    library's SASS (`cuobjdump -sass`) must hold `HGMMA` instructions in
    every instantiation of the bf16 prefill kernel.
-10. Where serving's time goes: one prefill and the 31 decode steps under
+10. Where serving's time goes: one prefill and 7 decode steps under
    `torch.profiler` (device busy and idle share, top kernels).
 11. `batched_scale_apply` through its tree entry point
    (`ops.batched_scale_apply`, one launch per dtype and 32 leaves,
@@ -279,11 +284,40 @@ Phases, in order; any failure exits non-zero and prints no result:
    copy).  Each arm's time is printed.  The launches of (a)-(c) join the
    kernels' record.
 
+18. The SSM and hybrid families at full width and depth (random weights
+   from seed 0, bf16): (a) mamba2-1.3b (48 Mamba2 layers, d_inner 4096,
+   64 heads of 64, state 128; 1.447 B weights) served through
+   `launch.serve.serve`, batch 4 x 2048 prompt tokens, 32 generated,
+   greedy: no flash launch, the peak memory beside the reckoning, the
+   prefill logits against `transformer.forward`, and the decode logits
+   at the last 4 positions, from the float32 state a 2044-token prefill
+   leaves, against one forward over all 2048 (phase 8's bound: a quarter
+   of the logits' std); the device time of `ssd_chunked` at one layer's
+   prefill shapes beside its fp32 bound; prefill and decode tokens/s,
+   then profiled as in phase 10; (b) zamba2-7b (81 Mamba2 layers and the
+   shared attention block after each of 13 groups of 6; 6.777 B
+   weights) the same way: `flash_attention` at D = 112, 13 + 13 x 31 =
+   416 times, the prefill logits against `transformer.forward` (the
+   shared block's attention through `_sdpa`); (c) the round trainer on
+   mamba2-1.3b at full width, phase 15 (b)'s point (C = 4, μ = 2, S =
+   256, fasgd lr 0.01, c_fetch 0.5): fused at all 48 layers, serial cut
+   to `SSM_TRAIN_DEPTH`, 5 rounds each, launches as in phase 15 (b), the
+   peak memory beside the reckoning; the fused loop sync-checked and
+   profiled over one round; the serial kernel on/off (phase 15 (b)'s
+   check) at `SSM_SERIAL_AGREE_DEPTH` layers; (d) zamba2-7b at full width
+   cut to 6 of 81 layers (one group, one application of the shared
+   block; 0.928 B weights): one gradient over 2 x 256 tokens, every leaf
+   finite, the shared block's nonzero, one SGD step of 0.5 lowering the
+   loss on the same batch; then the round trainer fused, 3 rounds.  Each
+   arm's time is printed.  The launches of (a)-(d) join the kernels'
+   record.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -1016,6 +1050,25 @@ ATTN_CASES = (
     ("grok-1 decode (phase 17)", 4, 48, 8, 1, 2079, 128, True, 0, "cache"),
     ("deepseek-v2 MLA prefill (phase 17)", 4, 128, 128, 2048, 2048, 192,
      True, 0, "model"),
+    # D = 112, zamba2-7b's shared attention (MHA, 32 heads), padded to 128
+    # in the kernels' shared memory: causal, non-causal and windowed
+    # prefill over ragged lengths, decode at Lq in {1, 4, 16} with MHA and
+    # GQA, unaligned views; then phase 18's full-width shapes
+    ("D=112 causal, ragged 300", 1, 8, 8, 300, 300, 112, True, 0, "model"),
+    ("D=112 non-causal, ragged 200", 2, 8, 8, 200, 200, 112, False, 0,
+     "model"),
+    ("D=112 window 150, ragged 333", 1, 8, 2, 333, 333, 112, True, 150,
+     "model"),
+    ("decode D=112 MHA, Lq=1", 2, 32, 32, 1, 1001, 112, True, 0, "cache"),
+    ("decode D=112 8/1, Lq=4, window 300", 2, 16, 2, 4, 1001, 112, True, 300,
+     "cache"),
+    ("decode D=112 MHA, Lq=16", 1, 32, 32, 16, 700, 112, True, 0, "cache"),
+    ("unaligned views D=112, prefill", 1, 8, 2, 200, 200, 112, True, 0,
+     "odd"),
+    ("unaligned views D=112, decode", 1, 8, 2, 3, 200, 112, True, 0, "odd"),
+    ("zamba2 prefill (phase 18)", 4, 32, 32, 2048, 2048, 112, True, 0,
+     "model"),
+    ("zamba2 decode (phase 18)", 4, 32, 32, 1, 2079, 112, True, 0, "cache"),
 )
 
 
@@ -1099,7 +1152,7 @@ def phase_attention(ops, ref, dev):
                 wrong.append(("window one key wider",
                               dict(window=window + 1)))
             if ("main path" in label or "phase 1" in label or "D=192" in label
-                    or window):
+                    or "D=112" in label or window):
                 for what, change in wrong:
                     bad = ref.attention_ref(q32, k32, v32, **{**kw, **change})
                     if attention_check(got, bad)[0]:
@@ -1204,7 +1257,8 @@ def phase_serving(ops, ref, dev):
 # main path's prefill and decode (tinyllama-1.1b; the entry's own fields),
 # then phase 16's: phi-3-vision-4.2b's prefill and decode, hubert-xlarge's
 # encode; then phase 17's: grok-1-314b's prefill and decode,
-# deepseek-v2-236b's MLA prefill.  DV: the value columns that carry work
+# deepseek-v2-236b's MLA prefill; then phase 18's: zamba2-7b's shared
+# attention at D = 112, prefill and decode.  DV: the value columns that carry work
 # (MLA's V is padded from 128 to 192 with zero columns, so its useful P·V
 # is at 128)
 ATTN_TIMES = (
@@ -1222,6 +1276,10 @@ ATTN_TIMES = (
      128),
     ("deepseek_prefill_", "deepseek-v2 MLA prefill", 4, 128, 128, 2048, 2048,
      192, "model", True, 128),
+    ("zamba2_prefill_", "zamba2 prefill", 4, 32, 32, 2048, 2048, 112, "model",
+     True, 112),
+    ("zamba2_decode_", "zamba2 decode", 4, 32, 32, 1, 2079, 112, "cache",
+     True, 112),
 )
 
 
@@ -1306,14 +1364,21 @@ def sass_hgmma(build):
              f"SASS ({wg})")
 
 
+# decode steps a serving breakdown times and profiles: a step costs the same
+# at every position of the 32 served, and the profiler's trace of a step
+# holds 2,500-5,200 device ops on the SSM and hybrid models
+BREAKDOWN_STEPS = 8
+
+
 def serving_breakdown(serving):
-    """Phase 10: one prefill and the decode steps, each timed on the host
-    clock and then under `torch.profiler`; the decode loop also runs under
-    ``set_sync_debug_mode('error')`` (a host sync in it fails the
-    script)."""
+    """Phase 10: one prefill and BREAKDOWN_STEPS - 1 decode steps, each
+    timed on the host clock and then under `torch.profiler`; the decode
+    loop also runs under ``set_sync_debug_mode('error')`` (a host sync in
+    it fails the script)."""
     import torch
     from repro_torch.models.serving import decode_step, grow_cache, prefill
-    cfg, params, gen = (serving[k] for k in ("cfg", "params", "gen"))
+    cfg, params = serving["cfg"], serving["params"]
+    gen = min(serving["gen"], BREAKDOWN_STEPS)
     batch = serving.get("batch") or {"tokens": serving["tokens"]}
     run_prefill = lambda: prefill(params, cfg, batch)
     logits, cache = run_prefill()
@@ -2615,6 +2680,19 @@ def gib(n_bytes) -> str:
     return f"{n_bytes / 2 ** 30:.2f} GiB"
 
 
+def free_card():
+    """Hand the card's memory of what was let go back to the allocator's
+    pool and the pool's free blocks back to the card.  The collector runs
+    first: an arm's state can sit in a reference cycle (the first grad
+    under `torch.func` imports modules whose frames hold its caller's),
+    and Python's own collections come at times that differ from run to
+    run, so without this the next arm may start with tens of GiB still
+    held."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 class LMRoundLoop(RoundLoop):
     """`RoundLoop` on the LM: the batches of `rounds` rounds, [C, μ, S]
     token and target tensors drawn once on the card; the held-out CE on
@@ -2718,7 +2796,7 @@ def round_arm(label, drv, mode, rounds, unit, per_round, reckoned):
     kernel = "fasgd_update" if mode == "serial" else "fused_event_apply"
     other = "fused_event_apply" if mode == "serial" else "fasgd_update"
     n_leaves = len(named_leaves(drv.params))
-    torch.cuda.empty_cache()
+    free_card()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     st, _, secs, launches, device = round_run(label, drv, rounds,
@@ -2742,7 +2820,7 @@ def round_arm(label, drv, mode, rounds, unit, per_round, reckoned):
           f"weights among them (reckoned {gib(reckoned)} with the weights, "
           f"+ activations)")
     del st
-    torch.cuda.empty_cache()
+    free_card()
     return device[kernel], rounds / secs
 
 
@@ -2823,7 +2901,7 @@ def lm_kernel_on_off(drv, rounds, label="(b) fused kernel on/off"):
           f"{worst['b']:.2e}, v {worst['v']:.2e} (2^-8 of |γ·old| + |new|, "
           f"+ {KSUM_TOL['atol']:g})")
     del state
-    torch.cuda.empty_cache()
+    free_card()
 
 
 def lm_serial_kernel_on_off(drv, rounds, label="(b) serial kernel on/off"):
@@ -2893,7 +2971,8 @@ def lm_serial_kernel_on_off(drv, rounds, label="(b) serial kernel on/off"):
                 del off, old, mag, terms
             pushes += 1
             del on
-        del grads, srv
+        # g_k's leaves are views of the stacked gradients: let both go
+        del grads, g_k, g, srv
         state, _, _ = drv.drive(state, r, 1)
     torch.cuda.synchronize()
     print(f"  {label}: {rounds} rounds, each of their {pushes} pushes "
@@ -2902,7 +2981,7 @@ def lm_serial_kernel_on_off(drv, rounds, label="(b) serial kernel on/off"):
           f"bf16 rounding of the plain float32 value + 2^-16 of its terms) "
           + ", ".join(f"{f} {w:.3f}" for f, w in worst.items()))
     del state
-    torch.cuda.empty_cache()
+    free_card()
 
 
 def round_peak(drv):
@@ -2979,7 +3058,7 @@ def phase_lm_training(dev, smi):
         round_breakdown(re.sub(r"[^a-z0-9]+", "_", label.lower()).strip("_"),
                         drv, 4)
         del drv
-        torch.cuda.empty_cache()
+        free_card()
     del params
 
     # (c) cotangent against materialized, float32 at a cut depth
@@ -3007,7 +3086,7 @@ def phase_lm_training(dev, smi):
           f"{gib(peaks['materialized'])} "
           f"({peaks['cotangent'] / peaks['materialized']:.2f}x)")
     del arms, params
-    torch.cuda.empty_cache()
+    free_card()
 
     # (d) FRED on the LM at the cut depth, float32
     cut = dataclasses.replace(cut, param_dtype=LM_FRED_DTYPE)
@@ -3148,7 +3227,7 @@ def phase_vlm_serving(ops, dev):
                  f"(_sdpa)", res["prefill_logits"], ref_logits,
                  cfg.vocab_size)
     del ref_logits, res
-    torch.cuda.empty_cache()
+    free_card()
     print(f"  {label}: where the time goes (torch.profiler):")
     serving_breakdown(dict(cfg=cfg, params=params, gen=VLM_GEN,
                            batch={"tokens": tokens, "image_embeds": image},
@@ -3285,7 +3364,7 @@ def phase_modal_training(dev):
         round_breakdown(re.sub(r"[^a-z0-9]+", "_", label.lower()).strip("_"),
                         drv, 1)
         del drv
-        torch.cuda.empty_cache()
+        free_card()
         if mode == "serial":
             n_fasgd += n
             cut = dataclasses.replace(cfg,
@@ -3296,9 +3375,9 @@ def phase_modal_training(dev):
                 drv, MODAL_SERIAL_AGREE, f"{label} kernel on/off at "
                 f"{cut.num_layers} of {cfg.num_layers} layers")
             del drv
-            torch.cuda.empty_cache()
+            free_card()
     del params, data
-    torch.cuda.empty_cache()
+    free_card()
 
     cfg = dataclasses.replace(get_config(VLM_ARCH),
                               num_layers=VLM_TRAIN_DEPTH)
@@ -3334,7 +3413,7 @@ def phase_modal_training(dev):
     n_fused += n
     rates[label] = (rate, "rounds")
     del drv, params, data
-    torch.cuda.empty_cache()
+    free_card()
     return n_fasgd, n_fused, rates
 
 
@@ -3554,7 +3633,7 @@ def phase_moe_serving(ops, dev, name, tag):
     full = get_config(name)
     cfg = dataclasses.replace(full, num_layers=MOE_SERVE_DEPTH[name])
     L = cfg.num_layers
-    torch.cuda.empty_cache()
+    free_card()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_model(torch.Generator(device=dev).manual_seed(0), cfg,
@@ -3661,13 +3740,13 @@ def phase_moe_serving(ops, dev, name, tag):
                  res["prefill_logits"], ref_logits, cfg.vocab_size)
     print(f"  {label}: moe_aux of the prefill {float(aux):.4f}")
     del ref_logits, res
-    torch.cuda.empty_cache()
+    free_card()
     print(f"  {label}: where the time goes (torch.profiler):")
     serving_breakdown(dict(cfg=cfg, params=params, gen=MOE_GEN,
                            batch={"tokens": tokens},
                            label=cfg.name.split("-")[0] + "_serve"))
     del params
-    torch.cuda.empty_cache()
+    free_card()
     return launches["flash_attention"], pre_tps, dec_tps
 
 
@@ -3728,7 +3807,7 @@ def phase_moe_gradient(dev):
     from repro_torch.utils.trees import leaves, tree_map
     for name in MOE_ARCHS:
         cfg = dataclasses.replace(get_config(name), num_layers=1)
-        torch.cuda.empty_cache()
+        free_card()
         torch.cuda.reset_peak_memory_stats()
         params = lm_params(cfg, dev)
         P = param_count(params)
@@ -3763,7 +3842,7 @@ def phase_moe_gradient(dev):
             fail(f"{label}: the SGD step did not lower the loss "
                  f"({float(loss):.4f} -> {loss1:.4f})")
         del params, stepped
-        torch.cuda.empty_cache()
+        free_card()
 
 
 def phase_moe(ops, dev, smi):
@@ -3791,6 +3870,381 @@ def phase_moe(ops, dev, smi):
     print(f"  rates on {smi}: " + "; ".join(
         f"{label} {r:.2f} {unit}/s" for label, (r, unit) in rates.items()))
     print(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    return n_flash, n_fasgd, n_fused
+
+
+# Phase 18: the SSM and hybrid families (ROADMAP queue 1, items 6d and 6e).
+# Both serve at their published widths and depths; the round trainer runs
+# mamba2-1.3b at full width, its depth cut only where the peak memory
+# reckoned from the shapes does not fit the card, and zamba2-7b at full
+# width cut to one group of 6 Mamba2 layers and one application of the
+# shared block.
+SSM_ARCH, HYBRID_ARCH = "mamba2-1.3b", "zamba2-7b"
+SSM_B, SSM_S, SSM_GEN = 4, 2048, 32
+SSM_CHECK = 4               # decode steps from the state, against forward
+# The decode logits from the state against one forward.  In float32 the
+# two differ by the SSD's summation order alone: max|Δ| within 1e-3 of the
+# logits' std.  In bf16 each of 48 layers rounds its GEMMs and the conv's
+# taps otherwise for one token than for 2048 (as the reference does), and
+# the roundings compound: the RMS of Δ within a tenth of the logits' std
+# (a wrong state moves them by the std itself; on the card the max came
+# out at 22% of the std and the mean at 3%: the tail of that noise over
+# 804480 logits, PERF.md §6).
+SSM_F32_SHARE, SSM_BF16_RMS_SHARE = 1e-3, 0.1
+SSM_ROUNDS, SSM_SERIAL_AGREE = 5, 2
+# (c)'s depths, a cut: a round's peak grows by ~2 GiB a layer (the state,
+# the client copies and the SSD's float32 activations of 4 clients), so at
+# 48 layers it does not fit the card (PERF.md §4 reckons it from the peaks
+# printed here); these depths keep each run under ~70 GiB
+SSM_TRAIN_DEPTH = {"fused": 32, "serial": 32}
+SSM_SERIAL_AGREE_DEPTH = 24
+HYBRID_TRAIN_DEPTH, HYBRID_ROUNDS = 6, 3
+HYBRID_GRAD_B, HYBRID_SGD_LR = 2, 0.5
+
+
+def ssd_flops(cfg, B, S):
+    """Float32 operations of one `models.ssm.ssd_chunked` call over [B, S]
+    as the port contracts it: the chunk scores, the masked decay product,
+    y_diag, the chunk states and the carried state's contribution."""
+    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    cs = min(cfg.ssm_chunk, S)
+    nc = -(-S // cs)
+    return (2 * B * nc * cs * cs * N + B * nc * H * cs * cs
+            + 2 * B * nc * H * cs * cs * P + 4 * B * nc * cs * H * P * N)
+
+
+def ssd_time(cfg, dev, flush, fp32_flops):
+    """Device ms of one layer's `ssd_chunked` at the prefill's shapes (CUDA
+    events, median of 10, L2 flushed) and its operations' bound at the
+    fp32 rate (TF32 is off)."""
+    import torch
+    from repro_torch.models.ssm import ssd_chunked
+    g = torch.Generator(device=dev).manual_seed(4)
+    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    x, Bm, Cm = rnd(SSM_B, SSM_S, H, P), rnd(SSM_B, SSM_S, N), rnd(
+        SSM_B, SSM_S, N)
+    dt = torch.nn.functional.softplus(rnd(SSM_B, SSM_S, H))
+    A = -torch.exp(rnd(H))
+    with torch.no_grad():
+        ms, _ = time_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk),
+                        flush, reps=10)
+    return ms, 1e3 * ssd_flops(cfg, SSM_B, SSM_S) / fp32_flops
+
+
+def decode_from_state(params, cfg, tokens):
+    """Logits [B, SSM_CHECK, V] of the last SSM_CHECK positions decoded one
+    by one from the cache a prefill of the others leaves."""
+    import torch
+    from repro_torch.models.serving import decode_step, grow_cache, prefill
+    S = tokens.shape[1]
+    S0 = S - SSM_CHECK
+    with torch.no_grad():
+        _, cache = prefill(params, cfg, {"tokens": tokens[:, :S0]})
+        cache = grow_cache(cfg, cache, S)
+        steps = []
+        for t in range(S0, S):
+            lt, cache = decode_step(params, cfg, tokens[:, t:t + 1], cache, t)
+            steps.append(lt)
+    return torch.cat(steps, dim=1)
+
+
+def state_agree(label, got, want, vocab, rms_share):
+    """Decode logits from the carried state against one forward's at the
+    same positions: the RMS of their difference within `rms_share` of the
+    forward's std (the vocabulary's columns).  Returns (max|Δ|, RMS, std)."""
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    d = got - want
+    mx, rms = float(d.abs().max()), float(d.pow(2).mean().sqrt())
+    spread = float(want.std())
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    print(f"  {label}: max|Δ| {mx:.4g}, RMS {rms:.4g}, mean|Δ| "
+          f"{float(d.abs().mean()):.4g}; logits' std {spread:.4f} (RMS "
+          f"{rms / spread:.4f} of it, max {mx / spread:.4f}); arg-max agree "
+          f"on {agree}/{d.shape[0] * d.shape[1]} (not gated: near-ties)")
+    if not rms <= rms_share * spread:
+        fail(f"{label}: RMS {rms:.4g} above {rms_share} of the logits' std "
+             f"{spread:.4f}")
+    return mx, rms, spread
+
+
+def phase_ssm_serving(ops, dev, name, tag, flush, fp32_flops):
+    """(a) mamba2-1.3b / (b) zamba2-7b served at full width and depth,
+    batch 4 x 2048 prompt tokens, 32 generated, greedy.  Returns the flash
+    launches and the rates."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.api import make_batch, param_count
+    from repro_torch.models.transformer import (forward, hybrid_split,
+                                                init_model)
+    from repro_torch.utils.trees import tree_map
+    cfg = get_config(name)
+    L, V = cfg.num_layers, cfg.vocab_size
+    hybrid = cfg.arch_type == "hybrid"
+    groups = hybrid_split(cfg)[1] if hybrid else 0
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(gen(0), cfg, device=dev)
+    tokens = make_batch(cfg, SSM_B, SSM_S, gen(1))["tokens"]
+    torch.cuda.synchronize()
+    P = param_count(params)
+    init_peak = torch.cuda.max_memory_allocated()
+    label = f"({tag}) {cfg.name} served"
+    attn = (f"; the shared block ({cfg.num_heads} heads of {cfg.hd}, MLP "
+            f"{cfg.d_ff}) after each of {groups} groups of "
+            f"{cfg.hybrid_attn_every} layers" if hybrid else "; no attention")
+    print(f"  {label}: {P:,} params, {L} layers (nothing cut), d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads "
+          f"of {cfg.ssm_headdim}, state {cfg.ssm_state}, chunks of "
+          f"{cfg.ssm_chunk}{attn}, {cfg.param_dtype}; batch {SSM_B} x "
+          f"{SSM_S}, gen {SSM_GEN}, greedy; init "
+          f"{time.perf_counter() - t0:.2f} s, its peak {gib(init_peak)}")
+    serve(cfg, params, tokens[:, :128], 3, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res = serve(cfg, params, tokens, SSM_GEN, device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches, device = dict(ops.LAUNCHES), dict(ops.DEVICE_LAUNCHES)
+    want = groups * SSM_GEN
+    if (launches["flash_attention"] != want
+            or device["flash_attention"] != want or launches["fasgd_update"]
+            or launches["fused_event_apply"]):
+        fail(f"{label}: launches {launches}, kernel launches {device}, want "
+             f"flash_attention = {want} ({groups} per prefill + {groups} x "
+             f"{SSM_GEN - 1} decode steps) and no server update")
+    out = res["tokens"]
+    if out.shape != (SSM_B, SSM_GEN) or not bool(
+            ((out >= 0) & (out < V)).all()) or not all(
+            bool(torch.isfinite(res[nm][..., :V].float()).all())
+            for nm in ("prefill_logits", "last_logits")):
+        fail(f"{label}: tokens {tuple(out.shape)} or non-finite logits")
+    d_conv = cfg.d_inner + 2 * cfg.ssm_state
+    state = L * SSM_B * (4 * cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state
+                         + 2 * (cfg.conv_width - 1) * d_conv)
+    kv = groups * SSM_B * (SSM_S + SSM_GEN) * 2 * 2 * cfg.num_kv_heads * cfg.hd
+    logits = 2 * SSM_B * SSM_S * cfg.padded_vocab
+    pre_tps = SSM_B * SSM_S / res["prefill_s"]
+    dec_tps = SSM_B * (SSM_GEN - 1) / res["decode_s"]
+    print(f"  {label}: flash_attention launched {launches['flash_attention']}"
+          f" times ({groups} + {groups} x {SSM_GEN - 1}); prefill "
+          f"{SSM_B * SSM_S} tokens in {res['prefill_s']:.4f} s = "
+          f"{pre_tps:.1f} tokens/s; decode {SSM_GEN - 1} steps x {SSM_B} in "
+          f"{res['decode_s']:.4f} s = {dec_tps:.1f} tokens/s (host clock, "
+          f"ending in a sync); peak memory {gib(peak)}, {gib(peak - base)} "
+          f"above the weights (reckoned: weights {gib(2 * P)}, the SSM state "
+          f"{gib(state)} (h float32), the attention cache {gib(kv)}, prefill "
+          f"logits {gib(logits)}, + a layer's activations)")
+    with torch.no_grad():
+        full, _ = forward(params, cfg, {"tokens": tokens})
+    logits_agree(f"{label}: prefill logits against transformer.forward"
+                 + (" (the shared block's attention through _sdpa)" if hybrid
+                    else " (the same SSD, one pass)"),
+                 res["prefill_logits"], full, V)
+    del res
+    # the state cache: prefill the first S - 4 tokens, then decode the last
+    # 4 from the carried state (the SSM's h, conv; the hybrid's k, v too)
+    S0 = SSM_S - SSM_CHECK
+    tail = full[:, S0:].clone()
+    del full
+    got = decode_from_state(params, cfg, tokens)
+    what = (f"decode logits at the last {SSM_CHECK} positions from the state "
+            f"of a {S0}-token prefill, against one forward over all {SSM_S}")
+    state_agree(f"{label}: bf16 {what}", got, tail, V, SSM_BF16_RMS_SHARE)
+    if not hybrid:
+        # the same in float32 (the weights' float32 images): the carried
+        # state alone, free of bf16 roundings
+        p32 = tree_map(lambda t: t.float(), params)
+        with torch.no_grad():
+            want32 = forward(p32, cfg, {"tokens": tokens})[0][:, S0:].clone()
+        got32 = decode_from_state(p32, cfg, tokens)
+        del p32
+        mx, _, spread = state_agree(f"{label}: float32 {what}", got32,
+                                    want32, V, SSM_BF16_RMS_SHARE)
+        if not mx <= SSM_F32_SHARE * spread:
+            fail(f"{label}: float32 decode from the state off by {mx:.4g}, "
+                 f"above {SSM_F32_SHARE} of the logits' std {spread:.4f}")
+        e_fwd = float((tail - want32)[..., :V].float().abs().max())
+        e_dec = float((got - want32)[..., :V].float().abs().max())
+        print(f"  {label}: from the float32 forward, the bf16 forward is "
+              f"max|Δ| {e_fwd:.4g} off and the bf16 decode from the state "
+              f"{e_dec:.4g}")
+        del got32, want32
+    del got, tail
+    free_card()
+    ssd_ms, ssd_bound = ssd_time(cfg, dev, flush, fp32_flops)
+    print(f"  {label}: models.ssm.ssd_chunked at one layer's prefill shapes "
+          f"(x [{SSM_B},{SSM_S},{cfg.ssm_heads},{cfg.ssm_headdim}] float32, "
+          f"state {cfg.ssm_state}): {ssd_ms * 1e3:.2f} us device (median of "
+          f"10, L2 flushed), bound {ssd_bound * 1e3:.2f} us (operations: "
+          f"{ssd_flops(cfg, SSM_B, SSM_S) / 1e9:.3f} GFLOP at the fp32 "
+          f"rate); x {L} layers = {ssd_ms * L:.2f} ms a prefill")
+    print(f"  {label}: where the time goes (torch.profiler):")
+    serving_breakdown(dict(cfg=cfg, params=params, gen=SSM_GEN,
+                           batch={"tokens": tokens},
+                           label=cfg.name.split("-")[0] + "_serve"))
+    del params
+    free_card()
+    return launches["flash_attention"], pre_tps, dec_tps, ssd_ms * L
+
+
+def phase_ssm_training(dev):
+    """(c) the round trainer on mamba2-1.3b at full width (fused at all 48
+    layers, serial and its kernel on/off cut in depth), phase 15 (b)'s
+    point.  Returns the launches of `fasgd_update` and
+    `fused_event_apply` and the rates."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainerConfig
+    from repro_torch.models.api import param_count
+    from repro_torch.models.lm import make_eval_fn
+    full = get_config(SSM_ARCH)
+    tc = TrainerConfig(num_round_clients=LM_C, rule="fasgd", lr=LM_LR,
+                       c_fetch=LM_C_FETCH, use_fused_kernel=True)
+    data = lm_tokens(full, LM_C * LM_MU * (SSM_ROUNDS + 4), 1, dev)
+    val = lm_tokens(full, 8, 2, dev)
+    n_fasgd = n_fused = 0
+    rates = {}
+    for mode, extra in (("fused", 0), ("serial", 8)):
+        cfg = dataclasses.replace(full, num_layers=SSM_TRAIN_DEPTH[mode])
+        params = lm_params(cfg, dev)
+        P = param_count(params)
+        reckoned = (40 + extra + 4 * LM_C) * P
+        cut = ("" if cfg.num_layers == full.num_layers else
+               f" (a cut: at {full.num_layers} the peak does not fit the "
+               f"card, PERF.md §4)")
+        label = f"(c) {cfg.name} round trainer {mode}"
+        print(f"  {label}: {cfg.num_layers} of {full.num_layers} layers"
+              f"{cut}, {P} parameters ({cfg.param_dtype}); C={LM_C}, "
+              f"μ={LM_MU}, S={LM_S}, fasgd lr={LM_LR}, c_fetch={LM_C_FETCH}")
+        drv = LMRoundLoop(tc, mode, cfg, params, data,
+                          make_eval_fn(cfg, *val))
+        n, rate = round_arm(label, drv, mode, SSM_ROUNDS, "tokens",
+                            LM_C * LM_MU * LM_S, reckoned)
+        rates[label] = (rate, "rounds")
+        if mode == "fused":
+            n_fused += n
+            print(f"  {label} under torch.cuda.set_sync_debug_mode('error'), "
+                  f"then profiled:")
+            round_breakdown("mamba2_round_trainer_fused", drv, 1)
+        else:
+            n_fasgd += n
+        del drv, params
+        free_card()
+    cfg = dataclasses.replace(full, num_layers=SSM_SERIAL_AGREE_DEPTH)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    drv = LMRoundLoop(tc, "serial", cfg, lm_params(cfg, dev), data,
+                      make_eval_fn(cfg, *val))
+    label = (f"(c) {cfg.name} serial kernel on/off at {cfg.num_layers} of "
+             f"{full.num_layers} layers")
+    lm_serial_kernel_on_off(drv, SSM_SERIAL_AGREE, label)
+    print(f"  {label}: peak memory {gib(torch.cuda.max_memory_allocated())} "
+          f"with the {gib(held)} held before it (the round's state and "
+          f"gradients, and the float32 images of a leaf, its in_proj the "
+          f"largest)")
+    del drv
+    free_card()
+    return n_fasgd, n_fused, rates
+
+
+def phase_hybrid_training(dev):
+    """(d) zamba2-7b at full width cut to one group (6 Mamba2 layers, one
+    application of the shared block): one gradient (every leaf finite, the
+    shared block's nonzero; one SGD step of 0.5 lowers the loss on the same
+    batch), then the round trainer fused.  Returns the `fused_event_apply`
+    launches and the rate."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainerConfig
+    from repro_torch.core import round_trainer as rt
+    from repro_torch.models.api import param_count
+    from repro_torch.models.lm import make_eval_fn, make_lm_loss
+    from repro_torch.utils.trees import leaves, tree_map
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, num_layers=HYBRID_TRAIN_DEPTH)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm_params(cfg, dev)
+    P = param_count(params)
+    shared = param_count(params["shared"])
+    label = f"(d) {cfg.name}, {cfg.num_layers} of {full.num_layers} layers"
+    loss = make_lm_loss(cfg)
+    tok, tgt = lm_tokens(cfg, HYBRID_GRAD_B, 0, dev)
+    l0, grads = rt.make_grad_fn(loss)(params, (tok, tgt))
+    bad = [n for n, g in named_leaves(grads)
+           if not bool(torch.isfinite(g.float()).all())]
+    quiet = [n for n, g in named_leaves(grads["shared"])
+             if not bool((g != 0).any())]
+    if bad or quiet:
+        fail(f"{label}: non-finite gradients {bad}; shared-block leaves "
+             f"with a zero gradient {quiet}")
+    gmax = float(max(g.float().abs().max() for g in leaves(grads["shared"])))
+    with torch.no_grad():
+        stepped = tree_map(
+            lambda p, g: (p.float() - HYBRID_SGD_LR * g.float()).to(p.dtype),
+            params, grads)
+        del grads
+        l1 = float(loss(stepped, tok, tgt))
+    del stepped
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {label} (a cut: one group and one application of the shared "
+          f"block): {P:,} params ({shared:,} in the shared block), batch "
+          f"{HYBRID_GRAD_B} x {LM_S}; loss {float(l0):.4f}, all "
+          f"{len(leaves(params))} gradients finite, max|shared-block grad| "
+          f"{gmax:.3e}; one SGD step of {HYBRID_SGD_LR} on the same batch: "
+          f"loss {l1:.4f}; peak memory {gib(peak)}")
+    if not l1 < float(l0):
+        fail(f"{label}: the SGD step did not lower the loss ({float(l0):.4f}"
+             f" -> {l1:.4f})")
+    tc = TrainerConfig(num_round_clients=LM_C, rule="fasgd", lr=LM_LR,
+                       c_fetch=LM_C_FETCH, use_fused_kernel=True)
+    data = lm_tokens(cfg, LM_C * LM_MU * (HYBRID_ROUNDS + 4), 1, dev)
+    val = lm_tokens(cfg, 8, 2, dev)
+    drv = LMRoundLoop(tc, "fused", cfg, params, data, make_eval_fn(cfg, *val))
+    n, rate = round_arm(f"{label} round trainer fused", drv, "fused",
+                        HYBRID_ROUNDS, "tokens", LM_C * LM_MU * LM_S,
+                        (40 + 4 * LM_C) * P)
+    del drv, params
+    free_card()
+    return n, rate
+
+
+def phase_ssm(ops, dev, smi, flush, fp32_flops):
+    """Phase 18: (a)-(d).  Returns the launches of the three kernels on its
+    paths."""
+    print(f"phase 18: the SSM and hybrid families at full width, on {smi}")
+    t0 = time.perf_counter()
+    rates = {}
+    n_flash = 0
+    for name, tag in ((SSM_ARCH, "a"), (HYBRID_ARCH, "b")):
+        t = time.perf_counter()
+        n, pre, dec, ssd = phase_ssm_serving(ops, dev, name, tag, flush,
+                                             fp32_flops)
+        n_flash += n
+        rates[f"({tag}) {name} prefill"] = (pre, "tokens")
+        rates[f"({tag}) {name} decode"] = (dec, "tokens")
+        print(f"  ({tag}) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    n_fasgd, n_fused, train = phase_ssm_training(dev)
+    rates.update(train)
+    print(f"  (c) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    n, rate = phase_hybrid_training(dev)
+    n_fused += n
+    rates[f"(d) {HYBRID_ARCH} round trainer fused"] = (rate, "rounds")
+    print(f"  (d) took {time.perf_counter() - t:.1f} s")
+    ops.reset_launches()
+    print(f"  rates on {smi}: " + "; ".join(
+        f"{label} {r:.2f} {unit}/s" for label, (r, unit) in rates.items()))
+    print(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
     return n_flash, n_fasgd, n_fused
 
 
@@ -3954,13 +4408,15 @@ def main() -> int:
     n_flash16, n_fasgd16, n_fused16 = phase_audio_vlm(ops, dev, smi)
     # --- phase 17: the MoE family ---
     n_flash17, n_fasgd17, n_fused17 = phase_moe(ops, dev, smi)
+    # --- phase 18: the SSM and hybrid families ---
+    n_flash18, n_fasgd18, n_fused18 = phase_ssm(ops, dev, smi, flush, flops)
 
     kernels = [
         dict(name="fasgd_update", route="cuda",
              source="src/repro_torch/kernels/csrc/fasgd_update.cu",
              replaces="src/repro/kernels/fasgd_update.py:50",
              launches=n_serial + n_gated + n_fasgd12 + n_fasgd13
-             + n_fasgd14 + n_fasgd15 + n_fasgd16 + n_fasgd17,
+             + n_fasgd14 + n_fasgd15 + n_fasgd16 + n_fasgd17 + n_fasgd18,
              max_abs_err=errs["fasgd_update"], ms=fu_ms, plain_ms=fu_plain,
              bound_ms=fu_bound,
              bound_by="bytes" if fu_bytes / bw >= fu_ops / flops
@@ -3969,13 +4425,14 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/fused_event_apply.cu",
              replaces="src/repro/kernels/fused_event_apply.py:89",
              launches=n_fused + n_fused12 + n_fused13 + n_fused14
-             + n_fused15 + n_fused16 + n_fused17,
+             + n_fused15 + n_fused16 + n_fused17 + n_fused18,
              max_abs_err=errs["fused_event_apply"],
              library_ms=None, **fused),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:98",
-             launches=serving["launches"] + n_flash16 + n_flash17,
+             launches=serving["launches"] + n_flash16 + n_flash17
+             + n_flash18,
              max_abs_err=attn_err,
              **attn_times),
         batched,

@@ -2,37 +2,27 @@
 
 Ported from `repro.configs`: one module per architecture, each exporting
 FULL (the published configuration, bfloat16) and SMOKE (2 layers, d_model
-256, float32, for the CPU tests).  The dense decoders, the audio encoder
-(hubert-xlarge), the VLM (phi-3-vision-4.2b) and the MoE decoders
-(grok-1-314b, deepseek-v2-236b with MLA) are ported; the reference's other
-architectures raise `NotImplementedError`, naming what they still need.
+256, float32, for the CPU tests).  Every architecture of the reference is
+here: the dense decoders, the audio encoder (hubert-xlarge), the VLM
+(phi-3-vision-4.2b), the MoE decoders (grok-1-314b, deepseek-v2-236b with
+MLA), the SSM (mamba2-1.3b) and the hybrid (zamba2-7b).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import NOT_PORTED, ModelConfig
+from repro_torch.configs.base import ModelConfig
 
-ARCH_NAMES = ["phi-3-vision-4.2b", "grok-1-314b", "hubert-xlarge",
-              "tinyllama-1.1b", "llama3-8b", "yi-34b", "deepseek-v2-236b",
-              "yi-9b"]
-
-# the reference's other architectures, by the families they wait for
-NOT_PORTED_ARCHS = {
-    "mamba2-1.3b": ("ssm",),
-    "zamba2-7b": ("hybrid",),
-}
+ARCH_NAMES = ["phi-3-vision-4.2b", "grok-1-314b", "mamba2-1.3b",
+              "zamba2-7b", "hubert-xlarge", "tinyllama-1.1b", "llama3-8b",
+              "yi-34b", "deepseek-v2-236b", "yi-9b"]
 
 _MODULES = {n: "repro_torch.configs." + n.replace("-", "_").replace(".", "_")
             for n in ARCH_NAMES}
 
 
 def _module(name: str):
-    if name in NOT_PORTED_ARCHS:
-        missing = " and ".join(NOT_PORTED[f] for f in NOT_PORTED_ARCHS[name])
-        raise NotImplementedError(f"{name} is not ported yet: it needs "
-                                  f"{missing}")
     if name not in _MODULES:
         raise KeyError(f"unknown architecture {name!r}")
     return importlib.import_module(_MODULES[name])

@@ -1,15 +1,14 @@
 """Model and trainer configuration.
 
-Ported from `repro.configs.base`.  `ModelConfig` covers the dense
-decoders, the two modality families built on them (the audio encoder and
-the VLM) and the MoE family (GQA or MLA attention, a top-k MoE FFN): the
-fields are those these paths read (`causal` and `is_encoder`, which
-`supports_decode` and the attention masks read, the modality stubs' input
-widths, the MoE and MLA widths, and the training path's `remat` and
-`loss_chunk`); `dtype` is a `torch.dtype`.  The SSM and hybrid families'
-fields come with their modules: a config of either `arch_type` raises
-`NotImplementedError`.  `TrainerConfig` configures the
-round trainer (`core.round_trainer`), with every field of the reference.
+Ported from `repro.configs.base`.  `ModelConfig` covers the six
+families of the reference: the dense decoders, the two modality families
+built on them (the audio encoder and the VLM), the MoE family (GQA or MLA
+attention, a top-k MoE FFN), the SSM family (a Mamba2 stack) and the
+hybrid (the Mamba2 stack with one shared attention block); it has the
+reference's fields, names and defaults, and `dtype` is a `torch.dtype`.
+An `arch_type` outside those six raises `ValueError`.  `TrainerConfig`
+configures the round trainer (`core.round_trainer`), with every field of
+the reference.
 """
 from __future__ import annotations
 
@@ -21,23 +20,18 @@ import torch
 if TYPE_CHECKING:       # core imports this module: no import cycle at run time
     from repro_torch.core.scenarios import ScenarioConfig
 
-# the reference's other families, and the modules each still needs here
-NOT_PORTED = {
-    "ssm": "the Mamba2 mixer (models/ssm.py)",
-    "hybrid": "the Mamba2 mixer and the shared attention block "
-              "(models/ssm.py, the hybrid stack of models/transformer.py)",
-}
-PORTED_ARCH_TYPES = ("dense", "audio", "vlm", "moe")
+PORTED_ARCH_TYPES = ("dense", "audio", "vlm", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One attention stack, [ln→attn→res, ln→FFN→res] × L: a dense
-    decoder, an audio encoder over frame embeddings, a VLM decoder over
-    image and text tokens (GQA, SwiGLU), or an MoE decoder (GQA or MLA, a
-    top-k MoE FFN)."""
+    """One model: an attention stack, [ln→attn→res, ln→FFN→res] × L (a
+    dense decoder, an audio encoder over frame embeddings, a VLM decoder
+    over image and text tokens, or an MoE decoder with GQA or MLA), a
+    Mamba2 stack, [ln→Mamba2→res] × L (ssm), or that stack with one shared
+    attention block after every `hybrid_attn_every` layers (hybrid)."""
     name: str
-    arch_type: str               # dense | audio | vlm | moe
+    arch_type: str               # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -53,6 +47,15 @@ class ModelConfig:
     # MLA (deepseek-v2)
     use_mla: bool = False
     kv_lora_rank: int = 0
+    # SSM (mamba2 / zamba2): d_inner = ssm_expand · d_model, ssm_heads =
+    # d_inner / ssm_headdim, state width ssm_state, SSD chunks of ssm_chunk
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 64
+    conv_width: int = 4
+    # hybrid (zamba2): the shared attention block after every k SSM layers
+    hybrid_attn_every: int = 0
     attn_window: int = 0         # 0 = full attention; >0 = sliding window
     causal: bool = True
     is_encoder: bool = False     # hubert: bidirectional, no decode step
@@ -67,16 +70,19 @@ class ModelConfig:
     remat: bool = False
     loss_chunk: int = 0          # >0: compute CE in seq chunks (bounds the
                                  # f32 [B, S, V] logits footprint)
+    # the reference's unrolled layer scan (an XLA cost-analysis mode): kept
+    # for the field set, no effect here (the layers are a Python loop)
+    unroll_stack: bool = False
     param_dtype: str = "float32"     # the full-size configs use bfloat16
     citation: str = ""
 
     def __post_init__(self):
         if self.arch_type not in PORTED_ARCH_TYPES:
-            missing = NOT_PORTED.get(self.arch_type, "an unknown family")
-            raise NotImplementedError(
-                f"{self.name}: arch_type {self.arch_type!r} is not ported "
-                f"yet; it needs {missing}")
-        if self.num_heads % self.num_kv_heads:
+            raise ValueError(f"{self.name}: unknown arch_type "
+                             f"{self.arch_type!r}, not one of "
+                             f"{PORTED_ARCH_TYPES}")
+        # an attention-free family (mamba2) has no heads to group
+        if self.num_kv_heads and self.num_heads % self.num_kv_heads:
             raise ValueError(f"{self.name}: {self.num_heads} q heads do not "
                              f"group over {self.num_kv_heads} kv heads")
 
@@ -98,8 +104,21 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
     def supports_decode(self) -> bool:
         return not self.is_encoder
+
+    def supports_long_context(self) -> bool:
+        """True if the arch serves long decodes with bounded state: SSM and
+        hybrid natively, attention archs through a sliding window."""
+        return self.arch_type in ("ssm", "hybrid") or self.attn_window > 0
 
 
 @dataclasses.dataclass(frozen=True)

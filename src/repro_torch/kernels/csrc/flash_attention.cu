@@ -47,8 +47,9 @@
 //   registers and V from shared memory through the transpose bit (V is
 //   MN-major as it lies).  The head dim is padded in shared memory to DP,
 //   the next multiple of 64 (64 for D = 32 and 64; two 64-column halves
-//   for D = 80, 96 and 128; three parts for D = 192, deepseek-v2's MLA
-//   prefill), with zero columns that no copy writes: S runs D/16 k16 steps
+//   for D = 80, 96, 112 and 128, zamba2-7b's shared attention at 112;
+//   three parts for D = 192, deepseek-v2's MLA prefill), with zero
+//   columns that no copy writes: S runs D/16 k16 steps
 //   over the real columns only, P·V runs at nDP and only D output columns
 //   are stored.  The padding lives in shared memory, so the host passes its
 //   views as they are (no pad copy per call).  At D = 192, P·V is
@@ -85,7 +86,7 @@
 //   row; the rows' max, exponentials and sums are then taken once per key,
 //   by a warp per row, and P·V runs with threads owning (row, 4 dims), D/4
 //   threads a row (for D = 80 and 96 the block's last 8 threads own none,
-//   for D = 192 the last 32).
+//   for D = 112 the last 16, for D = 192 the last 32).
 //   The keys are split across blocks (flash-decoding: at the main path's shape
 //   B·Hkv = 16 groups for 132 SMs) into whole 128-key chunks, about two
 //   blocks per SM; each split writes its (m, l, acc) to a scratch buffer
@@ -919,7 +920,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int TPR = D / 4;               // threads per output row
   constexpr int RP = kDecThreads / TPR;    // output rows per pass
   constexpr int NI = (kDecOut / D + RP - 1) / RP;  // passes: 8; 9 for D =
-                                                   // 80 and 96; 11 for 192
+                                                   // 80, 96 and 112; 11
+                                                   // for 192
   extern __shared__ float4 dsm4[];
 
   const int split = blockIdx.x;
@@ -1209,6 +1211,7 @@ cudaError_t launch_dim(int head_dim, const void* q, const void* k,
     case 64: return launch<T, 64>(q, k, v, o, scratch, scratch_floats, p, stream);
     case 80: return launch<T, 80>(q, k, v, o, scratch, scratch_floats, p, stream);
     case 96: return launch<T, 96>(q, k, v, o, scratch, scratch_floats, p, stream);
+    case 112: return launch<T, 112>(q, k, v, o, scratch, scratch_floats, p, stream);
     case 128: return launch<T, 128>(q, k, v, o, scratch, scratch_floats, p, stream);
     case 192: return launch<T, 192>(q, k, v, o, scratch, scratch_floats, p, stream);
     default: return cudaErrorInvalidValue;
@@ -1227,7 +1230,7 @@ bool aligned16(const void* ptr, const int64_t* strides, int esize) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike); head_dim in
-// {32, 64, 80, 96, 128, 192}.  `strides` (host memory) holds the batch, head and sequence
+// {32, 64, 80, 96, 112, 128, 192}.  `strides` (host memory) holds the batch, head and sequence
 // element strides of q, k, v and o, in that order (12 values).  Decode
 // (Lq <= 16) writes per-split partials to `scratch`, a float32 device buffer
 // of `scratch_floats` >= B·Hq·Lq·32·(head_dim + 2), which a second launch

@@ -556,7 +556,7 @@ def batched_scale_apply(params: Any, grads: Any, v: Any, coeffs, taus, *,
     return unflatten(params, outs)
 
 
-_HEAD_DIMS = (32, 64, 80, 96, 128, 192)
+_HEAD_DIMS = (32, 64, 80, 96, 112, 128, 192)
 # Lq up to this takes the decode kernel, which splits the keys across at
 # most _DECODE_MAX_SPLITS blocks and merges their (m, l, acc) from a float32
 # scratch buffer (kRowsMaxLq and kMaxSplits in csrc/flash_attention.cu).

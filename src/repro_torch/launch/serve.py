@@ -1,14 +1,22 @@
 """LM serving: batched prefill, then token-by-token decode.
 
-Ported from `repro.launch.serve` (the dense decoders, the VLM and the MoE
-decoders):
+Ported from `repro.launch.serve` (every decoder family: the dense
+decoders, the VLM, the MoE decoders, the SSM and the hybrid):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --batch 4 --prompt-len 2048 --gen 32 --temperature 0
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch phi-3-vision-4.2b --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+      --batch 4 --prompt-len 2048 --gen 32 --temperature 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+      --batch 4 --prompt-len 2048 --gen 32 --temperature 0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \\
       --smoke --device cpu
+
+mamba2-1.3b and zamba2-7b decode from an O(1) state (`models.serving`):
+the prefill's state carries over as it is, and only zamba2's shared
+attention block keeps a cache that grows with the sequence.
 
 grok-1-314b and deepseek-v2-236b do not fit one card at their published
 depth, and the CLI, like the reference's, has no depth flag: a caller

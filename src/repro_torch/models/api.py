@@ -22,11 +22,11 @@ def make_batch(cfg: ModelConfig, batch_size: int, seq_len: int,
                generator: torch.Generator):
     """A random batch of `cfg`'s family, drawn from `generator` on its
     device: {tokens, targets: [B, S] int64} uniform over the vocabulary
-    (dense); {frames [B, S, F] normal in `cfg.dtype`, targets [B, S]}
-    (audio); {tokens [B, S − P], image_embeds [B, P, F] normal in
-    `cfg.dtype`, targets [B, S − P]} (vlm), where `seq_len` is the total
-    length with the P = `cfg.num_image_tokens` image tokens and must
-    exceed P."""
+    (dense, moe, ssm, hybrid); {frames [B, S, F] normal in `cfg.dtype`,
+    targets [B, S]} (audio); {tokens [B, S − P], image_embeds [B, P, F]
+    normal in `cfg.dtype`, targets [B, S − P]} (vlm), where `seq_len` is
+    the total length with the P = `cfg.num_image_tokens` image tokens and
+    must exceed P."""
     kw = dict(generator=generator, device=generator.device)
     B, V = batch_size, cfg.vocab_size
     if cfg.arch_type == "audio":

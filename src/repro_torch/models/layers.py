@@ -57,7 +57,9 @@ def dense_init(generator: torch.Generator, shape, dtype, scale=None, *,
         scale = 1.0 / math.sqrt(fan_in)
     full = ((layers,) if layers else ()) + tuple(shape)
     w = torch.randn(full, generator=generator, device=generator.device)
-    return (scale * w).to(device=device or generator.device, dtype=dtype)
+    # scaled in place: a second float32 copy of a stacked leaf (zamba2-7b's
+    # in_proj is 16.9 GB in float32) would double the init's peak
+    return w.mul_(scale).to(device=device or generator.device, dtype=dtype)
 
 
 def rms_norm(x, weight, eps: float = 1e-5):

@@ -1,5 +1,5 @@
-"""LM loss adapters: the token decoders (dense and MoE) in the engine's
-loss convention.
+"""LM loss adapters: the token decoders (dense, MoE, SSM and hybrid) in
+the engine's loss convention.
 
 Ported from `repro.models.lm`.  FRED (`sim.fred`) and the round trainer
 (`core.round_trainer`) take

@@ -1,5 +1,5 @@
-"""The attention stack, [ln→attn→res, ln→FFN→res] × L, and its training
-loss, for four families:
+"""The model stack and its training loss, for the reference's six
+families:
  - dense (tinyllama / llama3 / yi): a causal GQA decoder over tokens;
  - audio (hubert): a bidirectional encoder over precomputed frame
    embeddings (`frame_proj`; the conv frontend is a stub, as in the
@@ -10,15 +10,22 @@ loss, for four families:
  - moe (grok-1 / deepseek-v2): a causal decoder whose FFN is a top-k MoE
    (`models.moe`) and whose attention is GQA or, with `use_mla`, MLA; the
    layers' switch aux losses sum into `moe_aux`, which `loss_fn` weighs
-   by `aux_weight`.
+   by `aux_weight`;
+ - ssm (mamba2): [ln→Mamba2→res] × L (`models.ssm`), no attention;
+ - hybrid (zamba2): the Mamba2 stack with ONE shared attention + MLP
+   block (`shared`) applied after every `hybrid_attn_every` layers, on
+   the concatenation of the hidden state and the embedded input; its
+   weights are reused at every application, as in the paper, so their
+   gradients sum over the applications.
+The first four are attention stacks, [ln→attn→res, ln→FFN→res] × L.
 
-Ported from `repro.models.transformer` (the SSM and hybrid families
-wait).  Parameters are a plain dict of
+Ported from `repro.models.transformer`.  Parameters are a plain dict of
 tensors with the reference's structure and its stacked [L, ...] layer
 leaves, so weights carry across one to one
 (`utils.convert.lm_params_from_numpy`).  The reference's `lax.scan` over
-layers is a Python loop over per-layer views of the stacked leaves
-(`layer_views`), and so is its scan over the loss's sequence chunks.
+layers (two levels for the hybrid: groups, then the layers of a group) is
+a Python loop over per-layer views of the stacked leaves (`layer_views`),
+and so is its scan over the loss's sequence chunks.
 
 `deltas`, where a function takes it, is an event's stale offset
 δ = p_k − W (detached, the structure of the parameters): the forward is
@@ -39,6 +46,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (delta_einsum, dense_init, dget, eff,
                                        init_embedding, init_mlp, mlp_forward,
                                        rms_norm)
@@ -52,8 +60,9 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, device=None):
     card unless the caller passes another).  Draws come from `generator`, on
     its own device: a CUDA generator keeps a full-width init on the card.
     An MoE config draws the `moe` leaves where the others draw `mlp`, and
-    MLA's attention leaves where the others draw GQA's; the other families'
-    draws are unchanged."""
+    MLA's attention leaves where the others draw GQA's; the SSM and hybrid
+    families draw {ln, mamba} layers, and the hybrid its shared block after
+    them; the other families' draws are unchanged."""
     device = resolve_device(device)
     L, d, dt = cfg.num_layers, cfg.d_model, cfg.dtype
     kw = dict(device=device)
@@ -63,6 +72,14 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, device=None):
         "unembed": dense_init(generator, (d, cfg.padded_vocab), dt,
                               scale=0.02, **kw),
     }
+    if cfg.arch_type in ("ssm", "hybrid"):
+        params["layers"] = {
+            "ln": torch.ones(L, d, dtype=dt, device=device),
+            "mamba": ssm_mod.init_ssm(generator, cfg, layers=L, **kw),
+        }
+        if cfg.arch_type == "hybrid":
+            params["shared"] = _init_shared_block(generator, cfg, device)
+        return params
     params["layers"] = {
         "ln1": torch.ones(L, d, dtype=dt, device=device),
         "attn": attn.init_attention(generator, cfg, layers=L, **kw),
@@ -85,6 +102,19 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, device=None):
     return params
 
 
+def _init_shared_block(generator, cfg, device):
+    """Zamba2's shared attention block, one set of weights: {in_proj: [2d,
+    d], ln1, attn (GQA), ln2, mlp (SwiGLU)}."""
+    d, dt = cfg.d_model, cfg.dtype
+    return {
+        "in_proj": dense_init(generator, (2 * d, d), dt, device=device),
+        "ln1": torch.ones(d, dtype=dt, device=device),
+        "attn": attn.init_attention(generator, cfg, device=device),
+        "ln2": torch.ones(d, dtype=dt, device=device),
+        "mlp": init_mlp(generator, d, cfg.d_ff, dt, device=device),
+    }
+
+
 def _attn_block(lp, cfg, x, positions, dl=None):
     """One layer → (x, its MoE aux loss, or None without experts)."""
     h = rms_norm(x, eff(lp["ln1"], dget(dl, "ln1")), cfg.norm_eps)
@@ -95,6 +125,45 @@ def _attn_block(lp, cfg, x, positions, dl=None):
         h, aux = moe_mod.moe_forward(lp["moe"], cfg, h, dp=dget(dl, "moe"))
         return x + h, aux
     return x + mlp_forward(lp["mlp"], h, dp=dget(dl, "mlp")), None
+
+
+def _mamba_block(lp, cfg, x, dl=None):
+    h = rms_norm(x, eff(lp["ln"], dget(dl, "ln")), cfg.norm_eps)
+    return x + ssm_mod.ssm_forward(lp["mamba"], cfg, h, dp=dget(dl, "mamba"))
+
+
+def _shared_block(sp, cfg, x, emb0, positions, ds=None):
+    """The hybrid's shared block on x and the embedded input emb0 (both
+    [B, S, d]): y = [x, emb0]·in_proj, y += attn(ln1(y)), y += mlp(ln2(y)),
+    out = x + y.  Attention is `gqa_forward` (`_sdpa`)."""
+    y = delta_einsum("bsd,dk->bsk", torch.cat([x, emb0], dim=-1),
+                     sp["in_proj"], dget(ds, "in_proj"))
+    y = y + attn.gqa_forward(
+        sp["attn"], cfg,
+        rms_norm(y, eff(sp["ln1"], dget(ds, "ln1")), cfg.norm_eps),
+        positions, dp=dget(ds, "attn"))
+    y = y + mlp_forward(
+        sp["mlp"], rms_norm(y, eff(sp["ln2"], dget(ds, "ln2")), cfg.norm_eps),
+        dp=dget(ds, "mlp"))
+    return x + y
+
+
+def hybrid_split(cfg):
+    """(k, n_groups, rest): the shared block follows each of the n_groups
+    groups of k Mamba2 layers; the last `rest` layers have none after
+    them."""
+    k = cfg.hybrid_attn_every
+    n_groups = cfg.num_layers // k
+    return k, n_groups, cfg.num_layers - n_groups * k
+
+
+def shared_after(cfg, i: int) -> bool:
+    """Whether the hybrid's shared block follows layer i (False for every
+    other family); its application is then number i // k."""
+    if cfg.arch_type != "hybrid":
+        return False
+    k, n_groups, _ = hybrid_split(cfg)
+    return i % k == k - 1 and i < n_groups * k
 
 
 def layer_views(tree):
@@ -110,11 +179,22 @@ def layer_views(tree):
 def _run_stack(params, cfg, x, positions, deltas=None):
     """The layers over x [B, S, d] → (x, moe_aux): the sum of the layers'
     switch aux losses (float32), 0.0 for a family without experts, as in
-    the reference."""
+    the reference.  The hybrid applies the shared block after layers k −
+    1, 2k − 1, …, n_groups·k − 1 (`shared_after`), on x and the embedded
+    input, W[tok] + δ[tok] under `deltas`, with `deltas["shared"]` as the
+    block's stale offset."""
     lps = layer_views(params["layers"])
     dls = ([None] * len(lps) if deltas is None
            else layer_views(deltas["layers"]))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        emb0 = x
+        for i, (lp, dl) in enumerate(zip(lps, dls)):
+            x = _mamba_block(lp, cfg, x, dl)
+            if shared_after(cfg, i):
+                x = _shared_block(params["shared"], cfg, x, emb0, positions,
+                                  dget(deltas, "shared"))
+        return x, aux
     for lp, dl in zip(lps, dls):
         x, a = _attn_block(lp, cfg, x, positions, dl)
         if a is not None:
@@ -124,7 +204,7 @@ def _run_stack(params, cfg, x, positions, deltas=None):
 
 def _embed_inputs(params, cfg, batch, deltas=None):
     """→ (x [B, S, d], positions [B, S]) for the family's batch:
-    `tokens` [B, S] (dense); `frames` [B, S, F] through `frame_proj`
+    `tokens` [B, S] (dense, moe, ssm, hybrid); `frames` [B, S, F] through `frame_proj`
     (audio); `image_embeds` [B, P, F] through `img_proj`, then `tokens`
     [B, S_text], at positions 0 .. P + S_text − 1 (vlm).
 

@@ -37,6 +37,12 @@ LM_LAYER_KEYS = ({"ln1", "attn", "ln2", "mlp"}, {"ln1", "attn", "ln2", "moe"})
 LM_ATTN_KEYS = ({"wq", "wk", "wv", "wo"},
                 {"wq_nope", "wq_rope", "w_dkv", "kv_norm", "w_uk", "w_uv",
                  "w_kr", "wo"})
+# an SSM layer (mamba2, zamba2's stack): its norm and the Mamba2 mixer
+LM_SSM_LAYER_KEYS = {"ln", "mamba"}
+LM_SSM_KEYS = {"in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+               "out_norm", "out_proj"}
+# zamba2's shared block: GQA attention and a SwiGLU MLP
+LM_SHARED_KEYS = {"in_proj", "ln1", "attn", "ln2", "mlp"}
 
 
 def params_from_numpy(params, device=None):
@@ -140,20 +146,31 @@ def to_numpy(tree):
 def _check_lm(params):
     extra = set(params) - LM_KEYS
     layers = params.get("layers", {})
-    if (not LM_KEYS <= set(params)
-            or (extra and extra not in LM_OPTIONAL_KEYS)
-            or set(layers) not in LM_LAYER_KEYS
-            or set(layers["attn"]) not in LM_ATTN_KEYS):
-        raise ValueError(f"not a dense LM (nor a modal or MoE LM) "
-                         f"parameter tree: keys "
+    if set(layers) == LM_SSM_LAYER_KEYS:
+        ok = set(layers["mamba"]) == LM_SSM_KEYS
+        if extra == {"shared"}:   # the hybrid: the SSM stack and its block
+            shared = params["shared"]
+            ok = ok and (set(shared) == LM_SHARED_KEYS
+                         and set(shared["attn"]) == LM_ATTN_KEYS[0])
+        elif extra:
+            ok = False
+    else:
+        ok = (set(layers) in LM_LAYER_KEYS
+              and set(layers["attn"]) in LM_ATTN_KEYS
+              and (not extra or extra in LM_OPTIONAL_KEYS))
+    if not (LM_KEYS <= set(params) and ok):
+        raise ValueError(f"not a dense LM (nor a modal, MoE, SSM or hybrid "
+                         f"LM) parameter tree: keys "
                          f"{sorted(params)} / layers {sorted(layers)} / "
-                         f"attention {sorted(layers.get('attn', {}))}")
+                         f"attention {sorted(layers.get('attn', {}))} / "
+                         f"mamba {sorted(layers.get('mamba', {}))}")
 
 
 def lm_params_from_numpy(params, device=None):
     """An LM's parameters (numpy, the JAX package's structure with stacked
     [L, ...] layer leaves: GQA or MLA attention, an MLP or an MoE FFN; the
-    VLM's `img_proj` or the audio encoder's `frame_proj` besides) as
+    VLM's `img_proj` or the audio encoder's `frame_proj` besides; or
+    Mamba2 layers {ln, mamba}, with the hybrid's `shared` block) as
     tensors on `device` (the card unless the caller passes another), dtypes
     kept, bfloat16 included."""
     _check_lm(params)

@@ -8,7 +8,8 @@ interpret mode as `tests/test_kernels_flash.py` runs it, and against the JAX
 `attention_ref`, over that file's sweep: causal square L ∈ {128, 200
 (ragged), 256}, GQA (8,2) / (8,1) / (4,4), windows {64, 200}, non-causal,
 Lq < Lk, D ∈ {64, 128}, fp32 and bf16; at the head dims the kernel pads
-in shared memory, D ∈ {80, 96} (hubert-xlarge, phi-3-vision-4.2b), causal
+in shared memory, D ∈ {80, 96, 112} (hubert-xlarge, phi-3-vision-4.2b,
+zamba2-7b's shared attention), causal
 and not, prefill and decode shapes; and at D = 192, deepseek-v2's MLA
 prefill (128 + 64 rope columns, V padded with 64 zero columns).  Inputs
 come from numpy, seeded.
@@ -105,7 +106,7 @@ def test_head_dims(D):
     _run(_qkv(1, 2, 2, 128, 128, D, seed=6))
 
 
-PADDED_DIMS = [(D, dt, causal) for D in (80, 96)
+PADDED_DIMS = [(D, dt, causal) for D in (80, 96, 112)
                for dt in ("float32", "bfloat16") for causal in (True, False)]
 
 
@@ -113,7 +114,8 @@ PADDED_DIMS = [(D, dt, causal) for D in (80, 96)
                          ids=[f"D{D}-{dt}-{'causal' if c else 'bidir'}"
                               for D, dt, c in PADDED_DIMS])
 def test_padded_head_dims(D, dtype, causal):
-    """D = 80 (hubert-xlarge) and 96 (phi-3-vision-4.2b): MHA over a
+    """D = 80 (hubert-xlarge), 96 (phi-3-vision-4.2b) and 112 (zamba2-7b's
+    shared attention block): MHA over a
     ragged L = 136 and a GQA decode query, the scale 1/√D of the true D."""
     _run(_qkv(1, 4, 4, 136, 136, D, seed=D), dtype, causal=causal)
     _run(_qkv(2, 8, 2, 1, 150, D, seed=D + 1), dtype, causal=causal)
@@ -152,9 +154,10 @@ def test_mla_head_dim_192(dtype, causal):
     torch.testing.assert_close(got[..., :128], want, **F32)
 
 
-@pytest.mark.parametrize("D", [48, 112, 160])
+@pytest.mark.parametrize("D", [48, 144, 160])
 def test_the_card_refuses_other_head_dims(monkeypatch, D):
-    """On the card `ops.attention` takes D in {32, 64, 80, 96, 128, 192}
+    """On the card `ops.attention` takes D in {32, 64, 80, 96, 112, 128,
+    192}
     and raises for any other, before a launch and with no fallback to the
     plain version (the card's branch is taken with `_device_kind`
     monkeypatched, as `tests/test_torch_lm_training.py` does)."""
@@ -162,7 +165,7 @@ def test_the_card_refuses_other_head_dims(monkeypatch, D):
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 2, 8, 8, D, seed=D))
     with pytest.raises(ValueError, match=f"head dim {D} not in"):
         ops.attention(q, k, v)
-    assert ops._HEAD_DIMS == (32, 64, 80, 96, 128, 192)
+    assert ops._HEAD_DIMS == (32, 64, 80, 96, 112, 128, 192)
 
 
 def test_decode_shape_window_bf16():
@@ -328,6 +331,28 @@ def test_tensor_core_numerics_at_padded_head_dim(window):
     assert _allowance_share(bad, want32) > 1.0
 
 
+@pytest.mark.parametrize("window", [0, 300])
+def test_tensor_core_numerics_at_head_dim_112(window):
+    """D = 112 (zamba2-7b's shared attention, MHA), padded to two 64-column
+    halves with 16 zero columns, S as 7 k16 steps: the emulated kernel, P
+    split, stays within the bf16 allowance
+    `test_tensor_core_numerics_need_p_split` states, causal over 1024 keys
+    with and without a window; with the scale of the padded width
+    (1/√128) the criterion catches it."""
+    q, k, v = (_bf16_round(torch.from_numpy(a))
+               for a in _qkv(1, 8, 8, 1024, 1024, 112, seed=16))
+    want32 = ref.attention_ref(q, k, v, causal=True, window=window)
+    got = _tensor_core_emulation(q, k, v, causal=True, window=window,
+                                 split=True)
+    share = _allowance_share(got, want32)
+    print(f"\nEMULATION D=112 padded to 128, window={window}: worst share "
+          f"of the bf16 allowance {share:.3f}")
+    assert share <= 1.0
+    bad = _tensor_core_emulation(q, k, v, causal=True, window=window,
+                                 split=True, scale_dim=128)
+    assert _allowance_share(bad, want32) > 1.0
+
+
 def test_tensor_core_numerics_at_head_dim_192():
     """D = 192 (deepseek-v2-236b's MLA prefill), three 64-column parts with
     no padding and P·V as m64n192k16: the emulated kernel, P split, stays
@@ -408,5 +433,16 @@ def test_decode_key_splits_merge_at_head_dim_192(Lq, Hkv):
     GQA 4/1 over 2079 keys, within atol 1e-5 / rtol 1e-5."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, Hkv, Lq, 2079, 192,
                                                   seed=15))
+    got = _split_decode_emulation(q, k, v, causal=True, window=0)
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v), **F32)
+
+
+@pytest.mark.parametrize("Lq,Hkv", [(1, 32), (16, 8)])
+def test_decode_key_splits_merge_at_head_dim_112(Lq, Hkv):
+    """The same split and merge at D = 112 (zamba2-7b's decode: MHA with
+    32 heads over 2079 keys; and Lq = 16 with GQA 4/1), within atol 1e-5 /
+    rtol 1e-5."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 32, Hkv, Lq, 2079, 112,
+                                                  seed=17))
     got = _split_decode_emulation(q, k, v, causal=True, window=0)
     torch.testing.assert_close(got, ref.attention_ref(q, k, v), **F32)

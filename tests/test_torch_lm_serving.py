@@ -312,11 +312,16 @@ def test_configs_mirror_the_reference():
         for f in dataclasses.fields(cfg):
             assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
         assert cfg.is_moe and cfg.hd == jcfg.hd
+    # the SSM and hybrid families are ported: field for field the
+    # reference's
     for name in ("mamba2-1.3b", "zamba2-7b"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(name)
-    with pytest.raises(NotImplementedError, match="ssm"):
-        dataclasses.replace(full, arch_type="ssm")
+        cfg, jcfg = get_config(name), j_get_config(name)
+        for f in dataclasses.fields(cfg):
+            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+        assert (cfg.d_inner, cfg.ssm_heads, cfg.supports_long_context()) == (
+            jcfg.d_inner, jcfg.ssm_heads, jcfg.supports_long_context())
+    with pytest.raises(ValueError, match="unknown arch_type"):
+        dataclasses.replace(full, arch_type="rnn")
 
 
 def test_mask_vocab_pad_and_padded_vocab():
