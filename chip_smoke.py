@@ -128,8 +128,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    windows): `fused_event_apply` once per window, then 8 windows from one
    state with the kernel on and off, θ/n/b/v within KSUM_TOL, T, τ and
    the counters equal; (d) Gap-Aware serial (500 events) and fused (40
-   windows); (e) SSGD and K-async (K=4 of 16), round-robin, 2000 events,
-   T = 125 rounds each.  Every run's validation cost must fall; (f) each
+   windows); (e) SSGD and K-async (K=4 of 16), round-robin, 1024 events,
+   T = 64 rounds each (125 until phase 19 needed the time).  Every run's validation cost must fall; (f) each
    loop runs under ``set_sync_debug_mode('error')`` and is profiled as in
    phase 6; (g) each run's events/s.  The launches of (b) and (c) join
    the kernels' record.
@@ -300,17 +300,37 @@ Phases, in order; any failure exits non-zero and prints no result:
    416 times, the prefill logits against `transformer.forward` (the
    shared block's attention through `_sdpa`); (c) the round trainer on
    mamba2-1.3b at full width, phase 15 (b)'s point (C = 4, μ = 2, S =
-   256, fasgd lr 0.01, c_fetch 0.5): fused at all 48 layers, serial cut
-   to `SSM_TRAIN_DEPTH`, 5 rounds each, launches as in phase 15 (b), the
+   256, fasgd lr 0.01, c_fetch 0.5), cut to `SSM_TRAIN_DEPTH` layers:
+   fused and serial, 5 rounds each, launches as in phase 15 (b), the
    peak memory beside the reckoning; the fused loop sync-checked and
    profiled over one round; the serial kernel on/off (phase 15 (b)'s
-   check) at `SSM_SERIAL_AGREE_DEPTH` layers; (d) zamba2-7b at full width
+   check); (d) zamba2-7b at full width
    cut to 6 of 81 layers (one group, one application of the shared
    block; 0.928 B weights): one gradient over 2 x 256 tokens, every leaf
    finite, the shared block's nonzero, one SGD step of 0.5 lowering the
    loss on the same batch; then the round trainer fused, 3 rounds.  Each
    arm's time is printed.  The launches of (a)-(d) join the kernels'
    record.
+19. The sharded parameter server (`core.server_shard`), its shards on
+   distinct cards where there are S, else on `cuda:0` repeated (the
+   device list is printed): (a) phase 3's serial arms (plain and gated,
+   2000 events) and phase 4's fused arm (40 windows of K = 128), each at
+   S = 2 and 4 shards through `run_simulation(mesh=...)`, held against
+   phases 3 and 4's S = 1 runs: the parameters within the reference's
+   S > 1 invariant (rtol 1e-5, atol 1e-6; the leaves equal bitwise
+   counted), every other counter equal, the ``shard_*`` counters equal
+   to the plan's peak bytes and the window counts, `fasgd_update` and
+   `fused_event_apply` launched S times an event or window; events/s
+   beside S = 1's; the serial and fused loops at S = 4 sync-checked and
+   profiled.  (b) tinyllama-1.1b's round trainer at phase 15 (b)'s point
+   (C = 4, μ = 2, S = 256, fasgd lr 0.01, c_fetch 0.5, bf16, kernel on),
+   fused, its server on 4 shards (`shard_round_state`), 22 layers, 5
+   rounds stepped beside the S = 1 run from one state: the client
+   timestamps and every counter but ``shard_*`` equal each round, θ, n,
+   b, v within phase 15's allowance (the leaves equal bitwise counted),
+   4 `fused_event_apply` launches a round; the plan's per-shard peak
+   bytes beside each run's measured peak, and rounds/s.  The launches
+   join the kernels' record.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -704,14 +724,16 @@ def fused_tree_case(ops, ref, ins, K, mode, track, vectors, what, tally):
 
 
 def run_path(label, cfg, ds, params, num_steps, eval_every, loss=None,
-             data=None, eval_fn=None, must_fall=True):
+             data=None, eval_fn=None, must_fall=True, mesh=None):
     """One run of `run_simulation` on the card after a short warm-up, with
     the launch counts set to 0 just before it; the validation cost must be
     finite and, unless `must_fall` is off, fall; the server parameters
     finite.  The MLP on `ds` unless
-    `loss`, `data` (x, y) and `eval_fn` are given.  Prints one line and
-    returns (out, seconds, leaf dispatches, kernel launches)."""
+    `loss`, `data` (x, y) and `eval_fn` are given; `mesh` goes to
+    `run_simulation`.  Prints one line and returns (out, seconds, leaf
+    dispatches, kernel launches)."""
     import torch
+    from repro_torch.core import server_shard
     from repro_torch.kernels import ops
     from repro_torch.models.mlp import nll_loss
     from repro_torch.sim.fred import run_simulation
@@ -721,12 +743,13 @@ def run_path(label, cfg, ds, params, num_steps, eval_every, loss=None,
         eval_fn = lambda p: nll_loss(p, ds.x_valid, ds.y_valid)
     # warm-up (first use of each CUDA kernel, cuBLAS), not timed or counted
     warm = cfg.events_per_step * (1 if cfg.apply_mode == "fused" else 20)
-    run_simulation(cfg, loss, params, *data, warm, eval_every=warm)
+    run_simulation(cfg, loss, params, *data, warm, eval_every=warm,
+                   mesh=mesh)
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
     out = run_simulation(cfg, loss, params, *data, num_steps,
-                         eval_every=eval_every, eval_fn=eval_fn)
+                         eval_every=eval_every, eval_fn=eval_fn, mesh=mesh)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
@@ -745,8 +768,8 @@ def run_path(label, cfg, ds, params, num_steps, eval_every, loss=None,
     vals = out["val_cost"]
     if not all(math.isfinite(x) for x in vals):
         fail(f"{label}: non-finite validation cost {vals}")
-    if not all(bool(torch.isfinite(l).all())
-               for l in leaves(out["state"].server.params)):
+    if not all(bool(torch.isfinite(l).all()) for l in leaves(
+            server_shard.gather(out["state"].server, lambda s: s.params))):
         fail(f"{label}: non-finite server parameters")
     if must_fall and not vals[-1] < vals[0]:
         fail(f"{label}: validation cost did not fall: {vals}")
@@ -761,7 +784,8 @@ def run_main_path(label, cfg, ds, params, num_steps, eval_every, kernel,
     (`ops.DEVICE_LAUNCHES`) the number of applications, one launch each
     whatever the leaves: ``kernel_events`` on the serial path (one per
     event), ``kernel_events`` / K on the fused path (one per K-event
-    window).  Returns (kernel launches of `kernel`, events/s)."""
+    window).  Returns (kernel launches of `kernel`, events/s, the run's
+    output)."""
     import torch
     from repro_torch.sim.fred import native_draws
     out, secs, launches, device = run_path(label, cfg, ds, params, num_steps,
@@ -790,22 +814,28 @@ def run_main_path(label, cfg, ds, params, num_steps, eval_every, kernel,
     print(f"  {label}: of which the draws (NativeDraws.events) "
           f"{1e6 * draw_secs / num_steps:.1f} us/event, "
           f"{draw_secs / secs:.3f} of the run's time")
-    return device[kernel], num_steps / secs
+    return device[kernel], num_steps / secs, out
 
 
-def breakdown(label, cfg, ds, params, n_events, loss=None, data=None):
+def breakdown(label, cfg, ds, params, n_events, loss=None, data=None,
+              mesh=None):
     """Drive `n_events` events of the main path three times after a warm
     window: under ``set_sync_debug_mode('error')`` (any host sync in the
     event loop raises), timed on the host clock, and under `torch.profiler`
     to print the device's busy and idle share and its top kernels.  The
-    MLP on `ds` unless `loss` and `data` (x, y) are given."""
+    MLP on `ds` unless `loss` and `data` (x, y) are given; the server
+    placed on `mesh`'s server axis when ``cfg.server_shards > 1``."""
     import torch
+    from repro_torch.core import server_shard
     from repro_torch.models.mlp import nll_loss
     from repro_torch.sim.fred import build_step_fn, init_sim, native_draws
     from repro_torch.utils.trees import leaves
     x, y = (ds.x_train, ds.y_train) if data is None else data
     dev = x.device
     state = init_sim(cfg, params)
+    if cfg.server_shards > 1:
+        state = state._replace(server=server_shard.shard_server_state(
+            state.server, mesh, cfg.server_axis))
     step = build_step_fn(cfg, loss or nll_loss, x, y)
     rng = native_draws(cfg, x.shape[0], len(leaves(params)))
     K = cfg.events_per_step
@@ -1883,6 +1913,9 @@ def kernel_on_off(label, cfg, ds, params, warm, windows):
           f"kernel on, 0 off")
 
 
+BARRIER_EVENTS = 1024      # phase 12 (e): 64 rounds of 16 arrivals
+
+
 def phase_rest_of_server(ds, params, K):
     """Phase 12: the rest of FRED's server at the full 784-200-10 width on
     the full synthetic set — per-tensor gating (serial and fused, push and
@@ -1927,7 +1960,8 @@ def phase_rest_of_server(ds, params, K):
     label = "(b) serial per-tensor push, skip"
     cfg = SimConfig(server=fasgd, bandwidth=BandwidthConfig(
         c_push=0.05, drop_policy="skip", per_tensor_push=True), **quick)
-    n_fasgd, rates[label] = run_main_path(label, cfg, ds, params, 2000, 500,
+    n_fasgd, rates[label], _ = run_main_path(label, cfg, ds, params, 2000,
+                                             500,
                                           "fasgd_update", "fused_event_apply")
     loops[label] = cfg
 
@@ -1935,7 +1969,7 @@ def phase_rest_of_server(ds, params, K):
     label = "(c) fused per-tensor push+fetch, cache"
     cfg = SimConfig(server=dataclasses.replace(fasgd, lr=0.0025),
                     bandwidth=combined, **wide)
-    n_fused, rates[label] = run_main_path(label, cfg, ds, params, 40 * K,
+    n_fused, rates[label], _ = run_main_path(label, cfg, ds, params, 40 * K,
                                           10 * K, "fused_event_apply",
                                           "fasgd_update")
     loops[label] = cfg
@@ -1954,19 +1988,22 @@ def phase_rest_of_server(ds, params, K):
     loops[label] = cfg
 
     # (e) the barrier rules, round-robin: one round per 16 arrivals
+    # (BARRIER_EVENTS: 64 rounds, cut from 125 to make room for phase 19)
     for rule, kw in (("ssgd", {}), ("kasync", dict(kasync_k=4))):
         label = f"(e) {rule} serial round-robin" + (
             f", K={kw['kasync_k']} of 16" if kw else "")
         cfg = SimConfig(server=ServerConfig(rule=rule, lr=0.05,
                                             num_clients=16, **kw),
                         dispatcher="roundrobin", **quick)
-        out, secs, launches, _ = run_path(label, cfg, ds, params, 2000, 500)
-        if out["final_timestamp"] != 2000 // 16:
+        out, secs, launches, _ = run_path(label, cfg, ds, params,
+                                          BARRIER_EVENTS,
+                                          BARRIER_EVENTS // 2)
+        if out["final_timestamp"] != BARRIER_EVENTS // 16:
             fail(f"{label}: T={out['final_timestamp']}, want "
-                 f"{2000 // 16} rounds")
+                 f"{BARRIER_EVENTS // 16} rounds")
         if sum(launches.values()):
             fail(f"{label}: a kernel ran ({launches})")
-        rates[label], loops[label] = 2000 / secs, cfg
+        rates[label], loops[label] = BARRIER_EVENTS / secs, cfg
 
     # (f) no host sync in any of these loops, and where their time goes
     print("  (f) each loop under torch.cuda.set_sync_debug_mode('error'), "
@@ -2286,6 +2323,10 @@ def round_run(label, drv, rounds, must_fall=True):
     drv.drive(drv.init(), 0, 4)
     torch.cuda.synchronize()
     cost0 = drv.val_cost(drv.init().server.params)
+    # the warm-up's states go before the run: a model's round state is 16
+    # bytes a parameter, and a reference cycle can hold one until the
+    # collector runs (hubert-xlarge's serial arm ran out of memory so)
+    free_card()
     ops.reset_launches()
     t0 = time.perf_counter()
     # the initial state goes straight to `drive`, which lets it go after
@@ -2891,7 +2932,9 @@ def lm_kernel_on_off(drv, rounds, label="(b) fused kernel on/off"):
                 fail(f"{label}, round {r}, leaf {i}: θ share {share:.3f}, "
                      f"{worst}")
             del off, mag
-        del on, grads
+        # g and the float32 images x, y, old, e, v1 are the last leaf's:
+        # let them go with the stacked gradients before the round
+        del on, grads, g, x, y, old, e, v1, srv
         state, _, _ = drv.drive(state, r, 1)
     torch.cuda.synchronize()
     print(f"  {label}: {rounds} rounds, each round's gradients applied both "
@@ -3892,12 +3935,14 @@ SSM_CHECK = 4               # decode steps from the state, against forward
 # 804480 logits, PERF.md §6).
 SSM_F32_SHARE, SSM_BF16_RMS_SHARE = 1e-3, 0.1
 SSM_ROUNDS, SSM_SERIAL_AGREE = 5, 2
-# (c)'s depths, a cut: a round's peak grows by ~2 GiB a layer (the state,
+# (c)'s depth, a cut: a round's peak grows by ~2 GiB a layer (the state,
 # the client copies and the SSD's float32 activations of 4 clients), so at
 # 48 layers it does not fit the card (PERF.md §4 reckons it from the peaks
-# printed here); these depths keep each run under ~70 GiB
-SSM_TRAIN_DEPTH = {"fused": 32, "serial": 32}
-SSM_SERIAL_AGREE_DEPTH = 24
+# printed here).  At 32 a round peaked at 69.10 GiB, and one run ran out of
+# memory in a serial apply with 73.63 GiB allocated, far above the ~46
+# bytes a parameter (44 GiB) such an apply holds by the shapes; at 24 the
+# peak is reckoned at ~55 GiB, ~25 GiB under the card's 80 GB
+SSM_TRAIN_DEPTH = 24
 HYBRID_TRAIN_DEPTH, HYBRID_ROUNDS = 6, 3
 HYBRID_GRAD_B, HYBRID_SGD_LR = 2, 0.5
 
@@ -4094,9 +4139,9 @@ def phase_ssm_serving(ops, dev, name, tag, flush, fp32_flops):
 
 
 def phase_ssm_training(dev):
-    """(c) the round trainer on mamba2-1.3b at full width (fused at all 48
-    layers, serial and its kernel on/off cut in depth), phase 15 (b)'s
-    point.  Returns the launches of `fasgd_update` and
+    """(c) the round trainer on mamba2-1.3b at full width, cut to
+    `SSM_TRAIN_DEPTH` layers (fused, serial and its kernel on/off), phase
+    15 (b)'s point.  Returns the launches of `fasgd_update` and
     `fused_event_apply` and the rates."""
     import dataclasses
     import torch
@@ -4109,10 +4154,10 @@ def phase_ssm_training(dev):
                        c_fetch=LM_C_FETCH, use_fused_kernel=True)
     data = lm_tokens(full, LM_C * LM_MU * (SSM_ROUNDS + 4), 1, dev)
     val = lm_tokens(full, 8, 2, dev)
+    cfg = dataclasses.replace(full, num_layers=SSM_TRAIN_DEPTH)
     n_fasgd = n_fused = 0
     rates = {}
     for mode, extra in (("fused", 0), ("serial", 8)):
-        cfg = dataclasses.replace(full, num_layers=SSM_TRAIN_DEPTH[mode])
         params = lm_params(cfg, dev)
         P = param_count(params)
         reckoned = (40 + extra + 4 * LM_C) * P
@@ -4137,7 +4182,6 @@ def phase_ssm_training(dev):
             n_fasgd += n
         del drv, params
         free_card()
-    cfg = dataclasses.replace(full, num_layers=SSM_SERIAL_AGREE_DEPTH)
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     drv = LMRoundLoop(tc, "serial", cfg, lm_params(cfg, dev), data,
@@ -4248,6 +4292,271 @@ def phase_ssm(ops, dev, smi, flush, fp32_flops):
     return n_flash, n_fasgd, n_fused
 
 
+# Phase 19: the sharded parameter server (ROADMAP queue 1, item 7), its
+# shards on the card (repeated) or on distinct cards where there are S.
+SHARD_COUNTS = (2, 4)
+SHARD_TOL = dict(rtol=1e-5, atol=1e-6)   # the reference's S > 1 invariant
+SHARD_LM_S = 4                           # (b): tinyllama's round trainer
+SHARD_LM_DEPTH = 22                      # (b): all of tinyllama's layers
+SHARD_LM_ROUNDS = 5
+
+
+def shard_devices(S):
+    """S distinct cards where there are S, else the first card S times."""
+    import torch
+    if torch.cuda.device_count() >= S:
+        return [torch.device("cuda", i) for i in range(S)]
+    return [torch.device("cuda", 0)] * S
+
+
+def kept_run(out, rate):
+    """What phase 19 holds of an S = 1 main-path run: the server
+    parameters, the counters, the rate."""
+    return dict(params=out["state"].server.params, counters=out["counters"],
+                rate=rate)
+
+
+def shard_arm(label, cfg, ds, params, n, every, kernel, base, S):
+    """One main-path arm at S shards against its S = 1 run `base`
+    (`kept_run`): the parameters within SHARD_TOL (the leaves equal
+    bitwise counted), every other counter equal, the ``shard_*`` counters
+    equal to the plan's peak bytes and the window counts, and `kernel`
+    launched S times an application.  Returns (kernel launches,
+    events/s)."""
+    import dataclasses
+    import torch
+    from repro_torch.core import server_shard
+    from repro_torch.launch.mesh import make_server_mesh
+    from repro_torch.utils.trees import leaves
+    devices = shard_devices(S)
+    mesh = make_server_mesh(server=S, devices=devices)
+    cfg = dataclasses.replace(cfg, server_shards=S)
+    out, secs, launches, device = run_path(f"{label} S={S}", cfg, ds,
+                                           params, n, every, mesh=mesh)
+    c = out["counters"]
+    K = cfg.events_per_step
+    applied = n // K
+    if not (device[kernel] == S * applied and launches[kernel]
+            == S * c["kernel_launches"]):
+        fail(f"{label} S={S}: kernel launches {device}, leaf dispatches "
+             f"{launches}, kernel_launches {c['kernel_launches']}: want "
+             f"{S} x {applied}")
+    rest = {k: v for k, v in c.items() if not k.startswith("shard_")}
+    if rest != base["counters"]:
+        fail(f"{label} S={S}: counters {rest} != S=1's {base['counters']}")
+    # the counter keeps the plan's bytes in float32, as the reference does
+    want = dict(shard_applies=applied, shard_events=n, shard_depth_peak=K,
+                shard_bytes_peak=float(torch.tensor(
+                    server_shard.peak_shard_bytes(out["state"].server, S),
+                    dtype=torch.float32)))
+    got = {k: c[k] for k in want}
+    if got != want:
+        fail(f"{label} S={S}: shard counters {got}, want {want}")
+    whole = server_shard.gather(out["state"].server, lambda s: s.params)
+    bitwise, worst = 0, 0.0
+    for i, (a, b) in enumerate(zip(leaves(whole), leaves(base["params"]))):
+        bitwise += int(torch.equal(a, b))
+        if not torch.allclose(a, b, **SHARD_TOL):
+            fail(f"{label} S={S}: leaf {i} outside rtol "
+                 f"{SHARD_TOL['rtol']:g}, atol {SHARD_TOL['atol']:g}: "
+                 f"max|Δ| {float((a - b).abs().max()):.3e}")
+        worst = max(worst, float((a - b).abs().max()))
+    print(f"  {label} S={S} on {[str(d) for d in devices]}: {kernel} "
+          f"launched {device[kernel]} times ({S} an "
+          f"{'event' if K == 1 else 'window'}); {n / secs:.1f} events/s "
+          f"against S=1's {base['rate']:.1f} ({n / secs / base['rate']:.3f}"
+          f"x); parameters against S=1: {bitwise} of {len(leaves(whole))} "
+          f"leaves bitwise, max|Δ| {worst:.3e} (rtol {SHARD_TOL['rtol']:g}, "
+          f"atol {SHARD_TOL['atol']:g}); every other counter equal; shard "
+          f"counters {got} (the plan's peak bytes a shard)")
+    return device[kernel], n / secs
+
+
+def phase_sharded_lm(dev, smi):
+    """Phase 19 (b): tinyllama-1.1b's round trainer at phase 15 (b)'s
+    point, fused, first at S = 1, then with its server on SHARD_LM_S
+    shards (`shard_round_state`), from the same weights, batches and
+    draws.  The S = 1 run keeps θ after each round (two full states and a
+    round do not fit the card together); each sharded round is held
+    against it: the client timestamps and every counter but ``shard_*``
+    equal, θ within phase 15's allowance (one bf16 rounding of the S = 1
+    round's update + 2 bf16 ulps), and the last round's n, b, v within
+    one bf16 rounding of (1 + γ)·|x| + KSUM_TOL's atol.  Returns the
+    `fused_event_apply` launches of the sharded rounds."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainerConfig
+    from repro_torch.core import round_trainer as rt
+    from repro_torch.core import server_shard
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_server_mesh
+    from repro_torch.models.api import param_count
+    from repro_torch.models.lm import make_eval_fn
+    from repro_torch.utils.trees import leaves
+    S, C = SHARD_LM_S, LM_C
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=SHARD_LM_DEPTH)
+    data = lm_tokens(cfg, C * LM_MU * SHARD_LM_ROUNDS, 1, dev)
+    val = lm_tokens(cfg, 8, 2, dev)
+    tc = TrainerConfig(num_round_clients=C, rule="fasgd", lr=LM_LR,
+                       c_fetch=LM_C_FETCH, use_fused_kernel=True)
+    params = lm_params(cfg, dev)
+    P = param_count(params)
+    mesh = make_server_mesh(server=S, devices=shard_devices(S))
+    secs, peaks, launches = {}, {}, 0
+    kept = []                # the S = 1 run: (θ, counters, client_ts)
+    worst = {"θ share": 0.0, "n": 0.0, "b": 0.0, "v": 0.0}
+    n_bitwise = n_leaf_rounds = 0
+    for s in (1, S):
+        drv = LMRoundLoop(dataclasses.replace(tc, server_shards=s), "fused",
+                          cfg, params, data, make_eval_fn(cfg, *val))
+        state = drv.init()
+        if s == S:
+            state = rt.shard_round_state(state, mesh)
+            plan = server_shard.make_shard_plan(state.server, S)
+            # the counter keeps the plan's bytes in float32, as the
+            # reference does
+            peak32 = float(torch.tensor(plan.peak_resident_bytes,
+                                        dtype=torch.float32))
+            print(f"  (b) LM round trainer fused, {cfg.num_layers} of "
+                  f"{full.num_layers} layers, {P} parameters "
+                  f"({cfg.param_dtype}), C={C}, μ={LM_MU}, S={LM_S}, fasgd "
+                  f"lr={LM_LR}, c_fetch={LM_C_FETCH}: the server on {S} "
+                  f"shards {[str(d) for d in mesh.axis_devices('server')]};"
+                  f" the plan's per-shard peak {plan.peak_resident_bytes} "
+                  f"bytes ({gib(plan.peak_resident_bytes)}) of "
+                  f"{plan.total_bytes} ({gib(plan.total_bytes)}), "
+                  f"{plan.replicated_bytes} bytes on every shard")
+        free_card()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        secs[s] = 0.0
+        for r in range(SHARD_LM_ROUNDS):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            state, _, _ = drv.drive(state, r, 1)
+            torch.cuda.synchronize()
+            if r:            # the first round warms the run up: untimed
+                secs[s] += time.perf_counter() - t0
+            c = {k: float(v) for k, v in state.counters._asdict().items()}
+            if s == 1:
+                kept.append(([x.clone() for x in leaves(state.server.params)],
+                             c, state.client_ts.clone()))
+                continue
+            launches += ops.DEVICE_LAUNCHES["fused_event_apply"]
+            if ops.DEVICE_LAUNCHES["fused_event_apply"] != S:
+                fail(f"(b) sharded round {r}: {ops.DEVICE_LAUNCHES}")
+            want_theta, want_c, want_ts = kept[r]
+            if ({k: v for k, v in c.items() if not k.startswith("shard_")}
+                    != {k: v for k, v in want_c.items()
+                        if not k.startswith("shard_")}
+                    or not torch.equal(state.client_ts, want_ts)
+                    or c["shard_applies"] != r + 1
+                    or c["shard_bytes_peak"] != peak32):
+                fail(f"(b) round {r}: counters {c} or client timestamps "
+                     f"against S=1's {want_c}")
+            prev = kept[r - 1][0] if r else leaves(params)
+            got = leaves(server_shard.gather(state.server,
+                                             lambda x: x.params))
+            for a, b, p in zip(got, want_theta, prev):
+                n_leaf_rounds += 1
+                n_bitwise += int(torch.equal(a, b))
+                _, share = theta_share(a, b, (b.float() - p.float()).abs(),
+                                       BF16_ROUNDING)
+                worst["θ share"] = max(worst["θ share"], share)
+            if worst["θ share"] > 1.0:
+                fail(f"(b) round {r}: θ outside phase 15's allowance: "
+                     f"{worst}")
+            del got
+        peaks[s] = torch.cuda.max_memory_allocated() - held
+        stats = server_shard.gather(state.server, lambda x: (x.n, x.b, x.v))
+        if s == 1:
+            kept_stats = [[x.clone() for x in leaves(t)] for t in stats]
+        else:
+            for f, coef, got, want in zip("nbv", (tc.gamma, tc.gamma,
+                                                  tc.beta), stats,
+                                          kept_stats):
+                for a, b in zip(leaves(got), want):
+                    e = (a.float() - b.float()).abs()
+                    worst[f] = max(worst[f], float(e.max()))
+                    if not bool(torch.all(
+                            e <= KSUM_TOL["atol"] + BF16_ROUNDING
+                            * (1 + coef) * b.float().abs())):
+                        fail(f"(b) {f} outside the allowance: {worst}")
+        del state, drv, stats
+        free_card()
+    print(f"  (b) {SHARD_LM_ROUNDS} rounds at S={S} against S=1's from one "
+          f"start: client timestamps and every counter but shard_* equal "
+          f"each round; θ: {n_bitwise} of {n_leaf_rounds} leaf-rounds "
+          f"bitwise, worst share {worst['θ share']:.3f} of the allowance; "
+          f"the last round's max|Δ| n {worst['n']:.2e}, b {worst['b']:.2e},"
+          f" v {worst['v']:.2e}; fused_event_apply launched {launches} "
+          f"times ({S} a round)")
+    timed = SHARD_LM_ROUNDS - 1
+    print(f"  (b) on {smi}: S=1 {timed / secs[1]:.2f} rounds/s, "
+          f"S={S} {timed / secs[S]:.2f} rounds/s over rounds 2-"
+          f"{SHARD_LM_ROUNDS} ({secs[1] / secs[S]:.3f}x); peak memory above what each run "
+          f"found held (the weights, the batches, and for S={S} the S=1 "
+          f"run's kept θ): S=1 {gib(peaks[1])}, S={S} {gib(peaks[S])}; the "
+          f"{S} shards share one card, so the resident total does not "
+          f"shrink")
+    del kept, kept_stats, params
+    free_card()
+    return launches
+
+
+def phase_sharded_server(ds, params, smi, bases, K):
+    """Phase 19: the sharded parameter server.  (a) phase 3's serial arms
+    and phase 4's fused arm at each of SHARD_COUNTS shards against their
+    S = 1 runs (`bases`: label → `kept_run`), then one serial and one
+    fused span sync-checked and profiled at the most shards; (b) the LM
+    round trainer (`phase_sharded_lm`).  Returns the launches of
+    `fasgd_update` and `fused_event_apply`."""
+    import dataclasses
+    import torch
+    from repro_torch.core.bandwidth import BandwidthConfig
+    from repro_torch.core.rules import ServerConfig
+    from repro_torch.launch.mesh import make_server_mesh
+    from repro_torch.sim.fred import SimConfig
+    t0 = time.perf_counter()
+    print(f"phase 19: the sharded parameter server "
+          f"({torch.cuda.device_count()} card(s): shards on distinct cards "
+          f"where there are S, else on cuda:0 repeated)")
+    quick = dict(num_clients=16, batch_size=8, seed=0)
+    server = ServerConfig(rule="fasgd", lr=0.0025, use_fused_kernel=True)
+    arms = (
+        ("(a) serial", SimConfig(server=server, **quick), 2000, 500,
+         "fasgd_update"),
+        ("(a) serial gated", SimConfig(
+            server=server, bandwidth=BandwidthConfig(
+                c_push=0.02, c_fetch=0.1, drop_policy="cache"), **quick),
+         2000, 500, "fasgd_update"),
+        ("(a) fused", SimConfig(num_clients=256, batch_size=4, seed=0,
+                                events_per_step=K, apply_mode="fused",
+                                server=server), 40 * K, 10 * K,
+         "fused_event_apply"))
+    n = {"fasgd_update": 0, "fused_event_apply": 0}
+    for S in SHARD_COUNTS:
+        for label, cfg, events, every, kernel in arms:
+            got, _ = shard_arm(label, cfg, ds, params, events, every,
+                               kernel, bases[label], S)
+            n[kernel] += got
+    S = max(SHARD_COUNTS)
+    mesh = make_server_mesh(server=S, devices=shard_devices(S))
+    print(f"  (a) at S={S}, under torch.cuda.set_sync_debug_mode('error'), "
+          f"then profiled:")
+    for label, cfg, _, _, _ in (arms[0], arms[2]):
+        cfg = dataclasses.replace(cfg, server_shards=S)
+        breakdown(re.sub(r"[^a-z0-9]+", "_", f"{label} S={S}").strip("_"),
+                  cfg, ds, params, 2 * K if cfg.apply_mode == "fused" else 50,
+                  mesh=mesh)
+    n["fused_event_apply"] += phase_sharded_lm(ds.x_train.device, smi)
+    print(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
+    return n["fasgd_update"], n["fused_event_apply"]
+
+
 def main() -> int:
     """Run the phases in order; 0 when every one passed."""
     import torch
@@ -4306,21 +4615,25 @@ def main() -> int:
     print("phase 3: main path, serial (fasgd_update)")
     quick = dict(num_clients=16, batch_size=8, seed=0)
     server = ServerConfig(rule="fasgd", lr=0.0025, use_fused_kernel=True)
-    n_serial, eps_serial = run_main_path(
+    n_serial, eps_serial, out = run_main_path(
         "serial", SimConfig(server=server, **quick), ds, params, 2000, 500,
         "fasgd_update", "fused_event_apply")
-    n_gated, eps_gated = run_main_path(
+    bases = {"(a) serial": kept_run(out, eps_serial)}
+    n_gated, eps_gated, out = run_main_path(
         "serial gated", SimConfig(
             server=server, bandwidth=BandwidthConfig(
                 c_push=0.02, c_fetch=0.1, drop_policy="cache"), **quick),
         ds, params, 2000, 500, "fasgd_update", "fused_event_apply")
+    bases["(a) serial gated"] = kept_run(out, eps_gated)
     print("phase 4: main path, fused (fused_event_apply)")
     K = 128
-    n_fused, eps_fused = run_main_path(
+    n_fused, eps_fused, out = run_main_path(
         "fused", SimConfig(num_clients=256, batch_size=4, seed=0,
                            events_per_step=K, apply_mode="fused",
                            server=server),
         ds, params, 40 * K, 10 * K, "fused_event_apply", "fasgd_update")
+    bases["(a) fused"] = kept_run(out, eps_fused)
+    del out
 
     # --- phase 5: times at the main path's shapes ---
     print(f"phase 5: times on {smi} (median of 50, L2 flushed; device = "
@@ -4410,13 +4723,16 @@ def main() -> int:
     n_flash17, n_fasgd17, n_fused17 = phase_moe(ops, dev, smi)
     # --- phase 18: the SSM and hybrid families ---
     n_flash18, n_fasgd18, n_fused18 = phase_ssm(ops, dev, smi, flush, flops)
+    # --- phase 19: the sharded parameter server ---
+    n_fasgd19, n_fused19 = phase_sharded_server(ds, params, smi, bases, K)
 
     kernels = [
         dict(name="fasgd_update", route="cuda",
              source="src/repro_torch/kernels/csrc/fasgd_update.cu",
              replaces="src/repro/kernels/fasgd_update.py:50",
              launches=n_serial + n_gated + n_fasgd12 + n_fasgd13
-             + n_fasgd14 + n_fasgd15 + n_fasgd16 + n_fasgd17 + n_fasgd18,
+             + n_fasgd14 + n_fasgd15 + n_fasgd16 + n_fasgd17 + n_fasgd18
+             + n_fasgd19,
              max_abs_err=errs["fasgd_update"], ms=fu_ms, plain_ms=fu_plain,
              bound_ms=fu_bound,
              bound_by="bytes" if fu_bytes / bw >= fu_ops / flops
@@ -4425,7 +4741,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/fused_event_apply.cu",
              replaces="src/repro/kernels/fused_event_apply.py:89",
              launches=n_fused + n_fused12 + n_fused13 + n_fused14
-             + n_fused15 + n_fused16 + n_fused17 + n_fused18,
+             + n_fused15 + n_fused16 + n_fused17 + n_fused18 + n_fused19,
              max_abs_err=errs["fused_event_apply"],
              library_ms=None, **fused),
         dict(name="flash_attention", route="cuda",

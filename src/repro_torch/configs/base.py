@@ -168,8 +168,9 @@ class TrainerConfig:
     # FRED-only (build_round_step raises).
     scenario: Optional[ScenarioConfig] = None
     kasync_k: int = 0                  # kasync partial-barrier K (0 → C)
-    # --- sharded parameter server: not ported (ROADMAP.md queue 1, item
-    # 7); 1 = replicated server ---
+    # --- sharded parameter server (core/server_shard.py): 1 = one whole
+    # server; S > 1 places it on the `server_axis` of a mesh
+    # (round_trainer.shard_round_state) ---
     server_shards: int = 1
     server_axis: str = "server"
     seed: int = 0

@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import server_shard
 from repro_torch.utils.trees import leaves, unflatten
 
 
@@ -72,10 +73,10 @@ def masked_bytes(mask_tree, like_tree) -> torch.Tensor:
     """Transmitted bytes of per-leaf decisions: Σ_leaf count(mask)·nbytes,
     summed in float32 leaf by leaf in leaf order, as the reference does.
     Mask leaves are scalars or [K] event vectors; `like_tree` gives each
-    tensor's wire size."""
-    ls = leaves(like_tree)
-    sent = torch.zeros((), dtype=torch.float32, device=ls[0].device)
-    for m, l in zip(leaves(mask_tree), ls):
+    tensor's wire size (its shapes and dtypes are all that is read)."""
+    ms = leaves(mask_tree)
+    sent = torch.zeros((), dtype=torch.float32, device=ms[0].device)
+    for m, l in zip(ms, leaves(like_tree)):
         sent = sent + m.to(torch.float32).sum() * float(
             l.numel() * l.element_size())
     return sent
@@ -88,13 +89,19 @@ def per_tensor_transmit_mask(u, v_tree, c, eps: float = 1e-8):
     event's leaves then get [K] masks).
 
     Returns (mask tree mirroring `v_tree`, transmitted bytes (float32, per
-    event), total bytes of one copy (a python float))."""
+    event), total bytes of one copy (a python float)).  A placed v tree
+    (`core.server_shard`) gives each leaf's v̄ from its shards' sums."""
+    if server_shard.is_sharded(v_tree):
+        vbars = server_shard.leaf_means(v_tree)
+        v_tree = v_tree.like
+    else:
+        vbars = [leaf_vbar(l) for l in leaves(v_tree)]
     ls = leaves(v_tree)
     if u.shape[-1] != len(ls):
         raise ValueError(f"{u.shape[-1]} uniforms per event for "
                          f"{len(ls)} tensors")
-    masks = [u[..., i] < transmit_prob(leaf_vbar(l), c, eps)
-             for i, l in enumerate(ls)]
+    masks = [u[..., i] < transmit_prob(vb.to(u.device), c, eps)
+             for i, vb in enumerate(vbars)]
     sent = torch.zeros(u.shape[:-1], dtype=torch.float32, device=u.device)
     for m, l in zip(masks, ls):
         sent = sent + m.to(torch.float32) * float(l.numel() * l.element_size())

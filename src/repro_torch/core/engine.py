@@ -26,6 +26,12 @@ A decision is one device bool (or [K] of them) for the whole tree, or a
 tree of them mirroring the parameters (`is_per_leaf`).  Every decision
 stays on the device: gating is `torch.where`, never a host branch on a
 tensor.
+
+A server placed on shards (`core.server_shard.ShardedTree`) goes through
+the same functions: the gates read its coupled v̄, and each apply runs
+unchanged on every shard's block tree, its params-shaped operands routed
+to the shards' blocks and the small ones (masks, timestamps) handed to
+each shard whole.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import rules as server_rules
+from repro_torch.core import server_shard
 from repro_torch.core.bandwidth import per_tensor_transmit_mask, transmit_prob
 from repro_torch.core.rules import ServerConfig, ServerState
 from repro_torch.utils.device import resolve_device
@@ -105,8 +112,9 @@ class Counters(NamedTuple):
     clock.  `wall_clock` and the `scenario_*` fields are a scenario's
     telemetry (`core.scenarios.count_scenario`, or `advance_wall` in the
     round trainer) and stay zero without one.  `kernel_*` count per-leaf
-    kernel launches and the events they consumed.  The reference's
-    `shard_*` fields belong to server sharding, not ported yet.
+    kernel launches and the events they consumed.  `shard_*` are a
+    sharded server's telemetry (`core.server_shard.count_shard`) and stay
+    zero with one shard.
     """
     push_potential: torch.Tensor   # int32
     push_actual: torch.Tensor
@@ -132,6 +140,10 @@ class Counters(NamedTuple):
     queue_latency_wall_sum: torch.Tensor  # float32 — Σ admission→drain wall
     kernel_launches: torch.Tensor  # int32
     kernel_events: torch.Tensor
+    shard_applies: torch.Tensor    # int32 — windows applied on the shards
+    shard_events: torch.Tensor     # int32 — events those windows consumed
+    shard_bytes_peak: torch.Tensor  # float32 — max per-shard resident bytes
+    shard_depth_peak: torch.Tensor  # int32 — max events in one window
 
 
 def init_counters(device=None) -> Counters:
@@ -143,7 +155,7 @@ def init_counters(device=None) -> Counters:
     return Counters(z(i32), z(i32), z(i32), z(i32), z(f32), z(f32), z(f32),
                     z(f32), z(i32), z(i32), z(i32), z(i32), z(f32), z(i32),
                     z(f32), z(i32), z(f32), z(i32), z(i32), z(f32), z(i32),
-                    z(f32), z(i32), z(i32))
+                    z(f32), z(i32), z(i32), z(i32), z(i32), z(f32), z(i32))
 
 
 def count_events(counters: Counters, push, fetch, push_bytes_sent=None,
@@ -207,13 +219,30 @@ def transmit_gate(u, server: ServerState, c, eps):
     return u < transmit_prob(server_rules.vbar(server), c, eps)
 
 
+def _server_v(server):
+    """The server's v tree: placed when the server is."""
+    if server_shard.is_sharded(server):
+        return server.sub(lambda s: s.v)
+    return server.v
+
+
 def per_tensor_gate(u, server: ServerState, c, eps):
     """§5: one eq.-9 decision per parameter tensor, against that tensor's
     own v̄ (both directions).  `u` is [n_leaves] for one event or [K,
     n_leaves] for a window.  Returns (mask tree mirroring the params with
     scalar or [K] leaves, transmitted bytes, total bytes); c = 0 transmits
     every leaf."""
-    return per_tensor_transmit_mask(u, server.v, c, eps)
+    return per_tensor_transmit_mask(u, _server_v(server), c, eps)
+
+
+def _per_shard(server, fn, *trees, batch_dims=0):
+    """``fn(block_server, *block_trees, device)`` on every shard of a placed
+    server, in shard order: `trees` (params-shaped, `batch_dims` leading
+    event dimensions, or placed already) routed to each shard's blocks
+    just before its apply.  Returns the list of results."""
+    return [fn(blk, *(server_shard.block_of(t, server, s, batch_dims)
+                      for t in trees), server.devices[s])
+            for s, blk in enumerate(server.blocks)]
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +296,14 @@ def apply_gated(scfg: ServerConfig, server: ServerState, grad, push, grad_ts,
     `client_params` is the copy the gradient was computed on (gap-aware
     rules measure against it).  Returns (new_server, aux).
     """
+    if server_shard.is_sharded(server):
+        outs = _per_shard(
+            server, lambda blk, g, cp, cg, dev: apply_gated(
+                scfg, blk, g, server_shard.on(push, dev),
+                server_shard.on(grad_ts, dev), client_params=cp,
+                cached_grad=cg), grad, client_params, cached_grad)
+        return (server.with_blocks([o[0] for o in outs]),
+                server_shard.merge_aux(server, [o[1] for o in outs]))
     per_leaf = is_per_leaf(push, server.params)
     if cached_grad is not None:
         g_eff = (tree_select(push, grad, cached_grad) if per_leaf
@@ -291,8 +328,15 @@ def serial_apply(scfg: ServerConfig, server: ServerState, grads, push,
     `grads` leaves are [K, ...]; `push`/`grad_ts` are [K], or per-leaf trees
     with [K] leaves (per-tensor push / staleness); `client_params`
     (optional, [K, ...] leaves) feeds the gap-aware rule.  Returns (server,
-    taus [K]).
+    taus [K]).  A placed server applies the K events on each shard in turn.
     """
+    if server_shard.is_sharded(server):
+        outs = _per_shard(
+            server, lambda blk, g, cp, dev: serial_apply(
+                scfg, blk, g, server_shard.on(push, dev),
+                server_shard.on(grad_ts, dev), cp),
+            grads, client_params, batch_dims=1)
+        return _assemble(server, outs)
     taus = []
     for k in range(leaves(grads)[0].shape[0]):
         row = lambda tree: tree_index(tree, k)
@@ -328,8 +372,16 @@ def fused_apply(scfg: ServerConfig, server: ServerState, grads, push,
     keeps the shared statistics and no `extra`.
 
     Returns (server, taus [K] — averaged over leaves under per-leaf
-    staleness).
+    staleness).  A placed server applies the window on each shard (one
+    kernel launch a shard on the kernel path).
     """
+    if server_shard.is_sharded(server):
+        outs = _per_shard(
+            server, lambda blk, g, cp, dev: fused_apply(
+                scfg, blk, g, server_shard.on(push, dev),
+                server_shard.on(client_ts, dev), cp),
+            grads, client_params, batch_dims=1)
+        return _assemble(server, outs)
     rule = server_rules.get_rule(scfg.rule)
     if not rule.supports_fused:
         raise ValueError(
@@ -454,6 +506,13 @@ def fused_apply(scfg: ServerConfig, server: ServerState, grads, push,
     return server, taus
 
 
+def _assemble(server, outs):
+    """(placed server, shard 0's second output on its device) from the
+    shards' (block server, per-event values) pairs."""
+    return (server.with_blocks([o[0] for o in outs]),
+            server_shard.on(outs[0][1], server.devices[0]))
+
+
 # ---------------------------------------------------------------------------
 # cotangent fused application — rules with a per-event scalar scale
 # ---------------------------------------------------------------------------
@@ -540,7 +599,9 @@ def fused_apply_cotangent(scfg: ServerConfig, server: ServerState,
     with ḡ where some event pushed, iff `scfg.track_stats` or the rule
     requires them; T advances by the number of pushes.
 
-    Returns (server, taus [K], losses [K]).
+    Returns (server, taus [K], losses [K]).  On a placed server the
+    contraction runs on the gathered parameters (the loss needs W whole);
+    the statistics and the update then run on each shard's blocks.
     """
     rule = server_rules.get_rule(scfg.rule)
     if not (rule.supports_fused
@@ -549,32 +610,50 @@ def fused_apply_cotangent(scfg: ServerConfig, server: ServerState,
             f"rule {scfg.rule!r} does not support the cotangent fused path "
             f"(needs supports_fused and coeffs_are_v_independent or "
             f"v_separable)")
-    if (is_per_leaf(push, server.params)
-            or is_per_leaf(client_ts, server.params)):
+    like = server_shard.like(server)
+    if is_per_leaf(push, like.params) or is_per_leaf(client_ts, like.params):
         raise ValueError(
             "per-leaf push masks / timestamps require the materialized "
             "fused path (per-leaf weights cannot ride one cotangent vector)")
+    params, T = server_shard.gather(server, lambda s: (s.params, s.timestamp))
     pushf = push.to(torch.float32)
     n_push = push.to(torch.int32).sum()
-    taus = server_rules.step_staleness(server.timestamp, client_ts)   # [K]
+    taus = server_rules.step_staleness(T, client_ts)                  # [K]
     coeffs = rule.fused_coeffs(scfg, taus)                            # [K]
 
-    deltas = tree_map(lambda p, w: (p - w[None]).detach(), stale_params,
-                      server.params)
-    W = leaves(tree_map(lambda w: w.detach().requires_grad_(), server.params))
+    deltas = tree_map(lambda p, w: (p - w[None]).detach(),
+                      server_shard.gather(stale_params), params)
+    W = leaves(tree_map(lambda w: w.detach().requires_grad_(), params))
     track_stats = scfg.track_stats or rule.requires_stats
+    mean_g = None
     with torch.enable_grad():
-        losses = event_losses(unflatten(server.params, W), deltas)
+        losses = event_losses(unflatten(params, W), deltas)
         w_delta = (pushf * coeffs).to(losses.dtype)
         delta = torch.autograd.grad(losses, W, grad_outputs=w_delta,
                                     retain_graph=track_stats)
         if track_stats:
             w_mean = (pushf / torch.clamp(n_push, min=1)).to(losses.dtype)
-            mean_g = torch.autograd.grad(losses, W, grad_outputs=w_mean)
-    if track_stats:
-        stats_state = rule.update_stats(scfg, server,
-                                        unflatten(server.params, mean_g))
+            mean_g = unflatten(params, list(torch.autograd.grad(
+                losses, W, grad_outputs=w_mean)))
+    delta = unflatten(params, list(delta))
+    if server_shard.is_sharded(server):
+        server = server.with_blocks(_per_shard(
+            server, lambda blk, d, m, dev: _cotangent_update(
+                scfg, rule, blk, d, m, n_push.to(dev)), delta, mean_g))
+    else:
+        server = _cotangent_update(scfg, rule, server, delta, mean_g, n_push)
+    return server, taus, losses.detach()
+
+
+def _cotangent_update(scfg, rule, server, delta, mean_g, n_push):
+    """The elementwise end of `fused_apply_cotangent`: the statistics step
+    on the mean gradient `mean_g` where some event pushed (None: no
+    statistics), a `v_separable` rule's v-factor on the contraction
+    `delta` against the post-stats v, θ − delta, and T + n_push."""
+    if mean_g is not None:
+        stats_state = rule.update_stats(scfg, server, mean_g)
         server = tree_where(n_push > 0, stats_state, server)
+    delta = leaves(delta)
     if not rule.coeffs_are_v_independent:
         # v_separable: the elementwise v-factor, once, against the
         # post-stats v
@@ -585,9 +664,8 @@ def fused_apply_cotangent(scfg: ServerConfig, server: ServerState,
                 leaves(reweight_by_v(W, vfac)), W, grad_outputs=delta)
     new_params = tree_map(torch.subtract, server.params,
                           unflatten(server.params, list(delta)))
-    server = server._replace(params=new_params,
-                             timestamp=server.timestamp + n_push)
-    return server, taus, losses.detach()
+    return server._replace(params=new_params,
+                           timestamp=server.timestamp + n_push)
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,12 @@ batch, so a drained batch never aliases the ring.  Under a scenario each
 admitted slot also carries its arrival's modelled wall time
 (``enq_wall``), and a drain's admission→drain latency on the wall clock is
 folded into ``queue_latency_wall_sum``.
+
+Under a sharded server (`core.server_shard.shard_queue_state`) the
+payload is placed as the server is, each slot's gradient in blocks on the
+shards that apply them: `enqueue` routes each arrival's payload to the
+shards' rings, and `dequeue` gathers each shard's rows, so a drained batch
+reaches the apply placed already.  The slot bookkeeping stays whole.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.core import engine
+from repro_torch.core import server_shard
 from repro_torch.core.engine import Counters
 from repro_torch.utils.trees import leaves, tree_map
 
@@ -179,7 +186,15 @@ def enqueue(q: QueueState, arrivals: Arrivals, admission: str, enq_T):
     put = lambda ring, values: engine.scatter_rows_(ring, slot, values,
                                                     source)
     k = valid.shape[0]
-    tree_map(put, q.payload, arrivals.payload)
+    if server_shard.is_sharded(q.payload):
+        for s, (ring, dev) in enumerate(zip(q.payload.blocks,
+                                            q.payload.devices)):
+            rows = server_shard.block_of(arrivals.payload, q.payload, s, 1)
+            slot_d, source_d = slot.to(dev), source.to(dev)
+            tree_map(lambda r, v: engine.scatter_rows_(r, slot_d, v,
+                                                       source_d), ring, rows)
+    else:
+        tree_map(put, q.payload, arrivals.payload)
     put(q.ts, arrivals.ts)
     put(q.client, arrivals.client)
     put(q.enq_T, torch.as_tensor(enq_T).to(torch.int32).expand(k))
@@ -221,8 +236,14 @@ def dequeue(q: QueueState, k):
     pos = torch.arange(cap, dtype=torch.int32, device=q.ts.device)
     slot = ((q.head + pos) % cap).long()
     k = torch.as_tensor(k).to(torch.int32)
+    if server_shard.is_sharded(q.payload):
+        payload = q.payload.with_blocks([
+            engine.tree_index(b, slot.to(dev))
+            for b, dev in zip(q.payload.blocks, q.payload.devices)])
+    else:
+        payload = engine.tree_index(q.payload, slot)
     batch = Drained(
-        payload=engine.tree_index(q.payload, slot),
+        payload=payload,
         ts=q.ts[slot],
         client=q.client[slot],
         enq_T=q.enq_T[slot],

@@ -38,8 +38,14 @@ Churn and elastic knobs are FRED-only and raise here.
 
 `round_step(state, batch, draws)` takes the round's gate uniforms
 (`utils.rng.RoundDraws`) where the reference takes a key.  Every decision
-stays on the device: a round makes no host sync.  A sharded server
-(``server_shards > 1``) is not ported (ROADMAP.md queue 1, item 7).
+stays on the device: a round makes no host sync.
+
+**Sharded server** (``server_shards > 1``, `core.server_shard`):
+`shard_round_state` places the server, and the queue's payload, in blocks
+on a mesh's server axis; the engine's gates read the shards' coupled v̄
+and each apply runs on every shard's blocks, and the clients' refresh
+reads the gathered parameters once a round.  Without placement the round
+is the unsharded one, and only the ``shard_*`` counters move.
 """
 from __future__ import annotations
 
@@ -52,16 +58,13 @@ from repro_torch.core import engine
 from repro_torch.core import queue as qlib
 from repro_torch.core import rules as server_rules
 from repro_torch.core import scenarios as scen
+from repro_torch.core import server_shard
 from repro_torch.core.bandwidth import masked_bytes, tree_bytes
 from repro_torch.core.engine import Counters
 from repro_torch.core.rules import ServerConfig, ServerState
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.rng import NativeRoundDraws
 from repro_torch.utils.trees import leaves, tree_map, unflatten
-
-_SHARDING = ("a sharded server is not ported to repro_torch yet "
-             "(ROADMAP.md queue 1, item 7)")
-
 
 class RoundState(NamedTuple):
     """Server + C divergent client copies + engine counters (leaves
@@ -124,13 +127,15 @@ def init_round_state(tc: TrainerConfig, params, device=None) -> RoundState:
     )
 
 
-def shard_round_state(state: RoundState, mesh, axis: str = "server"):
-    """The reference's server partition of a `RoundState`: a no-op for no
-    mesh or a mesh whose `axis` has size 1 (or is absent), as there; a
-    larger server axis raises `NotImplementedError`."""
-    if mesh is None or dict(getattr(mesh, "shape", {})).get(axis, 1) == 1:
-        return state
-    raise NotImplementedError(_SHARDING)
+def shard_round_state(state: RoundState, mesh,
+                      axis: str = server_shard.SERVER_AXIS) -> RoundState:
+    """Place a `RoundState`'s server, and its queue's payload, on `mesh`'s
+    `axis` (`core.server_shard`); the [C] client copies stay whole.  A
+    mesh whose `axis` has one device, or none, places nothing: the
+    ``server_shards=1`` bitwise contract."""
+    return state._replace(
+        server=server_shard.shard_server_state(state.server, mesh, axis),
+        queue=server_shard.shard_queue_state(state.queue, mesh, axis))
 
 
 def native_round_draws(tc: TrainerConfig, params, device=None):
@@ -159,14 +164,11 @@ def make_grad_fn(loss_fn):
 
 
 def _check(tc: TrainerConfig, rule):
-    """The reference's refusals (`ValueError`), plus `NotImplementedError`
-    for a sharded server."""
+    """The reference's refusals (`ValueError`)."""
     if tc.server_shards < 1:
         raise ValueError(
             f"server_shards must be >= 1 (1 = replicated server), got "
             f"{tc.server_shards}")
-    if tc.server_shards > 1:
-        raise NotImplementedError(_SHARDING)
     if tc.queue_capacity < 0:
         raise ValueError(
             f"queue_capacity must be >= 0 (0 disables the queue), got "
@@ -287,12 +289,14 @@ def build_round_step(tc: TrainerConfig, grad_fn: Callable,
     # barrier (the K-th arrival); an async round is charged the full t_(C)
     k_used = rule.barrier_k(scfg) if rule.synchronous else C
     scales = {}     # client_scales on the state's device, made once
+    count_shard = server_shard.shard_counter(tc.server_shards,
+                                             tc.server_axis)
 
     def round_step(state: RoundState, batch, draws):
         server = state.server
-        dev = server.timestamp.device
-        model_bytes = tree_bytes(server.params)
-        like = server.params
+        dev = state.client_ts.device
+        like = server_shard.like(server).params
+        model_bytes = tree_bytes(like)
         n_leaves = len(leaves(like))
 
         # --- scenario-lite: this round's [C] service draws; the server
@@ -344,8 +348,9 @@ def build_round_step(tc: TrainerConfig, grad_fn: Callable,
                 # ring order = arrival order: the fastest clients enqueue
                 # (and, under a lossy admission policy, survive) first
                 arrivals = tree_map(lambda a: a[svc_order], arrivals)
+            T = server_shard.gather(server, lambda s: s.timestamp, dev)
             queue, admitted, n_rejected, n_dropped = qlib.enqueue(
-                state.queue, arrivals, tc.admission_policy, server.timestamp)
+                state.queue, arrivals, tc.admission_policy, T)
             if svc_order is not None:
                 # back to client order: refresh and byte accounting index
                 # `admitted` by client
@@ -366,8 +371,7 @@ def build_round_step(tc: TrainerConfig, grad_fn: Callable,
                                      gain=tc.drain_adaptive_gain)
             queue, qbatch = qlib.dequeue(queue, k_eff)
             latency_sum = torch.where(
-                qbatch.valid,
-                (server.timestamp - qbatch.enq_T).to(torch.float32),
+                qbatch.valid, (T - qbatch.enq_T).to(torch.float32),
                 0.0).sum()
             q_ts = (unflatten(like, [qbatch.leaf_ts[:, i]
                                      for i in range(n_leaves)])
@@ -401,6 +405,10 @@ def build_round_step(tc: TrainerConfig, grad_fn: Callable,
                 scfg, server, grads, push, grad_ts, state.client_params)
         if not use_queue:
             mean_tau = taus.mean()
+        # the canonical parameters and T, gathered once from a placed
+        # server
+        new_params, new_T = server_shard.gather(
+            new_server, lambda s: (s.params, s.timestamp), dev)
 
         # --- fetch gates (against the post-apply server) ---
         if tc.per_tensor_fetch:
@@ -408,7 +416,7 @@ def build_round_step(tc: TrainerConfig, grad_fn: Callable,
                                                  tc.c_fetch, tc.eps)
             fm = torch.stack(leaves(fmask))                  # [n_leaves, C]
             fetch = fm.all(dim=0)                            # [C]
-            fetch_sent = masked_bytes(fmask, new_server.params)
+            fetch_sent = masked_bytes(fmask, new_params)
             f_leaves = list(fm)
         else:
             fetch = engine.transmit_gate(draws.fetch_u, new_server,
@@ -436,13 +444,12 @@ def build_round_step(tc: TrainerConfig, grad_fn: Callable,
 
         client_params = unflatten(like, [
             upd_leaf(*x) for x in zip(leaves(state.client_params),
-                                      leaves(new_server.params), g_leaves,
+                                      leaves(new_params), g_leaves,
                                       p_leaves, f_leaves)])
-        client_ts = torch.where(fetch, new_server.timestamp, state.client_ts)
+        client_ts = torch.where(fetch, new_T, state.client_ts)
         client_leaf_ts = state.client_leaf_ts
         if tc.per_tensor_fetch:
-            client_leaf_ts = torch.where(fm.T, new_server.timestamp,
-                                         state.client_leaf_ts)
+            client_leaf_ts = torch.where(fm.T, new_T, state.client_leaf_ts)
 
         counters = engine.count_events(
             state.counters, admitted, fetch,
@@ -465,6 +472,9 @@ def build_round_step(tc: TrainerConfig, grad_fn: Callable,
             rows = qbatch.valid.shape[0] if use_queue else C
             counters = engine.count_kernel(counters, rows * n_leaves,
                                            k_eff if use_queue else C)
+        # one round = one apply against the partitioned server, placed or
+        # not (the plan is the shapes')
+        counters = count_shard(counters, server, k_eff if use_queue else C)
         if use_scenario:
             round_dt = torch.sort(svc).values[k_used - 1]
             counters = scen.advance_wall(counters, round_dt, active_count=C)
@@ -478,7 +488,7 @@ def build_round_step(tc: TrainerConfig, grad_fn: Callable,
             "mean_tau": mean_tau,
             "pushes": admitted.to(torch.int32).sum(),
             "fetches": fetch.to(torch.int32).sum(),
-            "timestamp": new_server.timestamp,
+            "timestamp": new_T,
         }
         if use_queue:
             metrics.update(queue_depth=queue.size, drained=k_eff,

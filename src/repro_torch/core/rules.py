@@ -33,6 +33,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import server_shard
 from repro_torch.core.staleness import mean_leaf_tau, step_staleness
 from repro_torch.utils.trees import leaves, same_structure, tree_map, unflatten
 
@@ -186,9 +187,14 @@ def effective_scale(config: ServerConfig, state: ServerState, tau, gap=None):
         for v, t, e, g in zip(v_leaves, t_leaves, e_leaves, gap_leaves)])
 
 
-def _mean_scale(scale) -> torch.Tensor:
+def _scale_aux(scale) -> dict:
+    """aux's ``mean_scale``, the mean effective lr over every parameter,
+    and the per-leaf sums it is made of (``scale_sums``, from which a
+    sharded server's shards make the whole tree's mean)."""
     ls = leaves(scale)
-    return sum(torch.sum(s) for s in ls) / float(sum(s.numel() for s in ls))
+    sums = [torch.sum(s) for s in ls]
+    return {"mean_scale": sum(sums) / float(sum(s.numel() for s in ls)),
+            "scale_sums": sums}
 
 
 def _gap_tree(state: ServerState, client_params):
@@ -268,7 +274,7 @@ class UpdateRule:
             state.params, scale, grad)
         new_state = state._replace(
             params=new_params, timestamp=state.timestamp + 1)
-        return new_state, {"tau": tau_scalar, "mean_scale": _mean_scale(scale)}
+        return new_state, {"tau": tau_scalar, **_scale_aux(scale)}
 
 
 def _bshape(v, tau):
@@ -391,7 +397,7 @@ class FasgdRule(UpdateRule):
             params=new_params, n=cast(n_new, state.n), b=cast(b_new, state.b),
             v=cast(v_new, state.v), timestamp=state.timestamp + 1)
         scale = effective_scale(config, new_state._replace(v=v_new), tau)
-        return new_state, {"tau": tau_scalar, "mean_scale": _mean_scale(scale)}
+        return new_state, {"tau": tau_scalar, **_scale_aux(scale)}
 
 
 @register_rule("gap")
@@ -561,7 +567,11 @@ def apply_update(config: ServerConfig, state: ServerState, grad,
 
 
 def vbar(state: ServerState) -> torch.Tensor:
-    """Mean over all parameters of the std moving average (B-FASGD's v̄)."""
+    """Mean over all parameters of the std moving average (B-FASGD's v̄);
+    over a placed state (`core.server_shard`), from the shards' partial
+    sums (`server_shard.tree_mean`)."""
+    if server_shard.is_sharded(state):
+        return server_shard.tree_mean(state.sub(lambda s: s.v))
     ls = leaves(state.v)
     total = sum(torch.sum(l.float()) for l in ls)
     return total / float(sum(l.numel() for l in ls))

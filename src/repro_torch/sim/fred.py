@@ -62,8 +62,21 @@ arrival's wall time, and `run_simulation`'s ``wall_clock`` curve is the
 modelled clock.  The scenario's variates come from its own provider
 (``scenario_draws``; `core.scenarios.native_draws` by default).
 
-Not ported yet, and refused with `NotImplementedError`: a sharded server
-and a client mesh.
+**Sharded parameter server** (``SimConfig.server_shards > 1``,
+`core.server_shard`): ``run_simulation(mesh=...)`` with a mesh whose
+``server_axis`` has exactly S devices (`launch.mesh.make_server_mesh`)
+places the server state, and the queue's payload, in blocks on those
+devices; the engine's gates read the shards' coupled v̄ and its applies
+run on each shard's blocks (one kernel launch a shard on the kernel path).
+Fetching clients read the gathered parameters, once per event or window.
+The ``shard_*`` counters appear only when ``server_shards > 1``.
+
+**Client axis**: a mesh with a ``clients`` axis of D devices splits the
+[λ, ...] fleet arrays by rows over them (`shard_fleet`, `FleetRows`), and
+the fused path computes its gradient batch in D chunks of K/D events, one
+on each device.  The queue refuses a client axis, and so does
+``fused_mode='cotangent'``; ``'auto'`` takes the materialized reduction
+where the axis has more than one device.
 """
 from __future__ import annotations
 
@@ -76,6 +89,7 @@ from repro_torch.core import engine
 from repro_torch.core import queue as qlib
 from repro_torch.core import rules as server_rules
 from repro_torch.core import scenarios as scen
+from repro_torch.core import server_shard
 from repro_torch.core.bandwidth import BandwidthConfig, masked_bytes, tree_bytes
 from repro_torch.core.engine import (Counters, tree_select, tree_select_axis,
                                      tree_where, tree_where_axis)
@@ -108,8 +122,11 @@ class SimConfig:
     admission_policy: str = "block"     # 'block' | 'reject' | 'drop_oldest'
     # modelled arrival process (core/scenarios.py); None = the dispatcher
     scenario: Optional[scen.ScenarioConfig] = None
-    # kept so that a configuration asking for it is refused, not ignored
+    # sharded parameter server (core/server_shard.py): 1 = one whole
+    # server; S > 1 places it on the `server_axis` of the mesh passed to
+    # run_simulation, which must have exactly S devices
     server_shards: int = 1
+    server_axis: str = "server"
 
     def cotangent_serviceable(self) -> bool:
         """True iff `engine.fused_apply_cotangent` can serve this
@@ -170,11 +187,12 @@ class SimConfig:
             raise ValueError(
                 f"rule {self.server.rule!r} does not support "
                 f"apply_mode='fused'")
+        if self.server_shards < 1:
+            raise ValueError(
+                f"server_shards must be >= 1 (1 = replicated server), got "
+                f"{self.server_shards}")
         self._check_queue(rule)
         self._check_scenario(rule)
-        if self.server_shards != 1:
-            raise NotImplementedError(
-                "a sharded server is not ported to repro_torch yet")
 
     def _check_scenario(self, rule):
         """The reference's scenario validation."""
@@ -350,6 +368,103 @@ def native_draws(config: SimConfig, n_data: int, n_leaves: int) -> NativeDraws:
                        per_tensor_fetch=bw.per_tensor_fetch)
 
 
+class FleetRows:
+    """A [λ, ...] fleet array split by rows over the devices of a client
+    axis: block d holds rows [d·λ/D, (d+1)·λ/D) on its device, then one
+    spare row that takes the writes aimed at other blocks' rows (so a
+    write never lands twice on a real row).  It answers the indexing the
+    event loop does on a fleet array (row reads and writes by a device
+    index tensor, column views) on the run's device `home`; `gather` gives
+    the whole array back."""
+
+    def __init__(self, blocks, home):
+        self.blocks = list(blocks)
+        self.home = torch.device(home)
+        self.rows = self.blocks[0].shape[0] - 1
+
+    @classmethod
+    def place(cls, leaf, devices):
+        """`leaf` split by rows over `devices` (their number divides λ)."""
+        n = leaf.shape[0] // len(devices)
+        spare = torch.zeros_like(leaf[:1])
+        return cls([torch.cat([leaf[d * n:(d + 1) * n], spare]).to(dev)
+                    for d, dev in enumerate(devices)], leaf.device)
+
+    @property
+    def dtype(self):
+        """The array's dtype."""
+        return self.blocks[0].dtype
+
+    def dim(self) -> int:
+        """The array's number of dimensions."""
+        return self.blocks[0].dim()
+
+    def _local(self, idx, d):
+        lo = d * self.rows
+        own = (idx >= lo) & (idx < lo + self.rows)
+        return own, torch.where(own, idx - lo, self.rows)
+
+    def __getitem__(self, key):
+        if isinstance(key, tuple):          # a column view, e.g. [:, i]
+            return FleetRows([b[key] for b in self.blocks], self.home)
+        out = None
+        for d, b in enumerate(self.blocks):
+            own, local = self._local(key, d)
+            rows = b[local.to(b.device)].to(self.home)
+            out = rows if out is None else torch.where(
+                own.reshape((-1,) + (1,) * (rows.dim() - 1)), rows, out)
+        return out
+
+    def __setitem__(self, key, value):
+        for d, b in enumerate(self.blocks):
+            _, local = self._local(key, d)
+            b[local.to(b.device)] = value.to(b.device)
+
+    def index_copy_(self, dim, index, source):
+        """In place: rows `index` ← `source` (dim 0 only)."""
+        if dim != 0:
+            raise ValueError("a fleet array is written by rows")
+        self[index] = source
+        return self
+
+    def gather(self) -> torch.Tensor:
+        """The whole array on the run's device."""
+        return torch.cat([b[:-1].to(self.home) for b in self.blocks])
+
+
+def shard_fleet(state: SimState, mesh, client_axis: str = "clients"):
+    """Split every [λ, ...] fleet array (the client copies, their
+    timestamps, the gradient cache) by rows over `mesh[client_axis]`
+    (`FleetRows`); the server is left as it is.  The axis's size must
+    divide λ; a size of 1 places nothing."""
+    devices = mesh.axis_devices(client_axis)
+    lam = state.client_ts.shape[0]
+    if len(devices) == 1:
+        return state
+    if lam % len(devices):
+        raise ValueError(f"the {client_axis!r} axis has {len(devices)} "
+                         f"devices, which must divide λ={lam}")
+    put = lambda tree: tree_map(lambda l: FleetRows.place(l, devices), tree)
+    return state._replace(client_params=put(state.client_params),
+                          client_ts=put(state.client_ts),
+                          grad_cache=put(state.grad_cache),
+                          client_leaf_ts=put(state.client_leaf_ts))
+
+
+def _fill_where_(cond, value, fleet_leaf):
+    """In place: every row of a fleet leaf ← `value` where `cond`."""
+    for b in (fleet_leaf.blocks if isinstance(fleet_leaf, FleetRows)
+              else [fleet_leaf]):
+        torch.where(cond.to(b.device), value.to(b.device), b, out=b)
+
+
+def _canonical(server, device):
+    """The server's parameters and T, whole on `device` (gathered from the
+    shards of a placed server)."""
+    return server_shard.gather(server, lambda s: (s.params, s.timestamp),
+                               device)
+
+
 def _row(tree, c1):
     """Row `c1` ([1] int64 device index) of every [λ, ...] leaf."""
     return tree_map(lambda l: l[c1][0], tree)
@@ -377,23 +492,25 @@ def _fetch_window(config: SimConfig, state: SimState, cs, new_server,
                   fetch_u, model_bytes):
     """The fetch gates of a window's K clients `cs` against `new_server`
     (per leaf under per-tensor fetch) and their scatters into the fleet, in
-    place.  Every fetch delivers the same canonical parameters, so the
-    scatters are deterministic.  A whole-copy fetch counts `model_bytes`
-    (the pre-window tree's).  Returns (fetch [K], fetch bytes sent)."""
+    place.  Every fetch delivers the same canonical parameters (gathered
+    once from a placed server), so the scatters are deterministic.  A
+    whole-copy fetch counts `model_bytes` (the pre-window tree's).
+    Returns (fetch [K], fetch bytes sent)."""
     bw = config.bandwidth
     k = cs.shape[0]
     expand = lambda x: x[None].expand((k,) + x.shape)
+    new_params, new_T = _canonical(new_server, cs.device)
     if bw.per_tensor_fetch:
         fmask, _, _ = engine.per_tensor_gate(fetch_u, new_server,
                                              bw.c_fetch, bw.eps)
-        fetch_sent = masked_bytes(fmask, new_server.params)
+        fetch_sent = masked_bytes(fmask, new_params)
         fm = torch.stack(leaves(fmask))                   # [n_leaves, K]
         for i, (cl, sp) in enumerate(zip(leaves(state.client_params),
-                                         leaves(new_server.params))):
+                                         leaves(new_params))):
             source = engine.last_event_source(cs, fm[i])
             engine.scatter_rows_(cl, cs, expand(sp), source)
             engine.scatter_rows_(state.client_leaf_ts[:, i], cs,
-                                 expand(new_server.timestamp), source)
+                                 expand(new_T), source)
         # the whole-copy timestamp moves only when every tensor was fetched
         fetch = fm.all(dim=0)
         source = engine.last_event_source(cs, fetch)
@@ -403,10 +520,8 @@ def _fetch_window(config: SimConfig, state: SimState, cs, new_server,
         fetch_sent = fetch.to(torch.float32).sum() * model_bytes
         source = engine.last_event_source(cs, fetch)
         tree_map(lambda cl, sp: engine.scatter_rows_(
-            cl, cs, expand(sp), source),
-            state.client_params, new_server.params)
-    engine.scatter_rows_(state.client_ts, cs, expand(new_server.timestamp),
-                         source)
+            cl, cs, expand(sp), source), state.client_params, new_params)
+    engine.scatter_rows_(state.client_ts, cs, expand(new_T), source)
     return fetch, fetch_sent
 
 
@@ -451,7 +566,8 @@ class _Race:
 
 def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
                   batched_loss_fn: Optional[Callable] = None,
-                  scenario_draws=None):
+                  scenario_draws=None, mesh=None,
+                  client_axis: str = "clients"):
     """Returns ``step(state, draws) -> (state, metrics)`` for one window.
 
     `draws` holds the window's K events (`utils.rng.Draws`), which sets the
@@ -466,25 +582,42 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
     `engine.event_batched_losses`).  `scenario_draws` provides the
     scenario's variates (`core.scenarios.native_draws` of
     ``config.scenario`` by default); the dispatcher's draws go unused
-    under a scenario.
+    under a scenario.  A `mesh` with a `client_axis` of D > 1 devices
+    splits the fused path's gradient batch over them; the queue and the
+    cotangent path refuse an axis of that name whatever its size, and
+    'auto' gives the cotangent path up where D > 1.
     """
-    race = (_Race(config, torch.as_tensor(data_x).device, scenario_draws)
+    home = torch.as_tensor(data_x).device
+    race = (_Race(config, home, scenario_draws)
             if config.scenario is not None else None)
+    names_client_axis = (mesh is not None and client_axis
+                         in getattr(mesh, "axis_names", ()))
+    client_devices = (mesh.axis_devices(client_axis)
+                      if names_client_axis else ())
     if config.queue_capacity:
+        if names_client_axis:
+            raise ValueError(
+                "queue_capacity > 0 does not support a client-axis mesh: "
+                "the ring buffer is server state, and arrival gradients "
+                "split over the client axis are not wired through it yet "
+                "— run the queued simulation without one")
         return _build_queue_step(config, loss_fn, data_x, data_y,
                                  batched_loss_fn, race)
     grad_fn = torch.func.grad_and_value(loss_fn)
     bw = config.bandwidth
     scfg = config.server
     synchronous = server_rules.get_rule(scfg.rule).synchronous
+    count_shard = server_shard.shard_counter(config.server_shards,
+                                              config.server_axis)
 
     def event_body(state: SimState, c1, idx, u_push, u_fetch):
         """One client event — the paper's protocol, verbatim.  `c1` is the
         client as a [1] device index; `u_push`/`u_fetch` a scalar, or one
         uniform per leaf in a direction gated per tensor."""
         server = state.server
-        model_bytes = tree_bytes(server.params)
-        n_leaves = len(leaves(server.params))
+        like = server_shard.like(server).params
+        model_bytes = tree_bytes(like)
+        n_leaves = len(leaves(like))
 
         # --- client computes a stochastic gradient on its (stale) params ---
         xb, yb = data_x[idx], data_y[idx]
@@ -505,7 +638,7 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
         if bw.per_tensor_fetch:
             # per-tensor timestamps → per-leaf staleness in the update rule
             leaf_ts = state.client_leaf_ts[c1][0]               # [n_leaves]
-            grad_ts = _leaf_tree(server.params, leaf_ts)
+            grad_ts = _leaf_tree(like, leaf_ts)
         else:
             grad_ts = ts_c
 
@@ -522,34 +655,35 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
                       tree_select(push, g, cached) if bw.per_tensor_push
                       else tree_where(push, g, cached))
 
-        # --- fetch gate (per leaf under per-tensor fetch) ---
+        # --- fetch gate (per leaf under per-tensor fetch), against the
+        # canonical parameters, gathered once from a placed server ---
+        new_params, new_T = _canonical(new_server, home)
         if bw.per_tensor_fetch:
             mask, fetch_sent, fetch_total = engine.per_tensor_gate(
                 u_fetch, new_server, bw.c_fetch, bw.eps)
-            new_p_c = tree_select(mask, new_server.params, p_c)
+            new_p_c = tree_select(mask, new_params, p_c)
             leaf_mask = torch.stack(leaves(mask))               # [n_leaves]
             fetch = leaf_mask.all()
             state.client_leaf_ts.index_copy_(0, c1, torch.where(
-                leaf_mask, new_server.timestamp, leaf_ts)[None])
+                leaf_mask, new_T, leaf_ts)[None])
         else:
             fetch = engine.transmit_gate(u_fetch, new_server, bw.c_fetch,
                                          bw.eps)
             fetch_sent = fetch.to(torch.float32) * model_bytes
             fetch_total = model_bytes
-            new_p_c = tree_where(fetch, new_server.params, p_c)
+            new_p_c = tree_where(fetch, new_params, p_c)
         _set_row_(state.client_params, c1, new_p_c)
         # the whole-copy timestamp moves only when every tensor was fetched
         state.client_ts.index_copy_(
-            0, c1, torch.where(fetch, new_server.timestamp, ts_c)[None])
+            0, c1, torch.where(fetch, new_T, ts_c)[None])
 
         if synchronous:
             # a completed round unblocks every client with the new
             # parameters (the paper's `unblock`), in place on the fleet
             applied = aux["applied"]
-            tree_map(lambda cl, sp: torch.where(applied, sp, cl, out=cl),
-                     state.client_params, new_server.params)
-            torch.where(applied, new_server.timestamp, state.client_ts,
-                        out=state.client_ts)
+            tree_map(lambda cl, sp: _fill_where_(applied, sp, cl),
+                     state.client_params, new_params)
+            _fill_where_(applied, new_T, state.client_ts)
 
         counters = engine.count_events(
             state.counters, push_event, fetch,
@@ -559,6 +693,8 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
             # each event launches the rule's kernel once per leaf, pushed or
             # not (a dropped 'skip' candidate is computed, then masked)
             counters = engine.count_kernel(counters, n_leaves, 1)
+        # serial lock order: each event is a one-event apply window
+        counters = count_shard(counters, server, 1)
         new_state = state._replace(server=new_server, rr_pos=state.rr_pos + 1,
                                    counters=counters)
         return new_state, (loss, aux["tau"], push_event, fetch)
@@ -586,9 +722,36 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
     # ----- fused: all K events advance in one batched protocol round -----
     vgrad = torch.func.vmap(grad_fn)
     use_cotangent = _use_cotangent(config)
+    if use_cotangent and names_client_axis:
+        if config.fused_mode == "cotangent":
+            raise ValueError(
+                "fused_mode='cotangent' does not support a client-axis mesh "
+                "(the client axis splits the materialized per-event "
+                "gradients)")
+        use_cotangent = len(client_devices) <= 1
     batched_losses = (engine.resolve_event_batched_loss(loss_fn,
                                                         batched_loss_fn)
                       if use_cotangent else None)
+
+    def batch_grads(p_e, xb, yb):
+        """The window's per-event gradients and losses: one vmap, or, on a
+        client axis of D devices, one per device over K/D events each,
+        concatenated on the run's device."""
+        D = len(client_devices)
+        if D <= 1:
+            return vgrad(p_e, xb, yb)
+        k = xb.shape[0]
+        if k % D:
+            raise ValueError(f"the client axis has {D} devices, which must "
+                             f"divide the window's {k} events")
+        n = k // D
+        parts = [vgrad(*server_shard.on(
+            (tree_map(lambda l: l[d * n:(d + 1) * n], p_e),
+             xb[d * n:(d + 1) * n], yb[d * n:(d + 1) * n]), dev))
+            for d, dev in enumerate(client_devices)]
+        grads = tree_map(lambda *ls: torch.cat([l.to(home) for l in ls]),
+                         *(g for g, _ in parts))
+        return grads, torch.cat([l.to(home) for _, l in parts])
 
     def step(state: SimState, draws: Draws):
         k = draws.idx.shape[0]
@@ -597,7 +760,8 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
         else:
             state, cs, t_fin = race.window(state, k)
         server = state.server
-        model_bytes = tree_bytes(server.params)
+        like = server_shard.like(server).params
+        model_bytes = tree_bytes(like)
         xb, yb = data_x[draws.idx], data_y[draws.idx]            # [K, μ, ...]
 
         # --- event dedup: clients that fetched at the same T hold identical
@@ -615,13 +779,13 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
             push, _, _ = engine.per_tensor_gate(draws.push_u, server,
                                                 bw.c_push, bw.eps)  # [K] each
             push_event = engine.any_leaf(push)                    # [K]
-            push_sent = masked_bytes(push, server.params)
+            push_sent = masked_bytes(push, like)
         else:
             push = push_event = engine.transmit_gate(
                 draws.push_u, server, bw.c_push, bw.eps)          # [K]
             push_sent = push.to(torch.float32).sum() * model_bytes
         # per-tensor staleness: each tensor's τ from its own last fetch
-        grad_ts = (_leaf_tree(server.params, dedup_key)
+        grad_ts = (_leaf_tree(like, dedup_key)
                    if bw.per_tensor_fetch else dedup_key)
 
         if use_cotangent:
@@ -633,7 +797,7 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
                 lambda W, deltas: batched_losses(W, deltas, xb, yb),
                 p_e, push, grad_ts)
         elif state.grad_cache is not None:
-            grads, losses = vgrad(p_e, xb, yb)
+            grads, losses = batch_grads(p_e, xb, yb)
             # cache policy: every opportunity applies *some* gradient (leaf
             # by leaf under per-tensor push), so the fused mask is all-ones
             # over the effective gradients
@@ -647,7 +811,7 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
                 client_params=p_e)
             engine.last_event_scatter(state.grad_cache, cs, grads, push)
         else:
-            grads, losses = vgrad(p_e, xb, yb)
+            grads, losses = batch_grads(p_e, xb, yb)
             new_server, taus = engine.fused_apply(
                 scfg, server, grads, push, grad_ts, client_params=p_e)
 
@@ -661,8 +825,9 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
             fetch_bytes_sent=fetch_sent, fetch_bytes_total=k * model_bytes)
         if engine.fused_kernel_active(scfg):
             # one fused window = one launch per leaf consuming all K events
-            counters = engine.count_kernel(
-                counters, len(leaves(server.params)), k)
+            counters = engine.count_kernel(counters, len(leaves(like)), k)
+        # one window = one apply, every shard consuming its blocks of K
+        counters = count_shard(counters, server, k)
         new_state = state._replace(server=new_server, rr_pos=state.rr_pos + k,
                                    counters=counters)
         metrics = {"loss": losses, "tau": taus, "client": cs,
@@ -698,6 +863,8 @@ def _build_queue_step(config: SimConfig, loss_fn, data_x, data_y,
     batched_losses = (engine.resolve_event_batched_loss(loss_fn,
                                                         batched_loss_fn)
                       if use_cotangent else None)
+    count_shard = server_shard.shard_counter(config.server_shards,
+                                              config.server_axis)
 
     def step(state: SimState, draws: Draws):
         K = draws.idx.shape[0]
@@ -707,8 +874,10 @@ def _build_queue_step(config: SimConfig, loss_fn, data_x, data_y,
         else:
             state, cs, t_fin = race.window(state, K)
         server = state.server
-        model_bytes = tree_bytes(server.params)
-        n_leaves = len(leaves(server.params))
+        like = server_shard.like(server).params
+        T = server_shard.gather(server, lambda s: s.timestamp, cs.device)
+        model_bytes = tree_bytes(like)
+        n_leaves = len(leaves(like))
         idx = draws.idx
 
         # --- push gates at arrival, all against the pre-window server ---
@@ -755,14 +924,13 @@ def _build_queue_step(config: SimConfig, loss_fn, data_x, data_y,
             leaf_ts=dedup_key if bw.per_tensor_fetch else None,
             leaf_mask=push if bw.per_tensor_push else None, wall=t_fin)
         queue, admitted, n_rejected, n_dropped = qlib.enqueue(
-            state.queue, arrivals, config.admission_policy,
-            server.timestamp)
+            state.queue, arrivals, config.admission_policy, T)
         depth_peak = queue.size
         # only admitted pushes crossed the wire: a rejected push is
         # refused before transmission
         if bw.per_tensor_push:
             push_sent = masked_bytes(tree_map(lambda m: m & admitted, push),
-                                     server.params)
+                                     like)
         else:
             push_sent = admitted.to(torch.float32).sum() * model_bytes
 
@@ -772,17 +940,18 @@ def _build_queue_step(config: SimConfig, loss_fn, data_x, data_y,
                                  gain=config.drain_adaptive_gain)
         queue, batch = qlib.dequeue(queue, k_eff)
         latency_sum = torch.where(
-            batch.valid, (server.timestamp - batch.enq_T).to(torch.float32),
-            0.0).sum()
+            batch.valid, (T - batch.enq_T).to(torch.float32), 0.0).sum()
         latency_wall_sum = (
             torch.where(batch.valid, state.scenario.now - batch.enq_wall,
                         0.0).sum() if race is not None else None)
-        grad_ts = (_leaf_tree(server.params, batch.leaf_ts)
+        grad_ts = (_leaf_tree(like, batch.leaf_ts)
                    if bw.per_tensor_fetch else batch.ts)
         push_arg = qlib.drained_push_arg(batch, bw.per_tensor_push)
+        # a placed payload reaches the apply placed; its losses and
+        # minibatch rows are gathered
         cp = batch.payload.get("copy") if rule.needs_client_params else None
         if use_cotangent:
-            rows = batch.payload["idx"]
+            rows = server_shard.gather(batch.payload["idx"])
             xb, yb = data_x[rows], data_y[rows]
             new_server, taus, dlosses = engine.fused_apply_cotangent(
                 scfg, server,
@@ -792,11 +961,11 @@ def _build_queue_step(config: SimConfig, loss_fn, data_x, data_y,
             new_server, taus = engine.fused_apply(
                 scfg, server, batch.payload["grad"], push_arg, grad_ts,
                 client_params=cp)
-            dlosses = batch.payload["loss"]
+            dlosses = server_shard.gather(batch.payload["loss"])
         else:
             new_server, taus = engine.serial_apply(
                 scfg, server, batch.payload["grad"], push_arg, grad_ts, cp)
-            dlosses = batch.payload["loss"]
+            dlosses = server_shard.gather(batch.payload["loss"])
 
         # --- fetch gates: the K arriving clients, post-drain server ---
         fetch, fetch_sent = _fetch_window(config, state, cs, new_server,
@@ -820,6 +989,9 @@ def _build_queue_step(config: SimConfig, loss_fn, data_x, data_y,
                                                        bw.per_tensor_fetch):
             counters = engine.count_kernel(
                 counters, batch.valid.shape[0] * n_leaves, k_eff)
+        # one drain = one apply, every shard consuming its blocks of the
+        # k_eff drained events
+        counters = count_shard(counters, server, k_eff)
 
         new_state = state._replace(server=new_server, rr_pos=state.rr_pos + K,
                                    counters=counters, queue=queue)
@@ -856,6 +1028,7 @@ def run_simulation(
     device=None,
     batched_loss_fn: Optional[Callable] = None,
     scenario_draws=None,
+    client_axis: str = "clients",
 ):
     """Run the deterministic simulation; returns a results dict.
 
@@ -868,6 +1041,11 @@ def run_simulation(
     caller passes another device (`utils.device.resolve_device`).
     `batched_loss_fn` is the cotangent path's event-batched loss and
     `scenario_draws` the scenario's variate provider (`build_step_fn`).
+    `mesh` (`launch.mesh.Mesh`) may carry a `client_axis` (the fleet
+    arrays split by rows over it, and the fused gradient batch; see
+    `build_step_fn`), a ``config.server_axis`` of exactly
+    ``config.server_shards`` devices when that is above 1 (the server
+    and the queue's payload placed on it, `core.server_shard`), or both.
 
     The dict has the reference's keys: ``steps``, ``val_cost``,
     ``wall_clock`` (the modelled wall clock at each evaluation under a
@@ -876,22 +1054,33 @@ def run_simulation(
     `collect_step_metrics`.  The final state's `client_leaf_ts` is there
     under per-tensor fetch, its `queue` under a queue, its `scenario`
     under a scenario; the `queue_*` counters only under a queue and
-    ``wall_clock`` / ``scenario_*`` only under a scenario, as in the
-    reference.
+    ``wall_clock`` / ``scenario_*`` only under a scenario, and the
+    ``shard_*`` counters only when ``server_shards > 1``, as in the
+    reference.  A sharded run's ``state.server`` stays placed
+    (`core.server_shard.gather` makes it whole), as do the fleet arrays
+    under a client axis of several devices (`FleetRows.gather`).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a client mesh is not ported to repro_torch yet")
     device = resolve_device(device)
     params = tree_map(lambda l: torch.as_tensor(l).to(device), init_params)
     data_x = torch.as_tensor(data_x).to(device)
     data_y = torch.as_tensor(data_y).to(device=device, dtype=torch.int64)
     if rng is None:
         rng = native_draws(config, data_x.shape[0], len(leaves(params)))
-    state = init_sim(config, params, scenario_draws)
     step = build_step_fn(config, loss_fn, data_x, data_y,
                          batched_loss_fn=batched_loss_fn,
-                         scenario_draws=scenario_draws)
+                         scenario_draws=scenario_draws, mesh=mesh,
+                         client_axis=client_axis)
+    state = init_sim(config, params, scenario_draws)
+    if mesh is not None and client_axis in getattr(mesh, "axis_names", ()):
+        state = shard_fleet(state, mesh, client_axis)
+    if config.server_shards > 1:
+        server_shard.validate_server_mesh(mesh, config.server_shards,
+                                          config.server_axis)
+        state = state._replace(
+            server=server_shard.shard_server_state(state.server, mesh,
+                                                   config.server_axis),
+            queue=server_shard.shard_queue_state(state.queue, mesh,
+                                                 config.server_axis))
     K = config.events_per_step
 
     curve_steps, curve_cost, curve_wall = [], [], []
@@ -913,7 +1102,8 @@ def run_simulation(
         if eval_fn is not None:
             curve_steps.append(done)
             with torch.no_grad():
-                curve_cost.append(float(eval_fn(state.server.params)))
+                curve_cost.append(float(eval_fn(server_shard.gather(
+                    state.server, lambda s: s.params, device))))
             # error against wall clock: the modelled time under a
             # scenario, else the unit event clock
             curve_wall.append(float(state.counters.wall_clock)
@@ -933,13 +1123,18 @@ def run_simulation(
         # kernel-path telemetry only appears when the kernel path can run
         counters = {k: v for k, v in counters.items()
                     if not k.startswith("kernel_")}
+    if config.server_shards <= 1:
+        # partitioned-server telemetry only appears when the server shards
+        counters = {k: v for k, v in counters.items()
+                    if not k.startswith("shard_")}
     out = {
         "state": state,
         "steps": curve_steps,
         "val_cost": curve_cost,
         "wall_clock": curve_wall,
         "counters": counters,
-        "final_timestamp": int(state.server.timestamp),
+        "final_timestamp": int(server_shard.gather(
+            state.server, lambda s: s.timestamp)),
     }
     if collect_step_metrics:
         out["train_loss"] = torch.cat(train_losses)

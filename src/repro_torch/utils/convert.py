@@ -13,11 +13,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import server_shard
 from repro_torch.core.engine import Counters
 from repro_torch.core.queue import QueueState
 from repro_torch.core.round_trainer import RoundState
 from repro_torch.core.rules import ServerState
 from repro_torch.core.scenarios import ScenarioState
+from repro_torch.sim.fred import FleetRows
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.trees import tree_map
 
@@ -75,16 +77,9 @@ def _fields(obj) -> dict:
 
 def counters_from_numpy(counters, device=None) -> Counters:
     """The port's `Counters` from the reference's (a NamedTuple or mapping
-    of numpy scalars), dtypes kept, on `device` (the card unless the
-    caller passes another).  A field the port lacks (the reference's
-    ``shard_*``) must be zero: the run it comes from had no sharded
-    server."""
+    of numpy scalars, the ``shard_*`` fields included), dtypes kept, on
+    `device` (the card unless the caller passes another)."""
     got = _fields(counters)
-    extra = [k for k, v in got.items()
-             if k not in Counters._fields and np.any(np.asarray(v))]
-    if extra:
-        raise ValueError(f"counters the port does not keep are nonzero: "
-                         f"{extra}")
     device = resolve_device(device)
     return Counters(*(_tensor(got[k], device) for k in Counters._fields))
 
@@ -135,8 +130,15 @@ def round_state_from_numpy(state, device=None) -> RoundState:
 
 def to_numpy(tree):
     """Every tensor leaf of `tree` (a `ServerState` too, `extra` included)
-    as a numpy array; bfloat16 comes back as float32, which numpy lacks."""
+    as a numpy array; bfloat16 comes back as float32, which numpy lacks.
+    A sharded server state (`core.server_shard.ShardedTree`) is gathered
+    first, so it comes back in the reference's layout, and so is a fleet
+    array split over a client axis (`sim.fred.FleetRows`)."""
     def one(t):
+        if server_shard.is_sharded(t):
+            return to_numpy(t.gather())
+        if isinstance(t, FleetRows):
+            t = t.gather()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.detach().cpu().numpy()

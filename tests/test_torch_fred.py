@@ -424,8 +424,8 @@ def test_port_native_data_and_init_match_the_reference_geometry():
 
 
 @pytest.mark.parametrize("kwargs", [
-    # the queue, the cotangent path and scenarios are ported; a sharded
-    # server is not, under any of them
+    # a sharded server is ported under the queue, the cotangent path and
+    # scenarios alike; it needs a mesh whose server axis has its size
     dict(queue_capacity=4, scenario=scen.preset("stragglers"),
          server_shards=2),
     dict(scenario=scen.preset("dropout"), server_shards=2),
@@ -435,9 +435,14 @@ def test_port_native_data_and_init_match_the_reference_geometry():
     dict(apply_mode="fused", server=ServerConfig(rule="sasgd"),
          queue_capacity=4, server_shards=2),
 ])
-def test_unported_configurations_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        SimConfig(**kwargs)
+def test_unported_configurations_raise(setup, kwargs):
+    """The configuration is accepted; a run without a server mesh of its
+    size raises the reference's `ValueError`."""
+    cfg = SimConfig(**kwargs)
+    params, ds = setup
+    with pytest.raises(ValueError, match="server_shards=2 requires a mesh"):
+        run_simulation(cfg, nll_loss, params_from_numpy(params, device="cpu"),
+                       ds["x_train"], ds["y_train"], 4, device="cpu")
 
 
 SCENARIO_CONFIGS = {
@@ -477,9 +482,12 @@ def test_sim_config_takes_a_scenario_where_the_reference_does(name, preset):
 
 
 def test_mesh_raises(setup):
+    """A mesh without a server axis of ``server_shards`` devices is
+    refused, as the reference refuses it."""
     params, ds = setup
-    with pytest.raises(NotImplementedError):
-        run_simulation(SimConfig(), nll_loss, params_from_numpy(params, device="cpu"),
+    with pytest.raises(ValueError, match="axis size 0"):
+        run_simulation(SimConfig(server_shards=2), nll_loss,
+                       params_from_numpy(params, device="cpu"),
                        ds["x_train"], ds["y_train"], 4, mesh=object(),
                        device="cpu")
 

@@ -183,7 +183,7 @@ def compare_states(st, j_st):
                                           err_msg=field)
     j_c = {k: float(v) for k, v in j_st.counters._asdict().items()}
     c = {k: float(v) for k, v in st.counters._asdict().items()}
-    assert not any(v for k, v in j_c.items() if k.startswith("shard_"))
+    assert sorted(c) == sorted(j_c)
     for k, v in c.items():
         if k == "wall_clock":
             np.testing.assert_allclose(v, j_c[k], rtol=WALL_RTOL)
@@ -348,15 +348,16 @@ def test_mid_run_state_carried_across(setup):
 
 
 def test_counters_carry_across_only_without_shard_telemetry():
-    """The reference's counters cross whole; its ``shard_*`` fields, which
-    the port does not keep, must be zero (no sharded server ran)."""
+    """The reference's counters cross whole, its ``shard_*`` fields
+    included (the port keeps them since it shards the server)."""
     j_c = jax.tree.map(np.asarray, j_init_counters()._replace(
         push_actual=jnp.int32(3), wall_clock=jnp.float32(2.5)))
     c = counters_from_numpy(j_c, device="cpu")
     assert int(c.push_actual) == 3 and float(c.wall_clock) == 2.5
     assert c.push_actual.dtype == torch.int32
-    with pytest.raises(ValueError, match="shard_applies"):
-        counters_from_numpy(j_c._replace(shard_applies=np.int32(1)), "cpu")
+    c = counters_from_numpy(j_c._replace(shard_applies=np.int32(1)), "cpu")
+    assert int(c.shard_applies) == 1
+    assert c.shard_applies.dtype == torch.int32
 
 
 # ---------------------------------------------------------------------------
@@ -575,19 +576,24 @@ def test_fused_barrier_rule_raises_on_its_round(setup):
 
 
 def test_sharded_server_is_not_ported(setup):
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        rt.build_round_step(TrainerConfig(server_shards=2),
-                            rt.make_grad_fn(nll_loss))
+    """A sharded server is ported now: ``server_shards=2`` builds, and
+    `shard_round_state` places nothing for no mesh or a server axis of one
+    device, and places the server over a larger one
+    (`tests/test_torch_server_shard.py` holds the runs)."""
+    from repro_torch.core import server_shard
+    from repro_torch.launch.mesh import make_server_mesh
+    rt.build_round_step(TrainerConfig(server_shards=2),
+                        rt.make_grad_fn(nll_loss))
     st = rt.init_round_state(TrainerConfig(),
                              params_from_numpy(setup[0], "cpu"), "cpu")
-
-    class Mesh:
-        def __init__(self, n):
-            self.shape = {"server": n}
-    assert rt.shard_round_state(st, None) is st
-    assert rt.shard_round_state(st, Mesh(1)) is st
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        rt.shard_round_state(st, Mesh(2))
+    cpu = torch.device("cpu")
+    assert rt.shard_round_state(st, None).server is st.server
+    assert rt.shard_round_state(
+        st, make_server_mesh(server=1, devices=[cpu])).server is st.server
+    placed = rt.shard_round_state(
+        st, make_server_mesh(server=2, devices=[cpu] * 2))
+    assert server_shard.is_sharded(placed.server)
+    assert placed.client_params is st.client_params
 
 
 def test_trainer_config_has_the_reference_fields():
