@@ -183,9 +183,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    round's 4th order statistic of the same draws.  Every run's validation
    cost must fall.  (f) FRED under scenarios: `benchmarks/scenarios.py`'s
    operating point at full width (λ=32, μ=4, 'stragglers', asgd lr=0.01
-   with K=8 windows and kasync K=8 lr=0.2 with λ-event rounds, 4096 events
-   each), 'dropout' async on the same fleet (1024 events), and fused
-   fasgd with the kernel under 'hotspot' at phase 4's fleet (40 windows):
+   with K=8 windows and kasync K=8 lr=0.2 with λ-event rounds, 2048 events
+   each; 4096 before phase 20 needed the time), 'dropout' async on the
+   same fleet (1024 events), and fused fasgd with the kernel under 'hotspot' at phase 4's fleet (40 windows):
    the wall-clock curve never decreases, the scenario counters agree with
    the windows and the fleet, `fused_event_apply` launches once a window,
    the validation cost falls.  (g) The native scenario draws (4096 (c, n) pairs per law,
@@ -204,7 +204,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    no flash launch, and `ops.attention` refusing an input that requires
    grad and a vmapped one on the card; (b) the round trainer at full
    width and depth (22 layers, bf16; C=4, μ=2, S=256, fasgd lr=0.01,
-   c_fetch=0.5, kernel on, 20 rounds): fused on `fused_event_apply` (one
+   c_fetch=0.5, kernel on, 10 rounds; 20 before phase 20 needed the
+   time): fused on `fused_event_apply` (one
    launch a round) and serial on `fasgd_update` (one launch per push that
    reached the server), the held-out CE of a fixed batch printed (it is
    not required to fall: PERF.md, PR 20), the peak memory beside the
@@ -222,7 +223,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    events at lr 3e-5 (`fasgd_update` once per event) and fused K=4 for 50
    windows at lr 3e-4 (`fused_event_apply` once per window), the held-out
    CE printed and finite; (e) each loop under
-   ``set_sync_debug_mode('error')``, then profiled; rounds/s or events/s
+   ``set_sync_debug_mode('error')``, then profiled (the round trainer 2
+   rounds each way, 4 before phase 20); rounds/s or events/s
    and tokens/s.  The launches of (b) and (d) join the kernels' record.
 
 16. The audio and VLM families at full width (random weights from seed 0):
@@ -234,7 +236,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    hubert-xlarge through `models.serving.encode` (48 layers, bf16, 8 x
    1024 frames): 48 launches, the logits against `forward`, the last
    frame moving the first position's logits, frames/s, profiled; (c) the
-   round trainer on hubert-xlarge at full width and depth (phase 15 (b)'s
+   round trainer on hubert-xlarge at full width, cut to 24 of 48 layers
+   for the script's time (phase 15 (b)'s
    point, S = 256 frames, `models.api.make_dict_grad_fn`), fused and
    serial, 5 rounds each, launches as in phase 15 (b), peak memory beside
    the reckoning, each kernel against the plain path as in phase 15 (b),
@@ -331,6 +334,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    4 `fused_event_apply` launches a round; the plan's per-shard peak
    bytes beside each run's measured peak, and rounds/s.  The launches
    join the kernels' record.
+20. The training launcher (`launch/train.py`, `launch/steps.py`,
+   `checkpoint/`), tinyllama-1.1b at full width and depth (22 layers,
+   bf16): (a) ``launch.train.main`` in this process in round-trainer mode,
+   ``--clients 4 --batch 8 --seq 256 --use-fused-kernel --steps 4``
+   (phase 15 (b)'s C and μ), ``--apply-mode fused`` then ``serial``: the
+   printed losses finite, `fused_event_apply` launched once a round and
+   `fasgd_update` once a pushing candidate (the launch counts set to 0
+   just before each run), rounds/s as printed and over rounds 2-4 (each
+   step's printed line timed), the peak memory; (b)
+   pod-sync mode, ``--clients 0 --batch 2 --seq 1024 --steps 3
+   --ckpt-every 3`` into a temporary directory: the manifest's paths,
+   shapes and dtypes the reference's for the tree, the checkpoint
+   restored onto the card bitwise the run's final parameters, its write
+   and read times, the directory deleted; (c) `make_train_step` with
+   ``remat=True`` against ``remat=False`` from one state at B = 1, S =
+   1024 (loss and θ' within phase 15's allowance, both peaks; the
+   forward and backward alone must peak at most half as high with remat
+   as without), then one
+   step with remat alone at B = 8, S = 2048 (its peak beside the
+   reckoning, tokens/s); (d) the round trainer fused at (a)'s point, 2
+   rounds from one start with remat on and off (`torch.func.vmap` of
+   `grad`): θ, n, b, v within phase 15's allowance, both peaks; the 4
+   clients' vmapped gradients alone at most half as high with remat.  The
+   launches of (a) join the kernels' record.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2254,6 +2281,7 @@ def phase_cotangent_and_queue(ds, params, K):
 
 
 ROUND_LR = 0.0025
+STRAG_EVENTS = 2048         # (f)'s 'stragglers' runs (4096 until phase 20)
 
 
 def round_batches(ds, C, mu, rounds, seed=0):
@@ -2588,11 +2616,12 @@ def phase_round_trainer_and_scenarios(ds, params, K):
     runs = (
         ("(f) FRED stragglers, asgd serial K=8", SimConfig(
             server=ServerConfig(rule="asgd", lr=0.01), events_per_step=8,
-            scenario=strag, **bench), 4096, 1024, False),
+            scenario=strag, **bench), STRAG_EVENTS, STRAG_EVENTS // 4, False),
         ("(f) FRED stragglers, kasync K=8 of 32", SimConfig(
             server=ServerConfig(rule="kasync", lr=0.2, num_clients=32,
                                 kasync_k=8),
-            events_per_step=32, scenario=strag, **bench), 4096, 1024, False),
+            events_per_step=32, scenario=strag, **bench), STRAG_EVENTS,
+         STRAG_EVENTS // 4, False),
         ("(f) FRED dropout, asgd serial K=8", SimConfig(
             server=ServerConfig(rule="asgd", lr=0.01), events_per_step=8,
             scenario=scen.preset("dropout"), **bench), 1024, 256, True),
@@ -2667,7 +2696,8 @@ def phase_round_trainer_and_scenarios(ds, params, K):
 LM_ARCH = "tinyllama-1.1b"
 LM_C, LM_MU, LM_S = 4, 2, 256           # clients, sequences each, positions
 LM_LR, LM_C_FETCH = 0.01, 0.5
-LM_ROUNDS, LM_AGREE, LM_SERIAL_AGREE = 20, 4, 2
+LM_ROUNDS, LM_AGREE, LM_SERIAL_AGREE = 10, 4, 2   # 20 rounds until phase 20
+LM_BREAKDOWN = 2            # (e): rounds a way (4 until phase 20)
 LM_CUT = 2                  # the depth of (a) and (d)
 LM_COT_DEPTH = 4            # the depth of (c), float32
 LM_FRED_EVENTS, LM_FRED_WINDOWS, LM_FRED_K = 200, 50, 4
@@ -3099,7 +3129,7 @@ def phase_lm_training(dev, smi):
         print(f"  (e) {label} under torch.cuda.set_sync_debug_mode('error'),"
               f" then profiled:")
         round_breakdown(re.sub(r"[^a-z0-9]+", "_", label.lower()).strip("_"),
-                        drv, 4)
+                        drv, LM_BREAKDOWN)
         del drv
         free_card()
     del params
@@ -3190,12 +3220,14 @@ def phase_lm_training(dev, smi):
 VLM_ARCH, AUDIO_ARCH = "phi-3-vision-4.2b", "hubert-xlarge"
 VLM_B, VLM_S, VLM_GEN = 4, 2048, 32     # 256 image + 1792 text tokens
 AUDIO_B, AUDIO_S = 8, 1024              # ~20 s of audio at 50 frames/s
-# (c): 5 rounds of ~2 s at 48 layers (host-bound: more buy no precision)
+# (c): 5 rounds of ~1 s at 24 layers (host-bound: more buy no precision)
 AUDIO_ROUNDS, VLM_ROUNDS, MODAL_AGREE, MODAL_SERIAL_AGREE = 5, 10, 4, 2
-# (c)'s serial kernel on/off holds the round's state, its gradients and the
-# kernel's float32 statistics at once: ~80 GB at 48 layers, so it runs at
-# 32 of hubert-xlarge's 48 layers (a cut; the serial arm itself runs all 48)
-MODAL_SERIAL_AGREE_DEPTH = 32
+# (c) runs hubert-xlarge at 24 of its 48 layers (a cut, for the script's
+# time once phase 20 was added; it ran all 48 before).  Its serial
+# kernel on/off holds the round's state, its gradients and the kernel's
+# float32 statistics at once: ~80 GB at 48 layers; it runs at the same 24.
+AUDIO_TRAIN_DEPTH = 24
+MODAL_SERIAL_AGREE_DEPTH = 24
 VLM_TRAIN_DEPTH = 8                     # (d): 8 of 32 layers (a cut)
 VLM_TRAIN_S = 512                       # (d): 256 image + 256 text tokens
 # (e): benchmarks/lm_training.py's point (BENCH_lm_training.json: fasgd
@@ -3367,10 +3399,11 @@ class ModalRoundLoop(RoundLoop):
 
 
 def phase_modal_training(dev):
-    """(c) the round trainer on hubert-xlarge at full width and depth,
-    serial and fused, each kernel held against the plain path; (d) fused
-    on phi-3-vision-4.2b at full width, 8 of 32 layers.  Returns the
-    launches of `fasgd_update` and `fused_event_apply` and the rates."""
+    """(c) the round trainer on hubert-xlarge at full width, cut to
+    `AUDIO_TRAIN_DEPTH` layers, serial and fused, each kernel held against
+    the plain path; (d) fused on phi-3-vision-4.2b at full width, 8 of 32
+    layers.  Returns the launches of `fasgd_update` and
+    `fused_event_apply` and the rates."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -3382,7 +3415,8 @@ def phase_modal_training(dev):
     tc = TrainerConfig(num_round_clients=LM_C, rule="fasgd", lr=LM_LR,
                        c_fetch=LM_C_FETCH, use_fused_kernel=True)
     gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
-    cfg = get_config(AUDIO_ARCH)
+    cfg = dataclasses.replace(get_config(AUDIO_ARCH),
+                              num_layers=AUDIO_TRAIN_DEPTH)
     params = lm_params(cfg, dev)
     P = param_count(params)
     data = make_batch(cfg, LM_C * LM_MU * (AUDIO_ROUNDS + 4), LM_S, gen(3))
@@ -3391,8 +3425,9 @@ def phase_modal_training(dev):
         # phase 15 (b)'s reckoning: (40 + 4C)P, serial 8P more
         reckoned = (40 + extra + 4 * LM_C) * P
         label = f"(c) {cfg.name} round trainer {mode}"
-        print(f"  {label}: {cfg.num_layers} layers, {P} parameters "
-              f"({cfg.param_dtype}); C={LM_C}, μ={LM_MU}, S={LM_S} frames, "
+        print(f"  {label}: {cfg.num_layers} of 48 layers (a cut), {P} "
+              f"parameters ({cfg.param_dtype}); C={LM_C}, μ={LM_MU}, "
+              f"S={LM_S} frames, "
               f"fasgd lr={LM_LR}, c_fetch={LM_C_FETCH}; peak memory "
               f"reckoned {gib(reckoned)} + activations")
         drv = ModalRoundLoop(tc, mode, cfg, params, data, val)
@@ -3416,7 +3451,7 @@ def phase_modal_training(dev):
                                  val)
             lm_serial_kernel_on_off(
                 drv, MODAL_SERIAL_AGREE, f"{label} kernel on/off at "
-                f"{cut.num_layers} of {cfg.num_layers} layers")
+                f"{cut.num_layers} of 48 layers")
             del drv
             free_card()
     del params, data
@@ -4557,6 +4592,367 @@ def phase_sharded_server(ds, params, smi, bases, K):
     return n["fasgd_update"], n["fused_event_apply"]
 
 
+# Phase 20: the training launcher (`launch/train.py`, `launch/steps.py`,
+# `checkpoint/`), tinyllama-1.1b at full width and depth on the card.
+LAUNCH_CLI = ["--arch", LM_ARCH, "--clients", "4", "--batch", "8", "--seq",
+              "256", "--use-fused-kernel", "--steps", "4", "--log-every",
+              "1"]
+POD_CLI = ["--arch", LM_ARCH, "--clients", "0", "--batch", "2", "--seq",
+           "1024", "--steps", "3", "--ckpt-every", "3", "--log-every", "1"]
+REMAT_S = 1024                  # (c): B = 1, S = 1024, remat on and off
+REMAT_BIG_B, REMAT_BIG_S = 8, 2048    # (c): one step with remat on alone
+REMAT_ROUNDS = 2                # (d)
+REMAT_SAVES = 0.5               # (c), (d): remat's gradient peak ≤ half off's
+
+
+def launcher_arm(label, run):
+    """One arm of phase 20: the card released before it, then `run()`.
+    Returns (its result, seconds, peak bytes allocated, bytes allocated
+    before it)."""
+    import torch
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+            base)
+
+
+class StampedText:
+    """A text stream that keeps what is written and, for each write, the
+    `time.perf_counter()` at which it came."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, s):
+        self.parts.append((time.perf_counter(), s))
+        return len(s)
+
+    def flush(self):
+        pass
+
+    def text(self):
+        return "".join(s for _, s in self.parts)
+
+    def stamps(self, pattern):
+        """The times of the writes that match `pattern`."""
+        return [t for t, s in self.parts if re.search(pattern, s)]
+
+
+def train_cli(argv):
+    """`launch.train.main(argv)` in this process, its printed lines kept
+    (and echoed indented).  Returns (final state, the printed text, the
+    steady rate: steps a second from the first step's line to the last,
+    the first step left out).  Each step's line is printed after its loss
+    is read off the card, so its time closes that step."""
+    import contextlib
+    from repro_torch.launch import train
+    buf = StampedText()
+    with contextlib.redirect_stdout(buf):
+        state = train.main(argv)
+    text = buf.text()
+    for line in text.strip().splitlines():
+        print(f"    | {line}")
+    stamps = buf.stamps(r"^  step +\d+ loss=")
+    steady = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    return state, text, steady
+
+
+def printed_losses(label, text, n):
+    """The `n` losses the CLI printed, each finite."""
+    losses = [float(x) for x in re.findall(r" loss=(\S+)", text)]
+    if len(losses) != n or not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: printed losses {losses}, want {n} finite")
+    return losses
+
+
+def jax_paths(tree, prefix=()):
+    """The key paths of a dict tree as `jax.tree_util.tree_flatten_with_path`
+    spells them (``['layers']/['attn']/['wq']``), in its leaf order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in jax_paths(tree[k], prefix + (f"[{k!r}]",))]
+    return ["/".join(prefix)]
+
+
+def allowance_share(label, got, want):
+    """(the worst share, over the leaves of two trees, of phase 15's
+    allowance: one bf16 rounding of each leaf's largest entry; the leaves
+    equal bitwise; the leaves)."""
+    import torch
+    from repro_torch.utils.trees import leaves
+    worst, same = 0.0, 0
+    pairs = list(zip(leaves(got), leaves(want)))
+    for i, (a, b) in enumerate(pairs):
+        same += a.dtype == b.dtype and bool(torch.equal(a, b))
+        a, b = a.float(), b.float()
+        allow = BF16_ROUNDING * float(b.abs().max())
+        err = float((a - b).abs().max())
+        if not (math.isfinite(err) and err <= allow):
+            fail(f"{label}: leaf {i} off by {err:.3e}, allowance "
+                 f"{allow:.3e}")
+        worst = max(worst, err / allow if allow else 0.0)
+    return worst, same, len(pairs)
+
+
+def gradient_alone(cfg, params, batch):
+    """`loss_fn`'s forward and backward by plain autograd, no update: what
+    `make_train_step` holds before its apply."""
+    import torch
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.utils.trees import leaves, tree_map
+    params = tree_map(lambda l: l.detach().requires_grad_(), params)
+    loss = loss_fn(params, cfg, batch)[0]
+    return torch.autograd.grad(loss, leaves(params))
+
+
+def phase_launcher(dev, smi):
+    """Phase 20: the training CLI in both modes, the checkpoint, remat.
+    Returns the kernel launches of `fasgd_update` and `fused_event_apply`
+    in (a)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainerConfig
+    from repro_torch.core import round_trainer as rt
+    from repro_torch.core import rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps, train
+    from repro_torch.models.api import make_dict_grad_fn, param_count
+    from repro_torch.utils.trees import leaves, tree_map
+    print(f"phase 20: the training launcher, {LM_ARCH} at full width and "
+          f"depth, on {smi}")
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    launches = {"fasgd_update": 0, "fused_event_apply": 0}
+
+    # (a) the CLI in round-trainer mode, fused and serial
+    for mode in ("fused", "serial"):
+        label = f"(a) train CLI, --clients 4 --apply-mode {mode}"
+        argv = LAUNCH_CLI + ["--apply-mode", mode]
+        print(f"  {label}: python -m repro_torch.launch.train "
+              + " ".join(argv))
+        ops.reset_launches()
+        (state, text, steady), secs, peak, base = launcher_arm(
+            label, lambda: train_cli(argv))
+        device = dict(ops.DEVICE_LAUNCHES)
+        losses = printed_losses(label, text, 4)
+        rate = float(re.search(r"\(([\d.]+) rounds/s\)", text).group(1))
+        pushes = int(state.counters.push_actual)
+        kernel, other = (("fused_event_apply", "fasgd_update")
+                         if mode == "fused" else
+                         ("fasgd_update", "fused_event_apply"))
+        want = 4 if mode == "fused" else pushes
+        if not (device[kernel] == want > 0 and device[other] == 0
+                and device["flash_attention"] == 0):
+            fail(f"{label}: kernel launches {device}, want {want} of "
+                 f"{kernel} ({pushes} pushes)")
+        launches[kernel] += device[kernel]
+        print(f"  {label}: losses {losses}, finite; {kernel} launched "
+              f"{device[kernel]} times ("
+              + ("once a round" if mode == "fused" else
+                 f"once for each of the {pushes} pushing candidates")
+              + f"), {other} 0; {rate:.2f} rounds/s as printed (its first "
+              f"round included), {steady:.2f} rounds/s over rounds 2-4; "
+              f"peak memory {gib(peak)} ({gib(base)} held "
+              f"before); {secs:.1f} s with the init")
+        del state
+        free_card()
+
+    # (b) the CLI in pod-sync mode, its checkpoint written, read back
+    label = "(b) train CLI, --clients 0"
+    timed = {}
+    save = train.save_checkpoint
+
+    def timed_save(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(*a, **kw)
+        timed["write"] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        argv = POD_CLI + ["--ckpt-dir", d]
+        print(f"  {label}: python -m repro_torch.launch.train "
+              + " ".join(argv))
+        train.save_checkpoint = timed_save
+        try:
+            (state, text, steady), secs, peak, base = launcher_arm(
+                label, lambda: train_cli(argv))
+        finally:
+            train.save_checkpoint = save
+        losses = printed_losses(label, text, 3)
+        sps = float(re.search(r"rate: ([\d.]+) steps/s", text).group(1))
+        step_dir = os.path.join(d, "step_3")
+        with open(os.path.join(step_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, n))
+                     for n in os.listdir(step_dir))
+        paths = [e["path"] for e in manifest["leaves"]]
+        dtypes = {e["dtype"] for e in manifest["leaves"]}
+        shapes = [tuple(e["shape"]) for e in manifest["leaves"]]
+        if not (paths == jax_paths(state.params) and dtypes == {"bfloat16"}
+                and shapes == [tuple(t.shape)
+                               for t in leaves(state.params)]):
+            fail(f"{label}: manifest paths {paths[:3]}..., dtypes {dtypes}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, step, _ = restore_checkpoint(d, state.params)
+        torch.cuda.synchronize()
+        read = time.perf_counter() - t0
+        same = all(a.dtype == b.dtype and a.device == b.device
+                   and torch.equal(a, b)
+                   for a, b in zip(leaves(got), leaves(state.params)))
+        if step != 3 or not same:
+            fail(f"{label}: the checkpoint of step {step} restored on the "
+                 f"card is not the run's final parameters bitwise")
+        del got
+    print(f"  {label}: losses {losses}, finite; {sps:.3f} steps/s as "
+          f"printed ({2 * 1024 * sps:.0f} tokens/s), {steady:.3f} over steps "
+          f"2-3 (the checkpoint, written after step 3's line, left out; the "
+          f"printed rate includes it); the checkpoint of step "
+          f"3: {nbytes} bytes ({len(paths)} bf16 leaves, the reference's "
+          f"paths and dtypes), written in {timed['write']:.2f} s, read back "
+          f"onto the card in {read:.2f} s, bitwise the final parameters; "
+          f"the directory deleted; peak memory {gib(peak)}")
+    del state
+    free_card()
+
+    # (c) remat in the pod-sync step, against remat off
+    tc = TrainerConfig(rule="fasgd", lr=0.005)
+    params = lm_params(cfg, dev)
+    P = param_count(params)
+    st0 = rules.init(steps.server_config(tc), params)
+    del params
+    batch = train.batch_for_step(cfg, 1, REMAT_S, 0, dev)
+    res = {}
+    for remat in (False, True):
+        step = steps.make_train_step(dataclasses.replace(cfg, remat=remat),
+                                     tc)
+        (out, secs, peak, base) = launcher_arm(
+            f"(c) remat={remat}", lambda: step(st0, batch))
+        res[remat] = (out[0].params, float(out[1]["loss"]), peak, secs)
+        del out
+    (p0, l0, peak0, _), (p1, l1, peak1, _) = res[False], res[True]
+    if not abs(l1 - l0) <= BF16_ROUNDING * abs(l0):
+        fail(f"(c) remat loss {l1} against {l0}")
+    share, same, n = allowance_share("(c) remat θ'", p1, p0)
+    del res, p0, p1
+    # the same forward and backward alone, no update: what remat saves
+    grad_peaks = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        _, _, peak, base = launcher_arm(
+            f"(c) gradient alone, remat={remat}",
+            lambda: gradient_alone(c, st0.params, batch))
+        grad_peaks[remat] = peak - base
+    if not grad_peaks[True] <= REMAT_SAVES * grad_peaks[False]:
+        fail(f"(c) the forward and backward alone peak {gib(grad_peaks[True])}"
+             f" above the state with remat, {gib(grad_peaks[False])} without:"
+             f" want at most {REMAT_SAVES} of it")
+    print(f"  (c) pod-sync step, B = 1, S = {REMAT_S}: remat on against "
+          f"off, loss {l1:.6f} / {l0:.6f}, θ' within {share:.3f} of the "
+          f"allowance at worst ({same} of {n} leaves bitwise); peak "
+          f"{gib(peak1)} with remat (off's θ' held besides), {gib(peak0)} "
+          f"without (the state's {gib(8 * P)} included); the forward and "
+          f"backward alone "
+          f"{gib(grad_peaks[True])} with remat, {gib(grad_peaks[False])} "
+          f"without, above the state")
+    batch = train.batch_for_step(cfg, REMAT_BIG_B, REMAT_BIG_S, 1, dev)
+    step = steps.make_train_step(dataclasses.replace(cfg, remat=True), tc)
+    (out, secs, peak, base) = launcher_arm(
+        "(c) remat big", lambda: step(st0, batch))
+    loss = float(out[1]["loss"])
+    if not math.isfinite(loss) or int(out[0].timestamp) != 1:
+        fail(f"(c) remat at B = {REMAT_BIG_B}, S = {REMAT_BIG_S}: loss "
+             f"{loss}")
+    del out
+    _, _, big_grad, big_base = launcher_arm(
+        "(c) remat big, gradient alone",
+        lambda: gradient_alone(dataclasses.replace(cfg, remat=True),
+                               st0.params, batch))
+    print(f"  (c) one step with remat at B = {REMAT_BIG_B}, S = "
+          f"{REMAT_BIG_S}: loss {loss:.4f}; peak {gib(peak)}, its forward "
+          f"and backward alone {gib(big_grad)} ({gib(big_grad - big_base)} "
+          f"above the state's {gib(big_base)}; reckoned "
+          f"32-45 GB: θ 2.2 and n, b, v 6.6 in bf16, the gradient 2.2, the "
+          f"float32 logits and their softmax ~6.3, one layer's recompute "
+          f"~13, 22 layer inputs 1.5; without remat the scores alone would "
+          f"save ~283 GB); {secs:.2f} s, "
+          f"{REMAT_BIG_B * REMAT_BIG_S / secs:.0f} tokens/s (one step, its "
+          f"first at these shapes)")
+    del st0, batch
+    free_card()
+
+    # (d) remat under torch.func: the round trainer, fused, from one start
+    tc = TrainerConfig(num_round_clients=4, rule="fasgd", lr=0.005,
+                       use_fused_kernel=True)
+    params = lm_params(cfg, dev)
+    draws = rt.native_round_draws(tc, params, dev)
+    flat = [train.batch_for_step(cfg, 8, 256, r, dev)
+            for r in range(REMAT_ROUNDS)]
+    batches = [{k: v.reshape(4, 2, 256) for k, v in b.items()}
+               for b in flat]
+    servers = {}
+    for remat in (False, True):
+        step = rt.build_round_step(
+            tc, make_dict_grad_fn(dataclasses.replace(cfg, remat=remat)),
+            apply_mode="fused")
+
+        def run():
+            state = rt.init_round_state(tc, params)
+            for r in range(REMAT_ROUNDS):
+                state, _ = step(state, batches[r], draws.round(r))
+            return state.server
+        server, secs, peak, base = launcher_arm(f"(d) remat={remat}", run)
+        servers[remat] = (server, peak - base, secs)
+        del server
+    (s0, peak0, secs0), (s1, peak1, secs1) = servers[False], servers[True]
+    shares = {f: allowance_share(f"(d) {f}", getattr(s1, f), getattr(s0, f))
+              for f in ("params", "n", "b", "v")}
+    same = sum(x[1] for x in shares.values())
+    n = sum(x[2] for x in shares.values())
+    if int(s0.timestamp) != int(s1.timestamp):
+        fail(f"(d): T {int(s1.timestamp)} against {int(s0.timestamp)}")
+    print(f"  (d) round trainer fused, C = 4, μ = 2, S = 256, "
+          f"{cfg.num_layers} layers, {REMAT_ROUNDS} rounds from one start "
+          f"(vmapped torch.func gradients): remat on against off, worst "
+          f"share of the allowance " + ", ".join(
+              f"{f} {x[0]:.3f}" for f, x in shares.items())
+          + f" ({same} of {n} leaves bitwise); T = {int(s1.timestamp)}; "
+          f"peak above what each found "
+          f"{gib(peak1)} with remat, {gib(peak0)} without; {secs1:.2f} / "
+          f"{secs0:.2f} s")
+    del servers, s0, s1
+    # the clients' vmapped gradients alone, without the apply
+    copies = tree_map(lambda l: l[None].expand((4,) + tuple(l.shape))
+                      .clone(), params)
+    grad_peaks = {}
+    for remat in (False, True):
+        gf = torch.func.vmap(make_dict_grad_fn(
+            dataclasses.replace(cfg, remat=remat)))
+        _, _, peak, base = launcher_arm(
+            f"(d) vmapped gradients alone, remat={remat}",
+            lambda: gf(copies, batches[0]))
+        grad_peaks[remat] = peak - base
+    if not grad_peaks[True] <= REMAT_SAVES * grad_peaks[False]:
+        fail(f"(d) the vmapped gradients alone peak {gib(grad_peaks[True])} "
+             f"with remat, {gib(grad_peaks[False])} without: want at most "
+             f"{REMAT_SAVES} of it")
+    print(f"  (d) the 4 clients' vmapped gradients alone (no apply): "
+          f"{gib(grad_peaks[True])} with remat, {gib(grad_peaks[False])} "
+          f"without, above the copies and weights held")
+    del copies, params, batches, flat
+    free_card()
+    print(f"  phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return launches["fasgd_update"], launches["fused_event_apply"]
+
+
 def main() -> int:
     """Run the phases in order; 0 when every one passed."""
     import torch
@@ -4725,6 +5121,8 @@ def main() -> int:
     n_flash18, n_fasgd18, n_fused18 = phase_ssm(ops, dev, smi, flush, flops)
     # --- phase 19: the sharded parameter server ---
     n_fasgd19, n_fused19 = phase_sharded_server(ds, params, smi, bases, K)
+    # --- phase 20: the training launcher ---
+    n_fasgd20, n_fused20 = phase_launcher(dev, smi)
 
     kernels = [
         dict(name="fasgd_update", route="cuda",
@@ -4732,7 +5130,7 @@ def main() -> int:
              replaces="src/repro/kernels/fasgd_update.py:50",
              launches=n_serial + n_gated + n_fasgd12 + n_fasgd13
              + n_fasgd14 + n_fasgd15 + n_fasgd16 + n_fasgd17 + n_fasgd18
-             + n_fasgd19,
+             + n_fasgd19 + n_fasgd20,
              max_abs_err=errs["fasgd_update"], ms=fu_ms, plain_ms=fu_plain,
              bound_ms=fu_bound,
              bound_by="bytes" if fu_bytes / bw >= fu_ops / flops
@@ -4741,7 +5139,8 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/fused_event_apply.cu",
              replaces="src/repro/kernels/fused_event_apply.py:89",
              launches=n_fused + n_fused12 + n_fused13 + n_fused14
-             + n_fused15 + n_fused16 + n_fused17 + n_fused18 + n_fused19,
+             + n_fused15 + n_fused16 + n_fused17 + n_fused18 + n_fused19
+             + n_fused20,
              max_abs_err=errs["fused_event_apply"],
              library_ms=None, **fused),
         dict(name="flash_attention", route="cuda",

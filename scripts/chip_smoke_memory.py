@@ -5,9 +5,11 @@
 Runs the whole of ``chip_smoke.main()`` unchanged and adds lines that start
 with ``memory:``: after each phase function, the card's allocated and
 reserved bytes and the bytes of the CUDA tensors Python can still reach;
-before each round-trainer arm the same; after each arm, how often
-`ops.fasgd_update` was entered and the most that was allocated at its
-entry (the serial apply's moment, after its float32 images of n, b, v).
+before each round-trainer arm and each arm of phase 20 (the training
+launcher, `chip_smoke.launcher_arm`) the same; after each such arm, how
+often `ops.fasgd_update` was entered and the most that was allocated at
+its entry (the serial apply's moment, after its float32 images of n, b,
+v).
 A tensor held only by a reference cycle shows as allocated bytes above
 the reachable ones.  The exit code is the script's own.
 """
@@ -69,6 +71,18 @@ def main() -> int:
         return out
 
     cs.round_arm = arm
+    launcher_arm = cs.launcher_arm
+
+    def launcher(label, run):
+        census(f"before {label}")
+        entries.update(n=0, max=0)
+        out = launcher_arm(label, run)
+        print(f"memory: {label}: fasgd_update entered {entries['n']} times, "
+              f"at most {entries['max'] / GIB:.2f} GiB allocated at entry",
+              flush=True)
+        return out
+
+    cs.launcher_arm = launcher
     for name in [n for n in dir(cs) if n.startswith("phase_")]:
         def after(*args, _f=getattr(cs, name), _name=name, **kwargs):
             out = _f(*args, **kwargs)

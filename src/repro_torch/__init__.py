@@ -22,6 +22,11 @@ The layout mirrors the JAX package: `repro_torch/<sub>/<mod>.py` ports
                      dense GQA decoders (tinyllama-1.1b, llama3-8b, yi-9b,
                      yi-34b): forward, prefill and decode
 - `launch.serve`   — batched LM serving (`serve`, and its CLI)
+- `launch.train`, `launch.steps` — the training CLI (round trainer or the
+                     pod-sync step), the step functions and abstract
+                     (meta-device) input specs
+- `checkpoint`, `optim`, `sharding` — tree checkpoints in the reference's
+                     layout, the baseline optimizers, the FSDP spec rules
 - `utils.trees`, `utils.convert`, `utils.rng` — parameter trees in JAX's
                      leaf order, numpy round trips, and the RNG seam
 

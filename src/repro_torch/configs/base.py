@@ -8,7 +8,8 @@ hybrid (the Mamba2 stack with one shared attention block); it has the
 reference's fields, names and defaults, and `dtype` is a `torch.dtype`.
 An `arch_type` outside those six raises `ValueError`.  `TrainerConfig`
 configures the round trainer (`core.round_trainer`), with every field of
-the reference.
+the reference; `InputShape` and `INPUT_SHAPES` name the launch layer's
+input shapes (`launch.steps`).
 """
 from __future__ import annotations
 
@@ -65,8 +66,8 @@ class ModelConfig:
     frame_embed_dim: int = 0     # audio: precomputed frame embeddings
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
-    # checkpoint each layer in the train path: `transformer.loss_fn` raises
-    # NotImplementedError for it (ROADMAP.md queue 1, item 5)
+    # recompute each layer's activations in the backward
+    # (`transformer.remat`, under plain autograd and torch.func alike)
     remat: bool = False
     loss_chunk: int = 0          # >0: compute CE in seq chunks (bounds the
                                  # f32 [B, S, V] logits footprint)
@@ -119,6 +120,23 @@ class ModelConfig:
         """True if the arch serves long decodes with bounded state: SSM and
         hybrid natively, attention archs through a sliding window."""
         return self.arch_type in ("ssm", "hybrid") or self.attn_window > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """A named input shape of the launch layer (`launch.steps`)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

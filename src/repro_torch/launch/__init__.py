@@ -1,1 +1,3 @@
-"""Command-line entry points of the port: `serve` (batched LM serving)."""
+"""Command-line entry points of the port and what they stand on: `serve`
+(batched LM serving), `train` (the training CLI), `steps` (the step
+functions and abstract input specs) and `mesh` (device meshes)."""

@@ -1,5 +1,5 @@
-"""Device meshes of one process, ported from `repro.launch.mesh` (its
-server-mesh part).
+"""Device meshes of one process, ported from `repro.launch.mesh`: the
+host mesh, the production mesh (for spec reckoning) and the server mesh.
 
 A `Mesh` lays devices out on named axes, as the reference's
 `jax.sharding.Mesh` does.  A device may appear more than once: several
@@ -54,6 +54,34 @@ def _distinct_devices():
     return [torch.device("cpu")]
 
 
+def _grid(devices, shape) -> np.ndarray:
+    grid = np.empty(int(np.prod(shape)), dtype=object)
+    grid[:] = [torch.device(d) for d in devices[:grid.size]]
+    return grid.reshape(shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh: (16, 16) on ("data", "model"), or
+    (2, 16, 16) on ("pod", "data", "model") multi-pod, over the meta
+    device repeated.  It holds no card: it is for reckoning specs
+    (`sharding.rules`) at the production axis sizes."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    return Mesh(_grid([torch.device("meta")] * n, shape), axes)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, devices=None) -> Mesh:
+    """A ("data", "model") mesh over the devices there are (the cards,
+    else the CPU), each axis clamped to them as in the reference; an
+    explicit `devices` list may repeat a device."""
+    devices = _distinct_devices() if devices is None else list(devices)
+    n = len(devices)
+    data = min(data, n)
+    model = min(model, max(n // data, 1))
+    return Mesh(_grid(devices, (data, model)), ("data", "model"))
+
+
 def make_server_mesh(server: int = 1, data: int = 1, devices=None) -> Mesh:
     """A mesh with a ``'server'`` axis of S devices (the sharded server,
     `core.server_shard`) and a trailing ``'data'`` axis.
@@ -67,9 +95,7 @@ def make_server_mesh(server: int = 1, data: int = 1, devices=None) -> Mesh:
     n = len(devices)
     server = max(1, min(server, n))
     data = max(1, min(data, n // server))
-    grid = np.empty(server * data, dtype=object)
-    grid[:] = [torch.device(d) for d in devices[:server * data]]
-    return Mesh(grid.reshape(server, data), ("server", "data"))
+    return Mesh(_grid(devices, (server, data)), ("server", "data"))
 
 
 def init_distributed_mesh(server: int = 1, *, coordinator_address=None,

@@ -46,16 +46,29 @@ def delta_einsum(eq, x, w, dw=None):
     return y if dw is None else y + torch.einsum(eq, x, dw)
 
 
+def is_meta(device, generator=None) -> bool:
+    """Whether an initializer's target (`device`, else the generator's) is
+    the meta device, where weights are shapes alone and nothing is
+    drawn."""
+    target = device if device is not None else getattr(generator, "device",
+                                                       None)
+    return target is not None and torch.device(target).type == "meta"
+
+
 def dense_init(generator: torch.Generator, shape, dtype, scale=None, *,
                layers: int = 0, device=None):
     """scale · N(0, 1) weights of `shape` in `dtype` on `device` (default:
     the generator's); scale defaults to 1/√shape[0] (fan-in).  With
     `layers` > 0 the weight is stacked: [layers, *shape], each layer with
-    the same scale, as the reference's vmapped per-layer init gives."""
+    the same scale, as the reference's vmapped per-layer init gives.  On
+    the meta device nothing is drawn (`generator` may be None): the
+    weight is an empty meta tensor, its shape and dtype alone."""
+    full = ((layers,) if layers else ()) + tuple(shape)
+    if is_meta(device, generator):
+        return torch.empty(full, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     if scale is None:
         scale = 1.0 / math.sqrt(fan_in)
-    full = ((layers,) if layers else ()) + tuple(shape)
     w = torch.randn(full, generator=generator, device=generator.device)
     # scaled in place: a second float32 copy of a stacked leaf (zamba2-7b's
     # in_proj is 16.9 GB in float32) would double the init's peak

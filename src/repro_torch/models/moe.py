@@ -30,7 +30,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, init_mlp, mlp_forward
+from repro_torch.models.layers import (dense_init, init_mlp, is_meta,
+                                       mlp_forward)
 from repro_torch.utils.trees import tree_map
 
 
@@ -39,10 +40,12 @@ def _expert_init(generator, shape, dtype, *, layers, device):
     reference's fan-in of its first axis), stacked over `layers`, drawn one
     expert of one layer at a time into the `dtype` result: the float32 draw
     of a whole stacked leaf would be twice the size of grok-1's bf16
-    result."""
+    result.  On the meta device nothing is drawn."""
+    full = ((layers,) if layers else ()) + tuple(shape)
+    if is_meta(device, generator):
+        return torch.empty(full, dtype=dtype, device="meta")
     scale = 1.0 / math.sqrt(shape[0])
     device = device or generator.device
-    full = ((layers,) if layers else ()) + tuple(shape)
     out = torch.empty(full, dtype=dtype, device=device)
     flat = out.view((-1,) + tuple(shape[1:]))
     for i in range(flat.shape[0]):

@@ -39,6 +39,7 @@ through it.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict
 
 import torch
@@ -51,7 +52,7 @@ from repro_torch.models.layers import (delta_einsum, dense_init, dget, eff,
                                        init_embedding, init_mlp, mlp_forward,
                                        rms_norm)
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.trees import leaves, unflatten
+from repro_torch.utils.trees import leaves, tree_map, unflatten
 
 
 def init_model(generator: torch.Generator, cfg: ModelConfig, device=None):
@@ -62,7 +63,9 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, device=None):
     An MoE config draws the `moe` leaves where the others draw `mlp`, and
     MLA's attention leaves where the others draw GQA's; the SSM and hybrid
     families draw {ln, mamba} layers, and the hybrid its shared block after
-    them; the other families' draws are unchanged."""
+    them; the other families' draws are unchanged.  On the meta device
+    nothing is drawn (`generator` may be None): the leaves are shapes and
+    dtypes alone (`launch.steps.abstract_params`)."""
     device = resolve_device(device)
     L, d, dt = cfg.num_layers, cfg.d_model, cfg.dtype
     kw = dict(device=device)
@@ -176,29 +179,157 @@ def layer_views(tree):
             for i in range(len(cols[0]))]
 
 
+class _Remat(torch.autograd.Function):
+    """Activation checkpointing that runs under `torch.func`.
+
+    `forward` runs ``body(*tensors)`` (a tuple of tensors) under no grad
+    and saves only its tensor inputs; `backward` runs the body again and
+    differentiates it, returning the cotangents of the floating inputs
+    that need one (integer positions and detached offsets get None).
+    `torch.utils.checkpoint` is refused under `torch.func.grad` and
+    `vmap(grad)` (its saved-tensor hooks are not supported there); a
+    Function with `setup_context` and ``generate_vmap_rule`` is not, so
+    this serves plain autograd (the pod-sync step) and the round trainer's
+    and FRED's vmapped gradients alike.
+
+    The backward is the `torch.func.grad` of Σ ⟨body(x), ḡ⟩ rather than a
+    `torch.func.vjp`: `vjp` returns its pullback after leaving its
+    transform level, and a checkpoint nested in the body (the hybrid's
+    layers inside its checkpointed group) would then run its own backward
+    on tensors of that finished level, which `torch.func` refuses; `grad`
+    runs the whole backward inside its level.  The cotangent reaches each
+    output as ḡ · 1, exactly ḡ.  That `grad` runs under `torch.no_grad`,
+    which it ignores for its own derivative: the transform around it
+    differentiates with ``create_graph``, and would otherwise record the
+    recomputation and keep every recomputed activation for a second
+    derivative, which is all remat saves (a checkpointed model is
+    therefore not twice differentiable).  Outside any `torch.func`
+    transform (the pod-sync step) the same product goes through
+    `torch.autograd.grad`, whose order of accumulation is plain
+    autograd's, so the gradients are those of ``remat=False`` to the
+    bit."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(body, *tensors):
+        with torch.no_grad():
+            return body(*tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.body = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        tensors = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        diff = [i for i, t in enumerate(tensors)
+                if need[i] and t.is_floating_point()]
+        out = [None] * len(tensors)
+        if not diff:
+            return (None, *out)
+
+        def dot(*xs):
+            full = list(tensors)
+            for i, t in zip(diff, xs):
+                full[i] = t
+            return sum(torch.sum(y * g)
+                       for y, g in zip(ctx.body(*full), grads))
+
+        xs = [tensors[i] for i in diff]
+        if torch._C._are_functorch_transforms_active():
+            with torch.no_grad():
+                got = torch.func.grad(dot, argnums=tuple(range(len(diff))))(
+                    *xs)
+        else:
+            with torch.enable_grad():
+                xs = [x.detach().requires_grad_() for x in xs]
+                got = torch.autograd.grad(dot(*xs), xs)
+        for i, g in zip(diff, got):
+            out[i] = g
+        return (None, *out)
+
+
+def remat(fn, *trees):
+    """``fn(*trees)`` (a tuple of tensors) with its activations recomputed
+    in the backward (`_Remat`): the trees (a layer's parameter views, its
+    δ views or None, x, the positions, ...) are flattened into the
+    Function's tensor arguments and rebuilt inside."""
+    shapes = [tree_map(lambda _: 0, t) for t in trees]
+    counts = [len(leaves(t)) for t in trees]
+
+    def body(*tensors):
+        it = iter(tensors)
+        return fn(*(unflatten(s, [next(it) for _ in range(n)])
+                    for s, n in zip(shapes, counts)))
+
+    return _Remat.apply(body, *(l for t in trees for l in leaves(t)))
+
+
+def _attn_layer(cfg, lp, dl, x, positions):
+    """`_attn_block` as a tuple of tensors: (x,), or (x, aux) with
+    experts."""
+    x, aux = _attn_block(lp, cfg, x, positions, dl)
+    return (x,) if aux is None else (x, aux)
+
+
+def _mamba_layer(cfg, lp, dl, x):
+    return (_mamba_block(lp, cfg, x, dl),)
+
+
+def _group(cfg, lps, dls, x, emb0, positions, sp, ds):
+    """One hybrid group: its k Mamba2 layers (each checkpointed), then the
+    shared block."""
+    for lp, dl in zip(lps, dls):
+        (x,) = remat(partial(_mamba_layer, cfg), lp, dl, x)
+    return (_shared_block(sp, cfg, x, emb0, positions, ds),)
+
+
 def _run_stack(params, cfg, x, positions, deltas=None):
     """The layers over x [B, S, d] → (x, moe_aux): the sum of the layers'
     switch aux losses (float32), 0.0 for a family without experts, as in
     the reference.  The hybrid applies the shared block after layers k −
     1, 2k − 1, …, n_groups·k − 1 (`shared_after`), on x and the embedded
     input, W[tok] + δ[tok] under `deltas`, with `deltas["shared"]` as the
-    block's stale offset."""
+    block's stale offset.
+
+    With ``cfg.remat`` each layer is recomputed in the backward (`remat`)
+    at the reference's granularity: every attention or MoE layer, every
+    Mamba2 layer, and for the hybrid each group of k layers with its
+    shared block besides (the reference checkpoints both its inner and its
+    outer scan body)."""
     lps = layer_views(params["layers"])
     dls = ([None] * len(lps) if deltas is None
            else layer_views(deltas["layers"]))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.arch_type in ("ssm", "hybrid"):
         emb0 = x
+        sp = params.get("shared")
+        ds = None if sp is None else dget(deltas, "shared")
+        if cfg.remat:
+            k, n_groups, _ = hybrid_split(cfg) if cfg.arch_type == "hybrid" \
+                else (1, 0, 0)
+            for g in range(n_groups):
+                part = slice(g * k, (g + 1) * k)
+                (x,) = remat(partial(_group, cfg), lps[part], dls[part], x,
+                             emb0, positions, sp, ds)
+            for lp, dl in zip(lps[n_groups * k:], dls[n_groups * k:]):
+                (x,) = remat(partial(_mamba_layer, cfg), lp, dl, x)
+            return x, aux
         for i, (lp, dl) in enumerate(zip(lps, dls)):
             x = _mamba_block(lp, cfg, x, dl)
             if shared_after(cfg, i):
-                x = _shared_block(params["shared"], cfg, x, emb0, positions,
-                                  dget(deltas, "shared"))
+                x = _shared_block(sp, cfg, x, emb0, positions, ds)
         return x, aux
     for lp, dl in zip(lps, dls):
-        x, a = _attn_block(lp, cfg, x, positions, dl)
-        if a is not None:
-            aux = aux + a
+        if cfg.remat:
+            x, *a = remat(partial(_attn_layer, cfg), lp, dl, x, positions)
+        else:
+            x, *a = _attn_layer(cfg, lp, dl, x, positions)
+        if a:
+            aux = aux + a[0]
     return x, aux
 
 
@@ -299,15 +430,10 @@ def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01,
     only.
 
     With `deltas` the forward is evaluated at the stale point W + δ in the
-    shared/delta split form (see the module docstring).  `cfg.remat` raises
-    `NotImplementedError`: activation checkpointing does not run under
-    `torch.func.vmap(grad)` (its saved-tensor hooks are refused there).
+    shared/delta split form (see the module docstring).  With `cfg.remat`
+    each layer's activations are recomputed in the backward (`_run_stack`,
+    `remat`), under plain autograd and under `torch.func` alike.
     """
-    if cfg.remat:
-        raise NotImplementedError(
-            f"{cfg.name}: remat=True needs activation checkpointing under "
-            f"torch.func.vmap(grad), which torch.utils.checkpoint does not "
-            f"support (ROADMAP.md queue 1, item 5); use remat=False")
     x, positions = _embed_inputs(params, cfg, batch, deltas)
     x, aux = _run_stack(params, cfg, x, positions, deltas)
     x = _final_norm(params, cfg, x, deltas)

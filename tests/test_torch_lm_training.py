@@ -329,11 +329,20 @@ def test_training_never_reaches_the_flash_kernel(tiny, monkeypatch):
 
 
 def test_remat_raises(tiny):
+    """`remat=True` no longer raises: the loss and every gradient equal
+    those without it, bitwise (tests/test_torch_remat.py holds the
+    families)."""
     lm = tiny["float32"]
     tok, tgt = lm.batch(0, 2)
-    with pytest.raises(NotImplementedError, match="remat"):
-        transformer.loss_fn(lm.params(), dataclasses.replace(
-            lm.cfg, remat=True), {"tokens": tok, "targets": tgt})
+    out = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(lm.cfg, remat=remat)
+        out[remat] = torch.func.grad_and_value(
+            lambda p: transformer.loss_fn(
+                p, cfg, {"tokens": tok, "targets": tgt})[0])(lm.params())
+    (g0, l0), (g1, l1) = out[False], out[True]
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(g0), leaves(g1)))
 
 
 def test_eval_fn_is_the_held_out_ce(tiny):
