@@ -356,7 +356,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    reckoning, tokens/s); (d) the round trainer fused at (a)'s point, 2
    rounds from one start with remat on and off (`torch.func.vmap` of
    `grad`): θ, n, b, v within phase 15's allowance, both peaks; the 4
-   clients' vmapped gradients alone at most half as high with remat.  The
+   clients' vmapped gradients alone at most half as high with remat; (e)
+   the roofline and the dry-run (`launch/analysis.py`, `launch/dryrun.py`),
+   run inside (c) on its state and batch: (c)'s B = 8, S = 2048 step
+   counted on the meta device (`analysis.analyze` on a 1×1 mesh, the
+   card's own rates from `launch.mesh.card_rates`) and held against its
+   second call on the card: the measured seconds no shorter than the
+   larger roofline term, the reckoned argument bytes within 1% of the
+   state's and batch's bytes measured on the card, the reckoned
+   per-device memory within `ROOF_MEM_BAND` of the step's measured
+   memory (its arguments and its peak above what it found); and a
+   ``python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape
+   decode_32k`` subprocess, started with the phase (no card for it, so
+   the H100 SXM's rates), which must exit 0 and write its record.  The
    launches of (a) join the kernels' record.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -381,12 +393,6 @@ ROOT = Path(__file__).resolve().parent
 # than keep blocks of earlier sizes that it cannot reuse.
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
-# Published H100 rates (NVIDIA data sheets, dense, at the full power limit)
-# by the words of the card's name: memory bytes/s, fp32 (non-tensor) op/s and
-# bf16 tensor-core op/s.
-CARD_RATES = (("H100 PCIe", 2.0e12, 51e12, 756e12),
-              ("H100 NVL", 3.9e12, 60e12, 835e12),
-              ("H200", 4.8e12, 67e12, 989e12), ("H100", 3.35e12, 67e12, 989e12))
 MLP_SHAPES = ((200,), (784, 200), (10,), (200, 10))   # b0 w0 b1 w1 (JAX order)
 # A tree of 40 flat leaves of the MLP's sizes and ragged ones, run all
 # float32, all bfloat16 and mixed: more leaves than one launch of the tree
@@ -406,11 +412,12 @@ def fail(msg: str):
 
 def card_rates(name: str):
     """(bytes/s, fp32 op/s, bf16 tensor op/s) published for the card named
-    `name`."""
-    for words, *rates in CARD_RATES:
-        if all(w in name for w in words.split()):
-            return rates
-    fail(f"no published rates for card {name!r}")
+    `name`, from the port's one table (`launch.mesh.CARD_RATES`)."""
+    from repro_torch.launch.mesh import card_rates as published
+    try:
+        return published(name)
+    except ValueError as e:
+        fail(str(e))
 
 
 def within(got, want, update_mag, update_rtol, stat_tols):
@@ -4603,6 +4610,12 @@ REMAT_S = 1024                  # (c): B = 1, S = 1024, remat on and off
 REMAT_BIG_B, REMAT_BIG_S = 8, 2048    # (c): one step with remat on alone
 REMAT_ROUNDS = 2                # (d)
 REMAT_SAVES = 0.5               # (c), (d): remat's gradient peak ≤ half off's
+# (e): the reckoned per-device memory over the step's measured memory;
+# 1.0000 on an NVIDIA H100 80GB HBM3 at 700 W (22.73 GiB both), so the
+# band allows the allocator's rounding and a few ops that differ by device.
+ROOF_MEM_BAND = (0.97, 1.03)
+ROOF_ARG_RTOL = 0.01            # (e): reckoned against measured arguments
+DRYRUN_PAIR = ("tinyllama-1.1b", "decode_32k")     # (e)'s subprocess
 
 
 def launcher_arm(label, run):
@@ -4709,15 +4722,129 @@ def gradient_alone(cfg, params, batch):
     return torch.autograd.grad(loss, leaves(params))
 
 
+def start_dryrun(out_dir):
+    """`python -m repro_torch.launch.dryrun` on DRYRUN_PAIR in a process of
+    its own, without the card (the H100 SXM's rates), its record into
+    `out_dir`.  Returns (the process, the record's path)."""
+    out = os.path.join(out_dir, "dryrun.jsonl")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           DRYRUN_PAIR[0], "--shape", DRYRUN_PAIR[1], "--out", out]
+    return subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), out
+
+
+def finish_dryrun(proc, out):
+    """(e)'s dry-run subprocess: waited for, its exit code 0 and its record
+    written, else the script fails."""
+    text, _ = proc.communicate(timeout=300)
+    label = "(e) python -m repro_torch.launch.dryrun " + " ".join(
+        f"--{k} {v}" for k, v in zip(("arch", "shape"), DRYRUN_PAIR))
+    if proc.returncode != 0 or not os.path.exists(out):
+        fail(f"{label}: exit {proc.returncode}: {text[-2000:]}")
+    with open(out) as f:
+        rec = json.loads(f.readlines()[-1])
+    if (rec["arch"], rec["shape"], rec["status"]) != DRYRUN_PAIR + ("ok",):
+        fail(f"{label}: record {rec}")
+    print(f"  {label}: exit 0, its record written ({rec['mesh']}, "
+          f"{rec['chips']} chips, {rec['compile_s']} s counting pass):")
+    for line in text.strip().splitlines():
+        print(f"    | {line}")
+
+
+def roofline_check(cfg, tc, step, state, batch, measured_args, smi):
+    """(e): the step's roofline, counted on the meta device at its shapes
+    on a 1×1 mesh with the card's rates, held against the step's second
+    call on the card (`state` and `batch` on the card, the first call
+    made)."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import analysis, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    B, S = batch["tokens"].shape
+    shape = InputShape("pod_sync", S, B, "train")
+    mesh = make_host_mesh(1, 1, devices=[torch.device("meta")])
+    fn, args, shard = steps.shardings_for(cfg, shape, mesh, tc=tc)
+    roof = analysis.analyze(
+        cfg.name, shape.name, "1x1", 1, fn, args, shard,
+        model_flops=analysis.model_flops_estimate(cfg, shape),
+        card=torch.cuda.get_device_name(0))
+    count_s = time.perf_counter() - t0
+    reckoned_args = analysis.bytes_per_device(args, shard)
+    (out, secs, peak, base) = launcher_arm(
+        "(e) the step's second call", lambda: step(state, batch))
+    loss = float(out[1]["loss"])
+    del out
+    measured_mem = peak - base + measured_args
+    label = (f"(e) roofline of (c)'s step at B = {B}, S = {S}, remat, on "
+             f"{smi}")
+    bound = max(roof.compute_s, roof.memory_s)
+    arg_err = abs(reckoned_args - measured_args) / measured_args
+    mem_ratio = roof.per_device_mem / measured_mem
+    print(f"  {label}: counted on meta in {count_s:.2f} s: "
+          f"{roof.flops:.4e} FLOP, {roof.hbm_bytes:.4e} bytes; compute "
+          f"{roof.compute_s * 1e3:.2f} ms, memory {roof.memory_s * 1e3:.2f} "
+          f"ms → {roof.bottleneck}-bound ({roof.card_bf16_flops_s / 1e12:g}"
+          f" TFLOP/s bf16, {roof.card_bytes_s / 1e12:g} TB/s); the second "
+          f"call measured {secs * 1e3:.2f} ms (loss {loss:.4f}), "
+          f"{secs / bound:.3f}× the larger term; useful_flops_frac "
+          f"{roof.useful_flops_frac:.4f}; model FLOPs / (seconds × peak) "
+          f"{roof.model_flops / (secs * roof.card_bf16_flops_s):.4f}, counted"
+          f" FLOPs / (seconds × peak) "
+          f"{roof.flops / (secs * roof.card_bf16_flops_s):.4f}")
+    print(f"  {label}: arguments reckoned {reckoned_args} bytes, measured "
+          f"{measured_args} on the card (off by {arg_err:.2e}); per-device "
+          f"memory reckoned {gib(roof.per_device_mem)} (arguments + the "
+          f"temporaries' estimate {gib(roof.per_device_mem - reckoned_args)})"
+          f", measured {gib(measured_mem)} (arguments + the step's peak "
+          f"{gib(peak - base)} above the {gib(base)} it found): "
+          f"{mem_ratio:.4f}, band {ROOF_MEM_BAND}")
+    if not math.isfinite(loss):
+        fail(f"{label}: loss {loss}")
+    if not secs >= bound:
+        fail(f"{label}: the step took {secs:.4f} s, under its roofline "
+             f"{bound:.4f} s: a count is wrong")
+    if not arg_err <= ROOF_ARG_RTOL:
+        fail(f"{label}: arguments reckoned {reckoned_args}, measured "
+             f"{measured_args}")
+    if not ROOF_MEM_BAND[0] <= mem_ratio <= ROOF_MEM_BAND[1]:
+        fail(f"{label}: per-device memory reckoned {roof.per_device_mem}, "
+             f"measured {measured_mem}: {mem_ratio:.4f} outside "
+             f"{ROOF_MEM_BAND}")
+
+
 def phase_launcher(dev, smi):
-    """Phase 20: the training CLI in both modes, the checkpoint, remat.
-    Returns the kernel launches of `fasgd_update` and `fused_event_apply`
+    """Phase 20: the training CLI in both modes, the checkpoint, remat, the
+    roofline and the dry-run.  Returns the kernel launches of `fasgd_update` and `fused_event_apply`
     in (a)."""
+    import tempfile
+    from repro_torch.configs import get_config
+    print(f"phase 20: the training launcher, {LM_ARCH} at full width and "
+          f"depth, on {smi}")
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    launches = {"fasgd_update": 0, "fused_event_apply": 0}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
+        proc, record = start_dryrun(d)
+        try:
+            launcher_arms(cfg, dev, smi, launches, proc, record)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"  phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return launches["fasgd_update"], launches["fused_event_apply"]
+
+
+def launcher_arms(cfg, dev, smi, launches, dryrun, record):
+    """Phase 20's arms (a)-(e), adding (a)'s launches to `launches`; (e)
+    ends with the dry-run subprocess `dryrun`, its record `record`."""
     import dataclasses
     import tempfile
     import torch
     from repro_torch.checkpoint import restore_checkpoint
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainerConfig
     from repro_torch.core import round_trainer as rt
     from repro_torch.core import rules
@@ -4725,11 +4852,6 @@ def phase_launcher(dev, smi):
     from repro_torch.launch import steps, train
     from repro_torch.models.api import make_dict_grad_fn, param_count
     from repro_torch.utils.trees import leaves, tree_map
-    print(f"phase 20: the training launcher, {LM_ARCH} at full width and "
-          f"depth, on {smi}")
-    t_phase = time.perf_counter()
-    cfg = get_config(LM_ARCH)
-    launches = {"fasgd_update": 0, "fused_event_apply": 0}
 
     # (a) the CLI in round-trainer mode, fused and serial
     for mode in ("fused", "serial"):
@@ -4825,10 +4947,14 @@ def phase_launcher(dev, smi):
 
     # (c) remat in the pod-sync step, against remat off
     tc = TrainerConfig(rule="fasgd", lr=0.005)
+    free_card()
+    held = torch.cuda.memory_allocated()
     params = lm_params(cfg, dev)
     P = param_count(params)
     st0 = rules.init(steps.server_config(tc), params)
     del params
+    free_card()
+    state_bytes = torch.cuda.memory_allocated() - held     # (e)'s arguments
     batch = train.batch_for_step(cfg, 1, REMAT_S, 0, dev)
     res = {}
     for remat in (False, True):
@@ -4863,7 +4989,11 @@ def phase_launcher(dev, smi):
           f"backward alone "
           f"{gib(grad_peaks[True])} with remat, {gib(grad_peaks[False])} "
           f"without, above the state")
+    del batch
+    free_card()
+    held = torch.cuda.memory_allocated()
     batch = train.batch_for_step(cfg, REMAT_BIG_B, REMAT_BIG_S, 1, dev)
+    batch_bytes = torch.cuda.memory_allocated() - held
     step = steps.make_train_step(dataclasses.replace(cfg, remat=True), tc)
     (out, secs, peak, base) = launcher_arm(
         "(c) remat big", lambda: step(st0, batch))
@@ -4886,8 +5016,15 @@ def phase_launcher(dev, smi):
           f"save ~283 GB); {secs:.2f} s, "
           f"{REMAT_BIG_B * REMAT_BIG_S / secs:.0f} tokens/s (one step, its "
           f"first at these shapes)")
+    # (e) the roofline of this step against its second call; the dry-run
+    t_e = time.perf_counter()
+    roofline_check(dataclasses.replace(cfg, remat=True), tc, step, st0,
+                   batch, state_bytes + batch_bytes, smi)
     del st0, batch
     free_card()
+    finish_dryrun(dryrun, record)
+    print(f"  (e) took {time.perf_counter() - t_e:.1f} s in the phase (the "
+          f"dry-run ran beside (a)-(c))")
 
     # (d) remat under torch.func: the round trainer, fused, from one start
     tc = TrainerConfig(num_round_clients=4, rule="fasgd", lr=0.005,
@@ -4949,8 +5086,6 @@ def phase_launcher(dev, smi):
           f"without, above the copies and weights held")
     del copies, params, batches, flat
     free_card()
-    print(f"  phase 20 took {time.perf_counter() - t_phase:.1f} s")
-    return launches["fasgd_update"], launches["fused_event_apply"]
 
 
 def main() -> int:

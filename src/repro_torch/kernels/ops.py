@@ -7,6 +7,10 @@ Ported from `repro.kernels.ops`.  Dispatch is by the tensors' device:
 * a CUDA tensor launches the hand-written Hopper kernel
   (``csrc/<name>.cu``, built by `kernels.build`) or raises.
 
+* a meta tensor (shapes without storage) takes attention's shape-only
+  route, an op of its own (`torch.ops.repro_torch.flash_attention`) that
+  `launch.analysis` counts as the kernel's useful work (`flash_flops`).
+
 There is no switch and no fallback.  The server-update kernels take each
 leaf flat and contiguous and mask its tail, so unlike the TPU wrappers there
 is no padding to (R, 128) tiles; the attention kernel takes each tensor's
@@ -36,6 +40,7 @@ from __future__ import annotations
 import ctypes
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
@@ -556,6 +561,32 @@ def batched_scale_apply(params: Any, grads: Any, v: Any, coeffs, taus, *,
     return unflatten(params, outs)
 
 
+# The flash kernel's shape-only route: an op with a meta implementation
+# alone, so that a counting dispatch mode sees one call with q, k, v in and
+# o out, as on the card, and not the plain version's full score matrix.
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window) -> Tensor")
+_LIB.impl("flash_attention",
+          lambda q, k, v, causal, window: torch.empty_like(q), "Meta")
+
+
+def visible_pairs(Lq: int, Lk: int, causal: bool, window: int) -> int:
+    """The query-key pairs that `attention`'s mask lets through, the
+    queries being the last Lq of Lk positions."""
+    pos = np.arange(Lk - Lq, Lk, dtype=np.int64)
+    hi = pos if causal else np.full_like(pos, Lk - 1)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_flops(q_shape, k_shape, causal: bool, window: int) -> int:
+    """The flash kernel's useful work: 4·B·Hq·(visible pairs)·D, two FLOPs
+    a multiply-add in q·kᵀ and in p·v; masked pairs are not counted."""
+    B, Hq, Lq, D = q_shape
+    return 4 * B * Hq * visible_pairs(Lq, k_shape[2], causal, window) * D
+
+
 _HEAD_DIMS = (32, 64, 80, 96, 112, 128, 192)
 # Lq up to this takes the decode kernel, which splits the keys across at
 # most _DECODE_MAX_SPLITS blocks and merges their (m, l, acc) from a float32
@@ -632,8 +663,12 @@ def attention(q, k, v, *, causal=True, window=0, sm_scale=None):
     views (permuted heads, cache slices) as long as their last dimension is
     contiguous; the output keeps q's layout.  The kernel is for serving: on
     the card an input that requires grad (with autograd recording) or is
-    transformed by `torch.func` raises `RuntimeError`.
+    transformed by `torch.func` raises `RuntimeError`.  On the meta device
+    it returns an empty output of q's shape (the shape-only route).
     """
+    if q.device.type == "meta":
+        return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal),
+                                                     int(window))
     on_card = _device_kind(q) == "cuda"
     if on_card:
         _refuse_training(q, k, v)

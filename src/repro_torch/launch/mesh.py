@@ -1,5 +1,8 @@
 """Device meshes of one process, ported from `repro.launch.mesh`: the
-host mesh, the production mesh (for spec reckoning) and the server mesh.
+host mesh, the production mesh (for spec reckoning) and the server mesh;
+and the published rates of the cards the port runs on (`card_rates`), which
+take the place of the reference's TPU constants in the roofline
+(`launch.analysis`).
 
 A `Mesh` lays devices out on named axes, as the reference's
 `jax.sharding.Mesh` does.  A device may appear more than once: several
@@ -18,6 +21,37 @@ import torch
 _MULTI_PROCESS = ("a server spread over several processes "
                   "(torch.distributed) is not ported yet: ROADMAP.md queue "
                   "1, item 9")
+
+
+# Published rates of NVIDIA's cards by the words of the card's name (as
+# `torch.cuda.get_device_name` gives it): memory bytes/s, fp32 (non-tensor)
+# op/s and bf16 tensor-core op/s, dense, at the full power limit.  Source:
+# NVIDIA's H100 and H200 Tensor Core GPU data sheets.  A name is matched
+# against the rows in order, so "H100" comes after its PCIe and NVL forms.
+CARD_RATES = (("H100 PCIe", 2.0e12, 51e12, 756e12),
+              ("H100 NVL", 3.9e12, 60e12, 835e12),
+              ("H200", 4.8e12, 67e12, 989e12), ("H100", 3.35e12, 67e12, 989e12))
+# The card this repo runs on (the H100 SXM): the roofline's rates where no
+# card is present, as in a dry-run on the CPU.
+DEFAULT_CARD = "NVIDIA H100 80GB HBM3"
+
+
+def card_name() -> str:
+    """The name of the card present, else `DEFAULT_CARD`."""
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_name(0)
+    return DEFAULT_CARD
+
+
+def card_rates(name: str | None = None):
+    """(bytes/s, fp32 op/s, bf16 tensor op/s) published for the card named
+    `name` (default: `card_name()`).  `ValueError` for a card the table
+    does not know."""
+    name = card_name() if name is None else name
+    for words, *rates in CARD_RATES:
+        if all(w in name for w in words.split()):
+            return tuple(rates)
+    raise ValueError(f"no published rates for card {name!r}")
 
 
 class Mesh:
