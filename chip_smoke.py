@@ -370,6 +370,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    decode_32k`` subprocess, started with the phase (no card for it, so
    the H100 SXM's rates), which must exit 0 and write its record.  The
    launches of (a) join the kernels' record.
+21. The server spread over processes (`launch.mesh.init_distributed_mesh`
+   with a coordinator on localhost, the collectives of
+   `core.server_shard`): two processes of this script (``--spread-rank``)
+   share `cuda:0` over gloo (NCCL refuses two ranks on one card), each
+   holding one of S = 2 shards, and run phase 19 (a)'s serial arm
+   (`SPREAD_SERIAL_EVENTS` events) and its fused arm
+   (`SPREAD_FUSED_WINDOWS` windows of K = 128) with the kernels on.  Each
+   process's server state, counters, validation curve and T must equal,
+   bitwise, this process's run of the same arms at S = 2 on ``[cuda:0] *
+   2``; each must launch `fasgd_update` once an event and
+   `fused_event_apply` once a window (its one shard); a child that fails
+   or outlives `SPREAD_TIMEOUT` fails the phase.  Events/s over two
+   processes beside one process at S = 2, and each process's peak memory
+   beside the plan's resident bytes of its shard.  Not run under
+   ``set_sync_debug_mode('error')``: a gloo collective syncs with the
+   host.  Every launch of the phase joins the kernels' record.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -4599,6 +4615,236 @@ def phase_sharded_server(ds, params, smi, bases, K):
     return n["fasgd_update"], n["fused_event_apply"]
 
 
+# Phase 21: the server spread over processes (ROADMAP queue 1, item 9): two
+# processes of this script share cuda:0 over gloo, one shard of S = 2 each.
+SPREAD_WORLD = 2
+SPREAD_SHARDS = 2
+SPREAD_SERIAL_EVENTS = 200          # phase 19 (a) serial: 2000 (a cut)
+SPREAD_FUSED_WINDOWS = 8            # phase 19 (a) fused: 40 windows (a cut)
+SPREAD_TIMEOUT = 300                # seconds for the whole group
+SPREAD_FLAG = "--spread-rank"
+
+
+def spread_arms(K):
+    """Phase 21's arms at S = 2: (label, config, events, kernel)."""
+    from repro_torch.core.rules import ServerConfig
+    from repro_torch.sim.fred import SimConfig
+    server = ServerConfig(rule="fasgd", lr=0.0025, use_fused_kernel=True)
+    return (
+        ("serial", SimConfig(num_clients=16, batch_size=8, seed=0,
+                             server=server, server_shards=SPREAD_SHARDS),
+         SPREAD_SERIAL_EVENTS, "fasgd_update"),
+        ("fused", SimConfig(num_clients=256, batch_size=4, seed=0,
+                            events_per_step=K, apply_mode="fused",
+                            server=server, server_shards=SPREAD_SHARDS),
+         SPREAD_FUSED_WINDOWS * K, "fused_event_apply"))
+
+
+def spread_run(cfg, ds, params, n, mesh):
+    """One arm on `mesh` after a one-window warm-up, the launch counts and
+    the peak memory reset just before it.  Returns what phase 21 compares
+    and prints, the server gathered to numpy (a collective over
+    processes)."""
+    import torch
+    from repro_torch.core import server_shard
+    from repro_torch.kernels import ops
+    from repro_torch.models.mlp import nll_loss
+    from repro_torch.sim.fred import run_simulation
+    from repro_torch.utils.convert import to_numpy
+    from repro_torch.utils.trees import leaves
+    data = (ds.x_train, ds.y_train)
+    warm = cfg.events_per_step * (1 if cfg.apply_mode == "fused" else 20)
+    run_simulation(cfg, nll_loss, params, *data, warm, eval_every=warm,
+                   mesh=mesh)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run_simulation(cfg, nll_loss, params, *data, n, eval_every=n,
+                         eval_fn=lambda p: nll_loss(p, ds.x_valid,
+                                                    ds.y_valid), mesh=mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    server = out["state"].server
+    plan = server_shard.make_shard_plan(server, server.num_shards)
+    return dict(server=[a for a in leaves(to_numpy(server))],
+                counters=out["counters"], val_cost=out["val_cost"],
+                T=out["final_timestamp"], secs=secs,
+                device=dict(ops.DEVICE_LAUNCHES),
+                peak=torch.cuda.max_memory_allocated(), local=server.local,
+                held=sum(l.numel() * l.element_size() for s in server.local
+                         for l in leaves(server.blocks[s])),
+                planned=sum(plan.resident_bytes(s) for s in server.local))
+
+
+def spread_child(rank, port, out_dir, K):
+    """One rank of phase 21's group: join it through the coordinator, run
+    both arms (the fused one at K events a window), write the results to
+    ``out_dir/rank{rank}.pkl``."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.data.mnist import make_synth_mnist
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import init_distributed_mesh
+    from repro_torch.models.mlp import init_mlp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all()              # built by the parent already: a no-op
+    dev = torch.device("cuda")
+    ds = make_synth_mnist(seed=0, device=dev)
+    params = init_mlp(torch.Generator().manual_seed(0), device=dev)
+    mesh = init_distributed_mesh(
+        SPREAD_SHARDS, coordinator_address=f"127.0.0.1:{port}",
+        num_processes=SPREAD_WORLD, process_id=rank)
+    # started: the parent times its own run alone on the card, then says go
+    (Path(out_dir) / f"ready{rank}").touch()
+    go = Path(out_dir) / "go"
+    deadline = time.monotonic() + SPREAD_TIMEOUT
+    while not go.exists():
+        if time.monotonic() > deadline:
+            raise SystemExit(f"phase 21 rank {rank}: no go from the parent")
+        time.sleep(0.05)
+    res = {"ranks": mesh.axis_ranks("server"),
+           "devices": [str(d) for d in mesh.axis_devices("server")],
+           "imported": sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("jax", "repro"))}
+    for label, cfg, n, _ in spread_arms(K):
+        res[label] = spread_run(cfg, ds, params, n, mesh)
+    dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def spread_same(a, b) -> bool:
+    """Bitwise equality of two numpy arrays, dtype included."""
+    import numpy as np
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def phase_spread_server(ds, params, smi, K):
+    """Phase 21: the server spread over two processes on `cuda:0`, against
+    this process's run of the same arms at S = 2.  Returns the launches of
+    `fasgd_update` and `fused_event_apply` (both children's and this
+    process's)."""
+    import pickle
+    import shutil
+    import socket
+    import torch
+    from repro_torch.launch.mesh import make_server_mesh
+    t0 = time.perf_counter()
+    print(f"phase 21: the server spread over {SPREAD_WORLD} processes on "
+          f"cuda:0 (gloo), S = {SPREAD_SHARDS}, one shard a process")
+    free_card()                    # the children need the card's memory
+    mesh = make_server_mesh(SPREAD_SHARDS,
+                            devices=[torch.device("cuda", 0)] * SPREAD_SHARDS)
+    arms = spread_arms(K)
+    out_dir = ROOT / "build" / "phase21"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    logs = [open(out_dir / f"rank{r}.log", "w") for r in range(SPREAD_WORLD)]
+    t_group = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), SPREAD_FLAG, str(r),
+         str(port), str(out_dir), str(K)], stdout=logs[r],
+        stderr=subprocess.STDOUT)
+        for r in range(SPREAD_WORLD)]
+    deadline = time.monotonic() + SPREAD_TIMEOUT
+    try:
+        # the children start (import, the card, the data, the group) and
+        # wait; this process's runs, then theirs, each alone on the card
+        while not all((out_dir / f"ready{r}").exists()
+                      for r in range(SPREAD_WORLD)):
+            if (time.monotonic() > deadline
+                    or any(p.poll() is not None for p in procs)):
+                deadline = time.monotonic()     # kill the group below
+                break
+            time.sleep(0.05)
+        else:
+            one = {label: spread_run(cfg, ds, params, n, mesh)
+                   for label, cfg, n, _ in arms}
+            (out_dir / "go").touch()
+        for p in procs:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    group_secs = time.perf_counter() - t_group
+    if any(p.returncode != 0 for p in procs):
+        tails = "\n".join(f"--- rank {r}:\n"
+                          + (out_dir / f"rank{r}.log").read_text()[-4000:]
+                          for r in range(SPREAD_WORLD))
+        fail(f"phase 21: children exited {[p.returncode for p in procs]} "
+             f"(killed after {SPREAD_TIMEOUT} s if negative)\n{tails}")
+    ranks = []
+    for r in range(SPREAD_WORLD):
+        with open(out_dir / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    print(f"  the group: {SPREAD_WORLD} processes in {group_secs:.1f} s "
+          f"(start-up, this process's runs while they wait, then theirs); "
+          f"server axis on "
+          f"{ranks[0]['devices']}, ranks {ranks[0]['ranks']}")
+    n = {"fasgd_update": 0, "fused_event_apply": 0}
+    for label, cfg, events, kernel in arms:
+        base = one[label]
+        n[kernel] += base["device"][kernel]
+        windows = events // cfg.events_per_step
+        for r, res in enumerate(ranks):
+            if res["imported"]:
+                fail(f"phase 21: rank {r} imported {res['imported']}")
+            got = res[label]
+            same = (len(got["server"]) == len(base["server"])
+                    and all(spread_same(a, b) for a, b in
+                            zip(got["server"], base["server"]))
+                    and got["counters"] == base["counters"]
+                    and got["val_cost"] == base["val_cost"]
+                    and got["T"] == base["T"])
+            if not same:
+                fail(f"phase 21 {label}: rank {r}'s run is not bitwise the "
+                     f"one-process S = {SPREAD_SHARDS} run (counters "
+                     f"{got['counters']} vs {base['counters']}; val cost "
+                     f"{got['val_cost']} vs {base['val_cost']})")
+            if got["device"][kernel] != windows or got["local"] != (r,):
+                fail(f"phase 21 {label}: rank {r} launched {kernel} "
+                     f"{got['device'][kernel]} times on shards "
+                     f"{got['local']}, want {windows} on ({r},)")
+            if got["held"] != got["planned"]:
+                fail(f"phase 21 {label}: rank {r} holds {got['held']} "
+                     f"bytes of server state, its plan {got['planned']}")
+            n[kernel] += got["device"][kernel]
+        slowest = max(res[label]["secs"] for res in ranks)
+        print(f"  {label}: {events} events, every rank bitwise the "
+              f"one-process S = {SPREAD_SHARDS} run (server state, "
+              f"counters, val cost {base['val_cost'][-1]:.4f}, T = "
+              f"{base['T']}); {kernel} launched "
+              f"{[res[label]['device'][kernel] for res in ranks]} times "
+              f"(a rank) and {base['device'][kernel]} in one process; "
+              f"{events / slowest:.1f} events/s over {SPREAD_WORLD} "
+              f"processes against {events / base['secs']:.1f} in one "
+              f"({base['secs'] / slowest:.3f}x) on {smi}")
+        for r, res in enumerate(ranks):
+            got = res[label]
+            print(f"    rank {r}: peak {got['peak'] / 2**20:.1f} MiB "
+                  f"allocated (torch.cuda.max_memory_allocated); server "
+                  f"blocks held {got['held']} bytes = the plan's "
+                  f"resident bytes of shard {r} ({got['planned']}); one "
+                  f"process at S = {SPREAD_SHARDS}: peak "
+                  f"{base['peak'] / 2**20:.1f} MiB, {base['held']} bytes")
+    print(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
+    return n["fasgd_update"], n["fused_event_apply"]
+
+
 # Phase 20: the training launcher (`launch/train.py`, `launch/steps.py`,
 # `checkpoint/`), tinyllama-1.1b at full width and depth on the card.
 LAUNCH_CLI = ["--arch", LM_ARCH, "--clients", "4", "--batch", "8", "--seq",
@@ -5258,6 +5504,8 @@ def main() -> int:
     n_fasgd19, n_fused19 = phase_sharded_server(ds, params, smi, bases, K)
     # --- phase 20: the training launcher ---
     n_fasgd20, n_fused20 = phase_launcher(dev, smi)
+    # --- phase 21: the server spread over processes ---
+    n_fasgd21, n_fused21 = phase_spread_server(ds, params, smi, K)
 
     kernels = [
         dict(name="fasgd_update", route="cuda",
@@ -5265,7 +5513,7 @@ def main() -> int:
              replaces="src/repro/kernels/fasgd_update.py:50",
              launches=n_serial + n_gated + n_fasgd12 + n_fasgd13
              + n_fasgd14 + n_fasgd15 + n_fasgd16 + n_fasgd17 + n_fasgd18
-             + n_fasgd19 + n_fasgd20,
+             + n_fasgd19 + n_fasgd20 + n_fasgd21,
              max_abs_err=errs["fasgd_update"], ms=fu_ms, plain_ms=fu_plain,
              bound_ms=fu_bound,
              bound_by="bytes" if fu_bytes / bw >= fu_ops / flops
@@ -5275,7 +5523,7 @@ def main() -> int:
              replaces="src/repro/kernels/fused_event_apply.py:89",
              launches=n_fused + n_fused12 + n_fused13 + n_fused14
              + n_fused15 + n_fused16 + n_fused17 + n_fused18 + n_fused19
-             + n_fused20,
+             + n_fused20 + n_fused21,
              max_abs_err=errs["fused_event_apply"],
              library_ms=None, **fused),
         dict(name="flash_attention", route="cuda",
@@ -5295,4 +5543,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 6 and sys.argv[1] == SPREAD_FLAG:
+        spread_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                     int(sys.argv[5]))
+        sys.exit(0)
     sys.exit(main())

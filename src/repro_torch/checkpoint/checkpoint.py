@@ -46,10 +46,16 @@ def _flatten_with_paths(tree, prefix: Tuple[str, ...] = ()
                         ) -> List[Tuple[str, Any]]:
     """[(path, leaf)] in JAX leaf order, each path as JAX spells it.  A
     sharded subtree (`core.server_shard.ShardedTree`) is gathered
-    whole."""
+    whole; one spread over processes is refused, as the reference cannot
+    save an array its process does not address."""
     if tree is None:
         return []
     if server_shard.is_sharded(tree):
+        if tree.spread:
+            raise ValueError(
+                "a server spread over processes cannot be checkpointed: "
+                "each process holds only its own shards (save from a "
+                "one-process run)")
         return _flatten_with_paths(tree.gather(), prefix)
     if isinstance(tree, dict):
         return [x for k in sorted(tree)

@@ -31,7 +31,8 @@ A server placed on shards (`core.server_shard.ShardedTree`) goes through
 the same functions: the gates read its coupled v̄, and each apply runs
 unchanged on every shard's block tree, its params-shaped operands routed
 to the shards' blocks and the small ones (masks, timestamps) handed to
-each shard whole.
+each shard whole.  Over processes each process applies its own shards
+only (`core.server_shard`).
 """
 from __future__ import annotations
 
@@ -236,13 +237,20 @@ def per_tensor_gate(u, server: ServerState, c, eps):
 
 
 def _per_shard(server, fn, *trees, batch_dims=0):
-    """``fn(block_server, *block_trees, device)`` on every shard of a placed
-    server, in shard order: `trees` (params-shaped, `batch_dims` leading
-    event dimensions, or placed already) routed to each shard's blocks
-    just before its apply.  Returns the list of results."""
-    return [fn(blk, *(server_shard.block_of(t, server, s, batch_dims)
+    """``fn(block_server, *block_trees, device)`` on every shard this
+    process holds of a placed server, in shard order: `trees`
+    (params-shaped, `batch_dims` leading event dimensions, or placed
+    already) routed to each shard's blocks just before its apply.  Returns
+    the per-shard list of results, None for another process's shard."""
+    return [None if blk is None else
+            fn(blk, *(server_shard.block_of(t, server, s, batch_dims)
                       for t in trees), server.devices[s])
             for s, blk in enumerate(server.blocks)]
+
+
+def _part(outs, i):
+    """Entry `i` of each shard's result pair (None stays None)."""
+    return [None if o is None else o[i] for o in outs]
 
 
 # ---------------------------------------------------------------------------
@@ -302,8 +310,8 @@ def apply_gated(scfg: ServerConfig, server: ServerState, grad, push, grad_ts,
                 scfg, blk, g, server_shard.on(push, dev),
                 server_shard.on(grad_ts, dev), client_params=cp,
                 cached_grad=cg), grad, client_params, cached_grad)
-        return (server.with_blocks([o[0] for o in outs]),
-                server_shard.merge_aux(server, [o[1] for o in outs]))
+        return (server.with_blocks(_part(outs, 0)),
+                server_shard.merge_aux(server, _part(outs, 1)))
     per_leaf = is_per_leaf(push, server.params)
     if cached_grad is not None:
         g_eff = (tree_select(push, grad, cached_grad) if per_leaf
@@ -501,16 +509,18 @@ def fused_apply(scfg: ServerConfig, server: ServerState, grads, push,
                                     dim=0))
         new_params = tree_map(torch.subtract, server.params,
                               unflatten(server.params, deltas))
-    server = server._replace(params=new_params,
-                             timestamp=server.timestamp + n_push)
+    # T keeps its int32 (a sum of int32 counts comes back int64)
+    server = server._replace(
+        params=new_params,
+        timestamp=server.timestamp + n_push.to(server.timestamp.dtype))
     return server, taus
 
 
 def _assemble(server, outs):
-    """(placed server, shard 0's second output on its device) from the
-    shards' (block server, per-event values) pairs."""
-    return (server.with_blocks([o[0] for o in outs]),
-            server_shard.on(outs[0][1], server.devices[0]))
+    """(placed server, this process's first shard's second output on its
+    device) from the shards' (block server, per-event values) pairs."""
+    return (server.with_blocks(_part(outs, 0)),
+            server_shard.on(server.first(outs)[1], server.home))
 
 
 # ---------------------------------------------------------------------------
@@ -664,8 +674,9 @@ def _cotangent_update(scfg, rule, server, delta, mean_g, n_push):
                 leaves(reweight_by_v(W, vfac)), W, grad_outputs=delta)
     new_params = tree_map(torch.subtract, server.params,
                           unflatten(server.params, list(delta)))
-    return server._replace(params=new_params,
-                           timestamp=server.timestamp + n_push)
+    return server._replace(
+        params=new_params,
+        timestamp=server.timestamp + n_push.to(server.timestamp.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,8 @@ Under a sharded server (`core.server_shard.shard_queue_state`) the
 payload is placed as the server is, each slot's gradient in blocks on the
 shards that apply them: `enqueue` routes each arrival's payload to the
 shards' rings, and `dequeue` gathers each shard's rows, so a drained batch
-reaches the apply placed already.  The slot bookkeeping stays whole.
+reaches the apply placed already; over processes each process keeps the
+rings of its own shards only.  The slot bookkeeping stays whole.
 """
 from __future__ import annotations
 
@@ -187,8 +188,8 @@ def enqueue(q: QueueState, arrivals: Arrivals, admission: str, enq_T):
                                                     source)
     k = valid.shape[0]
     if server_shard.is_sharded(q.payload):
-        for s, (ring, dev) in enumerate(zip(q.payload.blocks,
-                                            q.payload.devices)):
+        for s in q.payload.local:
+            ring, dev = q.payload.blocks[s], q.payload.devices[s]
             rows = server_shard.block_of(arrivals.payload, q.payload, s, 1)
             slot_d, source_d = slot.to(dev), source.to(dev)
             tree_map(lambda r, v: engine.scatter_rows_(r, slot_d, v,
@@ -238,7 +239,7 @@ def dequeue(q: QueueState, k):
     k = torch.as_tensor(k).to(torch.int32)
     if server_shard.is_sharded(q.payload):
         payload = q.payload.with_blocks([
-            engine.tree_index(b, slot.to(dev))
+            None if b is None else engine.tree_index(b, slot.to(dev))
             for b, dev in zip(q.payload.blocks, q.payload.devices)])
     else:
         payload = engine.tree_index(q.payload, slot)

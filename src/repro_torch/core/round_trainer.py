@@ -45,7 +45,9 @@ stays on the device: a round makes no host sync.
 on a mesh's server axis; the engine's gates read the shards' coupled v̄
 and each apply runs on every shard's blocks, and the clients' refresh
 reads the gathered parameters once a round.  Without placement the round
-is the unsharded one, and only the ``shard_*`` counters move.
+is the unsharded one, and only the ``shard_*`` counters move.  On a mesh
+spread over processes (`launch.mesh.init_distributed_mesh`) every process
+steps the same round and applies its own shards only.
 """
 from __future__ import annotations
 

@@ -28,12 +28,27 @@ leaves every stream as it was.
 (`shard_server_state` returns the state as it was): the unsharded run,
 bitwise.  With S > 1 the blocks' sums run in another order, so runs agree
 to floating-point rounding.
+
+**Over processes** (a mesh from `launch.mesh.init_distributed_mesh`, whose
+server axis records the rank holding each shard): every process runs the
+same program (SPMD, as the reference's `jax.distributed` recipe) and
+holds only its own shards' blocks; another process's shard is None in
+`ShardedTree.blocks`.  The couplings and the gathers are then collectives
+on the default `torch.distributed` group, all of them in this module
+(`exchange`): each process all-gathers every shard's bytes (per-leaf
+partial sums, routed blocks, and a replica from its owner shard only),
+and the sums add in shard order exactly as in one process, so a run over
+processes is bitwise the one-process run at the same S on the same kind
+of device.  No sum goes through an `all_reduce`, whose order differs.
+Every process calls each collective in the same order, since every
+process takes the same steps.
 """
 from __future__ import annotations
 
 from typing import Any, List, NamedTuple, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.utils.trees import leaves, tree_map, unflatten
 
@@ -174,32 +189,59 @@ class ShardedTree:
     structure and byte counts, without data); `dims[i]` is leaf i's routed
     dimension (leading batch dimensions included) or None for a replica;
     `owners[i]` the shard whose replica stands for a replicated leaf.
+    `ranks[s]` is the process that holds shard s when the shards are
+    spread over processes (None: this process holds them all); a shard of
+    another process has None for its block.
     """
 
-    def __init__(self, blocks: Sequence[Any], like, dims, owners, devices):
+    def __init__(self, blocks: Sequence[Any], like, dims, owners, devices,
+                 ranks=None):
         self.blocks = tuple(blocks)
         self.like = like
         self.dims = tuple(dims)
         self.owners = tuple(owners)
         self.devices = tuple(devices)
+        self.ranks = None if ranks is None else tuple(ranks)
 
     @property
     def num_shards(self) -> int:
         """S."""
         return len(self.blocks)
 
+    @property
+    def local(self) -> Tuple[int, ...]:
+        """The shards this process holds, in shard order."""
+        return tuple(s for s, b in enumerate(self.blocks) if b is not None)
+
+    @property
+    def spread(self) -> bool:
+        """Whether the shards lie in more than one process."""
+        return self.ranks is not None and len(set(self.ranks)) > 1
+
+    @property
+    def home(self) -> torch.device:
+        """The device of this process's first shard."""
+        return self.devices[self.local[0]]
+
+    def first(self, per_shard):
+        """The entry of this process's first shard in a per-shard list."""
+        return per_shard[self.local[0]]
+
     def with_blocks(self, blocks) -> "ShardedTree":
-        """The same placement holding `blocks` (new values, same shapes)."""
+        """The same placement holding `blocks` (new values, same shapes;
+        None for another process's shard)."""
         return ShardedTree(blocks, self.like, self.dims, self.owners,
-                           self.devices)
+                           self.devices, self.ranks)
 
     def sub(self, select) -> "ShardedTree":
         """The placed subtree ``select(tree)``, e.g. ``lambda s: s.v``."""
         index = unflatten(self.like, list(range(len(self.dims))))
         idx = leaves(select(index))
-        return ShardedTree([select(b) for b in self.blocks],
+        return ShardedTree([None if b is None else select(b)
+                            for b in self.blocks],
                            select(self.like), [self.dims[i] for i in idx],
-                           [self.owners[i] for i in idx], self.devices)
+                           [self.owners[i] for i in idx], self.devices,
+                           self.ranks)
 
     def __getitem__(self, key) -> "ShardedTree":
         return self.sub(lambda t: t[key])
@@ -209,18 +251,106 @@ class ShardedTree:
         return self[key] if key in self.like else default
 
     def gather(self, device=None):
-        """The whole tree on `device` (shard 0's by default): routed leaves
-        concatenated along their dimension, replicated ones from their
-        owner."""
-        device = self.devices[0] if device is None else device
-        per_leaf = zip(*(leaves(b) for b in self.blocks))
+        """The whole tree on `device` (this process's first shard's by
+        default): routed leaves concatenated along their dimension in
+        shard order, replicated ones from their owner.  Over processes a
+        collective that every process calls."""
+        device = self.home if device is None else device
+        metas = leaves(self.like)
+        held = [[(dim is not None or owner == s)
+                 for dim, owner in zip(self.dims, self.owners)]
+                for s in range(self.num_shards)]
+        shards = exchange(
+            self.ranks,
+            {s: [l for l, h in zip(leaves(self.blocks[s]), held[s]) if h]
+             for s in self.local},
+            [[(self._block_shape(m, dim), m.dtype)
+              for m, dim, h in zip(metas, self.dims, held[s]) if h]
+             for s in range(self.num_shards)], device)
+        per_shard = [iter(x) for x in shards]
         out = []
-        for blocks, dim, owner in zip(per_leaf, self.dims, self.owners):
+        for dim, owner in zip(self.dims, self.owners):
             if dim is None:
-                out.append(blocks[owner].to(device))
+                out.append(next(per_shard[owner]).to(device))
             else:
-                out.append(torch.cat([b.to(device) for b in blocks], dim))
+                out.append(torch.cat([next(it).to(device)
+                                      for it in per_shard], dim))
         return unflatten(self.like, out)
+
+    def _block_shape(self, meta, dim):
+        shape = list(meta.shape)
+        if dim is not None:
+            shape[dim] //= self.num_shards
+        return tuple(shape)
+
+
+# bytes of each tensor in an `exchange` buffer are padded to this, so that
+# every tensor starts aligned for a view of its dtype
+_ALIGN = 8
+
+
+def _padded_nbytes(shape, dtype) -> int:
+    n = int(torch.Size(shape).numel()) * dtype.itemsize
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def process_rank() -> int:
+    """This process's rank in the default group (0 without one)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def exchange(ranks, rows, specs, device):
+    """Every part's list of tensors, in part order, on every process: the
+    one collective of a server (or a fleet) spread over processes.
+
+    Part p (a shard, or a block of fleet rows) lies in process
+    ``ranks[p]`` (`ranks` None: this process holds every part).  `rows[p]`
+    is part p's list of tensors for this process's parts (returned as they
+    are); `specs[p]` lists part p's (shape, dtype)s, the same on every
+    process.  Each process packs its parts' tensors into one byte buffer
+    on `device` (gloo takes card tensors as well as host ones), one
+    all-gather on the default group brings every process's buffer, and
+    the other parts come back as views of the gathered bytes on `device`.
+    With every part in one process no collective runs.  No value is
+    reduced here: callers add what they gather in part order."""
+    P = len(specs)
+    if ranks is None or len(set(ranks)) <= 1:
+        return [rows[p] for p in range(P)]
+    me, world = dist.get_rank(), dist.get_world_size()
+    size = [sum(_padded_nbytes(*x) for x in spec) for spec in specs]
+    width = max(sum(size[p] for p in range(P) if ranks[p] == r)
+                for r in range(world))
+    mine = torch.zeros(width, dtype=torch.uint8, device=device)
+    off = 0
+    for p in range(P):
+        if ranks[p] != me:
+            continue
+        for t, (shape, dtype) in zip(rows[p], specs[p]):
+            if (tuple(t.shape), t.dtype) != (tuple(shape), dtype):
+                raise ValueError(
+                    f"part {p} holds a {t.dtype} {tuple(t.shape)} tensor "
+                    f"where its placement has {dtype} {tuple(shape)}")
+            raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
+            mine[off:off + raw.numel()] = raw
+            off += _padded_nbytes(t.shape, t.dtype)
+    bufs = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(bufs, mine)
+    flat = torch.cat(bufs)
+    base = {r: r * width for r in range(world)}
+    out = []
+    for p in range(P):
+        r = ranks[p]
+        if r == me:
+            out.append(list(rows[p]))
+            base[r] += size[p]
+            continue
+        got = []
+        for shape, dtype in specs[p]:
+            n = int(torch.Size(shape).numel()) * dtype.itemsize
+            got.append(flat[base[r]:base[r] + n].view(dtype).reshape(shape))
+            base[r] += _padded_nbytes(shape, dtype)
+        out.append(got)
+    return out
 
 
 def is_sharded(tree) -> bool:
@@ -271,17 +401,28 @@ def shard_tree(tree, mesh, axis: str = SERVER_AXIS, *, batch_dims: int = 0):
     leading event or slot dimensions, which stay whole: the queue's
     ``[capacity, *leaf]`` payload routes as the live state does), each
     block and replica a fresh contiguous tensor.  Owners come from
-    `make_shard_plan`.  None passes through."""
+    `make_shard_plan`.  On a mesh spread over processes this process
+    builds the blocks of its own shards only, and must hold one at least.
+    None passes through."""
     if tree is None:
         return None
     devices = mesh.axis_devices(axis)
+    ranks = mesh.axis_ranks(axis)
     S = len(devices)
+    me = process_rank()
+    mine = [ranks is None or ranks[s] == me for s in range(S)]
+    if not any(mine):
+        raise ValueError(f"process {me} holds no shard of the {axis!r} "
+                         f"axis (ranks {ranks}): every process of a "
+                         f"spread server must hold one")
     dims = [_routed_dim(l, S, batch_dims) for l in leaves(tree)]
     blocks = [unflatten(tree, [_copy_to(_block(l, d, s, S), dev)
                                for l, d in zip(leaves(tree), dims)])
+              if mine[s] else None
               for s, dev in enumerate(devices)]
     owners = make_shard_plan(tree, S, axis).owners
-    return ShardedTree(blocks, tree_map(_meta, tree), dims, owners, devices)
+    return ShardedTree(blocks, tree_map(_meta, tree), dims, owners, devices,
+                       ranks)
 
 
 def block_of(tree, server: ShardedTree, s: int, batch_dims: int = 0):
@@ -293,7 +434,7 @@ def block_of(tree, server: ShardedTree, s: int, batch_dims: int = 0):
     if tree is None:
         return None
     if isinstance(tree, ShardedTree):
-        if tree.devices != server.devices:
+        if (tree.devices, tree.ranks) != (server.devices, server.ranks):
             raise ValueError("the operand is placed on other shards than "
                              "the server")
         return tree.blocks[s]
@@ -323,9 +464,18 @@ def coupled_mean(shard_leaf_sums, dims, owners, numel, device):
     return total / float(numel)
 
 
+def _all_shards(placed: ShardedTree, rows):
+    """Every shard's list of tensors from this process's shards' `rows`
+    (lists alike in shape and dtype on every shard): `exchange`."""
+    spec = [(tuple(t.shape), t.dtype) for t in placed.first(rows)]
+    return exchange(placed.ranks, rows, [spec] * placed.num_shards,
+                    placed.home)
+
+
 def _leaf_sums(sharded: ShardedTree):
-    return [[torch.sum(l.float()) for l in leaves(b)]
-            for b in sharded.blocks]
+    return _all_shards(sharded, {
+        s: [torch.sum(l.float()) for l in leaves(sharded.blocks[s])]
+        for s in sharded.local})
 
 
 def _numel(sharded: ShardedTree) -> int:
@@ -334,17 +484,18 @@ def _numel(sharded: ShardedTree) -> int:
 
 def tree_mean(sharded: ShardedTree) -> torch.Tensor:
     """The mean over every element of a placed tree (the whole-copy v̄ of
-    a placed v), by `coupled_mean`, on shard 0's device."""
+    a placed v), by `coupled_mean`, on this process's first shard's
+    device."""
     return coupled_mean(_leaf_sums(sharded), sharded.dims, sharded.owners,
-                        _numel(sharded), sharded.devices[0])
+                        _numel(sharded), sharded.home)
 
 
 def leaf_means(sharded: ShardedTree) -> List[torch.Tensor]:
-    """Each leaf's mean (its v̄ for a per-tensor gate), on shard 0's device:
-    a routed leaf's block sums added in shard order, a replica's owner's
-    sum, over the leaf's whole element count."""
+    """Each leaf's mean (its v̄ for a per-tensor gate), on this process's
+    first shard's device: a routed leaf's block sums added in shard order,
+    a replica's owner's sum, over the leaf's whole element count."""
     sums = _leaf_sums(sharded)
-    home = sharded.devices[0]
+    home = sharded.home
     out = []
     for i, (l, dim, owner) in enumerate(zip(leaves(sharded.like),
                                             sharded.dims, sharded.owners)):
@@ -358,17 +509,20 @@ def leaf_means(sharded: ShardedTree) -> List[torch.Tensor]:
 
 
 def merge_aux(server: ShardedTree, auxes):
-    """One aux dict from the shards' applies: shard 0's values on its
-    device (τ and a barrier's decision are the same on every shard), with
-    ``mean_scale`` made again from every shard's ``scale_sums`` by
-    `coupled_mean` over the params."""
-    home = server.devices[0]
-    aux = {k: on(v, home) for k, v in auxes[0].items() if k != "scale_sums"}
-    if "scale_sums" in auxes[0]:
+    """One aux dict from the shards' applies (None for another process's
+    shard): this process's first shard's values on its device (τ and a
+    barrier's decision are the same on every shard), with ``mean_scale``
+    made again from every shard's ``scale_sums`` by `coupled_mean` over
+    the params."""
+    home = server.home
+    first = server.first(auxes)
+    aux = {k: on(v, home) for k, v in first.items() if k != "scale_sums"}
+    if "scale_sums" in first:
         params = server.sub(lambda s: s.params)
-        aux["mean_scale"] = coupled_mean(
-            [a["scale_sums"] for a in auxes], params.dims, params.owners,
-            _numel(params), home)
+        sums = _all_shards(server, {s: auxes[s]["scale_sums"]
+                                    for s in server.local})
+        aux["mean_scale"] = coupled_mean(sums, params.dims, params.owners,
+                                         _numel(params), home)
     return aux
 
 
@@ -456,6 +610,7 @@ __all__ = [
     "ShardedTree",
     "count_shard",
     "coupled_mean",
+    "exchange",
     "gather",
     "is_sharded",
     "leaf_means",
@@ -466,6 +621,7 @@ __all__ = [
     "mesh_axis_size",
     "on",
     "peak_shard_bytes",
+    "process_rank",
     "server_leaf_spec",
     "shard_counter",
     "shard_queue_state",

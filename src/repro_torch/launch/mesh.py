@@ -1,14 +1,16 @@
-"""Device meshes of one process, ported from `repro.launch.mesh`: the
-host mesh, the production mesh (for spec reckoning) and the server mesh;
-and the published rates of the cards the port runs on (`card_rates`), which
-take the place of the reference's TPU constants in the roofline
-(`launch.analysis`).
+"""Device meshes, ported from `repro.launch.mesh`: the host mesh, the
+production mesh (for spec reckoning), the server mesh and its
+multi-process form (`init_distributed_mesh`); and the published rates of
+the cards the port runs on (`card_rates`), which take the place of the
+reference's TPU constants in the roofline (`launch.analysis`).
 
 A `Mesh` lays devices out on named axes, as the reference's
 `jax.sharding.Mesh` does.  A device may appear more than once: several
 shards on one card (``[cuda:0] * 4``) or on the CPU (``[cpu] * 2``) are
 the port's counterpart of the reference's simulated host devices
-(``--xla_force_host_platform_device_count``).
+(``--xla_force_host_platform_device_count``).  A mesh over several
+processes also records which process (its rank in the
+`torch.distributed` group) holds each entry.
 """
 from __future__ import annotations
 
@@ -16,11 +18,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
-
-# The ROADMAP item that ports a server spread over processes.
-_MULTI_PROCESS = ("a server spread over several processes "
-                  "(torch.distributed) is not ported yet: ROADMAP.md queue "
-                  "1, item 9")
+import torch.distributed as dist
 
 
 # Published rates of NVIDIA's cards by the words of the card's name (as
@@ -56,9 +54,12 @@ def card_rates(name: str | None = None):
 
 class Mesh:
     """Devices on named axes: ``devices`` is an object array of
-    `torch.device` with one dimension per name in ``axis_names``."""
+    `torch.device` with one dimension per name in ``axis_names``.
+    ``ranks`` (an int array of the same shape) gives the process that
+    holds each entry in a mesh spread over a process group; None means
+    this process holds them all."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], ranks=None):
         given = np.asarray(devices, dtype=object)
         self.devices = np.empty(given.shape, dtype=object)
         for i, d in np.ndenumerate(given):
@@ -67,6 +68,12 @@ class Mesh:
         if self.devices.ndim != len(self.axis_names):
             raise ValueError(f"{self.devices.ndim} device dimensions for "
                              f"axes {self.axis_names}")
+        self.ranks = None
+        if ranks is not None:
+            self.ranks = np.asarray(ranks, dtype=np.int64)
+            if self.ranks.shape != self.devices.shape:
+                raise ValueError(f"ranks of shape {self.ranks.shape} for "
+                                 f"devices of shape {self.devices.shape}")
 
     @property
     def shape(self) -> dict:
@@ -75,10 +82,19 @@ class Mesh:
 
     def axis_devices(self, axis: str) -> tuple:
         """The devices along `axis`, at index 0 of every other axis."""
-        d = self.axis_names.index(axis)
+        return tuple(self.devices[self._axis_index(axis)])
+
+    def axis_ranks(self, axis: str):
+        """The ranks holding the entries along `axis` (at index 0 of every
+        other axis), or None when this process holds the whole mesh."""
+        if self.ranks is None:
+            return None
+        return tuple(int(r) for r in self.ranks[self._axis_index(axis)])
+
+    def _axis_index(self, axis: str):
         index = [0] * self.devices.ndim
-        index[d] = slice(None)
-        return tuple(self.devices[tuple(index)])
+        index[self.axis_names.index(axis)] = slice(None)
+        return tuple(index)
 
 
 def _distinct_devices():
@@ -90,7 +106,7 @@ def _distinct_devices():
 
 def _grid(devices, shape) -> np.ndarray:
     grid = np.empty(int(np.prod(shape)), dtype=object)
-    grid[:] = [torch.device(d) for d in devices[:grid.size]]
+    grid[:] = list(devices[:grid.size])
     return grid.reshape(shape)
 
 
@@ -116,27 +132,63 @@ def make_host_mesh(data: int = 1, model: int = 1, devices=None) -> Mesh:
     return Mesh(_grid(devices, (data, model)), ("data", "model"))
 
 
-def make_server_mesh(server: int = 1, data: int = 1, devices=None) -> Mesh:
+def make_server_mesh(server: int = 1, data: int = 1, devices=None,
+                     ranks=None) -> Mesh:
     """A mesh with a ``'server'`` axis of S devices (the sharded server,
     `core.server_shard`) and a trailing ``'data'`` axis.
 
     Without `devices`, S and the data axis are clamped to the distinct
     devices there are (the cards, else the CPU), as in the reference.  An
     explicit `devices` list may repeat a device, e.g. ``[cuda:0] * 4`` for
-    four shards on one card; the mesh takes its first S × data entries.
+    four shards on one card; the mesh takes its first S × data entries,
+    and as many of `ranks` (the process holding each entry) where given.
     """
     devices = _distinct_devices() if devices is None else list(devices)
     n = len(devices)
     server = max(1, min(server, n))
     data = max(1, min(data, n // server))
-    return Mesh(_grid(devices, (server, data)), ("server", "data"))
+    shape = (server, data)
+    return Mesh(_grid([torch.device(d) for d in devices], shape),
+                ("server", "data"),
+                None if ranks is None else _grid(list(ranks), shape))
+
+
+def _local_devices(rank: int):
+    """A process's default share of a multi-process mesh: card
+    ``rank % device_count`` where there are cards (several processes may
+    share one), else the CPU."""
+    if torch.cuda.is_available():
+        return [torch.device("cuda", rank % torch.cuda.device_count())]
+    return [torch.device("cpu")]
 
 
 def init_distributed_mesh(server: int = 1, *, coordinator_address=None,
-                          num_processes=None, process_id=None) -> Mesh:
-    """The multi-process form of `make_server_mesh`.  With no coordinator
-    it is `make_server_mesh`, as in the reference; a coordinator (a server
-    spread over processes) raises `NotImplementedError`."""
-    if coordinator_address is not None:
-        raise NotImplementedError(_MULTI_PROCESS)
-    return make_server_mesh(server=server)
+                          num_processes=None, process_id=None,
+                          devices=None) -> Mesh:
+    """The multi-process form of `make_server_mesh`.
+
+    Every process of the group calls this with the same `server`, and each
+    then runs the same program against the returned global mesh (the
+    reference's recipe, docs/SHARDING.md).  With a `coordinator_address`
+    (``host:port``) the process joins a gloo `torch.distributed` group of
+    `num_processes` as rank `process_id` first, unless a group is already
+    initialized, which it keeps (as the reference keeps an initialized
+    `jax.distributed`).  Each process contributes its `devices` (default:
+    `_local_devices`), gathered in rank order, and the ``'server'`` axis
+    spans that global list with the rank of each entry: S may exceed the
+    number of processes when a process gives several devices.  With no
+    coordinator it is `make_server_mesh` of this process alone.
+    """
+    if coordinator_address is None:
+        return make_server_mesh(server=server, devices=devices)
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coordinator_address}",
+            world_size=num_processes, rank=process_id)
+    mine = (_local_devices(dist.get_rank()) if devices is None
+            else list(devices))
+    shares = [None] * dist.get_world_size()
+    dist.all_gather_object(shares, [str(d) for d in mine])
+    everyone = [torch.device(d) for share in shares for d in share]
+    ranks = [r for r, share in enumerate(shares) for _ in share]
+    return make_server_mesh(server=server, devices=everyone, ranks=ranks)

@@ -20,8 +20,8 @@ tuples of names; a `NamedSharding` pairs a mesh with one.
 
 One process has no partitioner: `constrain` and `constrain_axes` keep the
 reference's signatures and return their input itself, with or without a
-mesh context.  Placing tensors over processes is ROADMAP.md queue 1,
-item 9; the port's models call neither function.
+mesh context.  Placing a model's tensors over processes is ROADMAP.md
+queue 1, item 10; the port's models call neither function.
 """
 from __future__ import annotations
 
@@ -323,7 +323,7 @@ def constrain(x, kind: str):
     """The reference's sharding constraint at a named activation site
     ('bsd', 'bsv', 'ecd', 'attn', 'grad').  One process has no partitioner,
     so this returns `x` itself, with or without a mesh context; placing
-    activations over processes is ROADMAP.md queue 1, item 9."""
+    activations over processes is ROADMAP.md queue 1, item 10."""
     return x
 
 

@@ -74,7 +74,11 @@ The ``shard_*`` counters appear only when ``server_shards > 1``.
 **Client axis**: a mesh with a ``clients`` axis of D devices splits the
 [λ, ...] fleet arrays by rows over them (`shard_fleet`, `FleetRows`), and
 the fused path computes its gradient batch in D chunks of K/D events, one
-on each device.  The queue refuses a client axis, and so does
+on each device.  Over processes (a `launch.mesh.Mesh` whose entries
+carry the ranks holding them) each process holds its own blocks of rows
+and maps its own chunks; row reads and the batch are gathered with
+`core.server_shard.exchange`, and every process's run is the
+one-process run, bitwise.  The queue refuses a client axis, and so does
 ``fused_mode='cotangent'``; ``'auto'`` takes the materialized reduction
 where the axis has more than one device.
 """
@@ -375,50 +379,79 @@ class FleetRows:
     write never lands twice on a real row).  It answers the indexing the
     event loop does on a fleet array (row reads and writes by a device
     index tensor, column views) on the run's device `home`; `gather` gives
-    the whole array back."""
+    the whole array back.
 
-    def __init__(self, blocks, home):
+    Over processes (a client axis whose `ranks` name the process holding
+    each block) a process holds its own blocks only, the others None.  A
+    row read is then a collective (`core.server_shard.exchange`): every
+    block's candidate rows reach every process, and the owner's row wins
+    as in one process; a write lands in this process's blocks only."""
+
+    def __init__(self, blocks, home, rows, ranks=None):
         self.blocks = list(blocks)
         self.home = torch.device(home)
-        self.rows = self.blocks[0].shape[0] - 1
+        self.rows = rows
+        self.ranks = None if ranks is None else tuple(ranks)
 
     @classmethod
-    def place(cls, leaf, devices):
-        """`leaf` split by rows over `devices` (their number divides λ)."""
+    def place(cls, leaf, devices, ranks=None):
+        """`leaf` split by rows over `devices` (their number divides λ),
+        block d built only where ``ranks[d]`` is this process."""
         n = leaf.shape[0] // len(devices)
         spare = torch.zeros_like(leaf[:1])
+        me = server_shard.process_rank()
         return cls([torch.cat([leaf[d * n:(d + 1) * n], spare]).to(dev)
-                    for d, dev in enumerate(devices)], leaf.device)
+                    if ranks is None or ranks[d] == me else None
+                    for d, dev in enumerate(devices)], leaf.device, n, ranks)
+
+    @property
+    def _first(self):
+        return next(b for b in self.blocks if b is not None)
 
     @property
     def dtype(self):
         """The array's dtype."""
-        return self.blocks[0].dtype
+        return self._first.dtype
 
     def dim(self) -> int:
         """The array's number of dimensions."""
-        return self.blocks[0].dim()
+        return self._first.dim()
 
     def _local(self, idx, d):
         lo = d * self.rows
         own = (idx >= lo) & (idx < lo + self.rows)
         return own, torch.where(own, idx - lo, self.rows)
 
+    def _every_block(self, mine):
+        """Each block's tensor, in block order, from this process's
+        (`mine`: block → tensor; alike in shape and dtype)."""
+        t = next(iter(mine.values()))
+        got = server_shard.exchange(
+            self.ranks, {d: [x] for d, x in mine.items()},
+            [[(tuple(t.shape), t.dtype)]] * len(self.blocks), self.home)
+        return [x[0] for x in got]
+
     def __getitem__(self, key):
         if isinstance(key, tuple):          # a column view, e.g. [:, i]
-            return FleetRows([b[key] for b in self.blocks], self.home)
+            return FleetRows([None if b is None else b[key]
+                              for b in self.blocks], self.home, self.rows,
+                             self.ranks)
+        rows = self._every_block({
+            d: b[self._local(key, d)[1].to(b.device)]
+            for d, b in enumerate(self.blocks) if b is not None})
         out = None
-        for d, b in enumerate(self.blocks):
-            own, local = self._local(key, d)
-            rows = b[local.to(b.device)].to(self.home)
-            out = rows if out is None else torch.where(
-                own.reshape((-1,) + (1,) * (rows.dim() - 1)), rows, out)
+        for d, r in enumerate(rows):
+            own, _ = self._local(key, d)
+            r = r.to(self.home)
+            out = r if out is None else torch.where(
+                own.reshape((-1,) + (1,) * (r.dim() - 1)), r, out)
         return out
 
     def __setitem__(self, key, value):
         for d, b in enumerate(self.blocks):
-            _, local = self._local(key, d)
-            b[local.to(b.device)] = value.to(b.device)
+            if b is not None:
+                _, local = self._local(key, d)
+                b[local.to(b.device)] = value.to(b.device)
 
     def index_copy_(self, dim, index, source):
         """In place: rows `index` ← `source` (dim 0 only)."""
@@ -429,22 +462,30 @@ class FleetRows:
 
     def gather(self) -> torch.Tensor:
         """The whole array on the run's device."""
-        return torch.cat([b[:-1].to(self.home) for b in self.blocks])
+        return torch.cat([b.to(self.home) for b in self._every_block(
+            {d: b[:-1] for d, b in enumerate(self.blocks) if b is not None})])
 
 
 def shard_fleet(state: SimState, mesh, client_axis: str = "clients"):
     """Split every [λ, ...] fleet array (the client copies, their
     timestamps, the gradient cache) by rows over `mesh[client_axis]`
-    (`FleetRows`); the server is left as it is.  The axis's size must
-    divide λ; a size of 1 places nothing."""
+    (`FleetRows`; over processes, each process holds its own blocks);
+    the server is left as it is.  The axis's size must divide λ; a size
+    of 1 places nothing."""
     devices = mesh.axis_devices(client_axis)
+    ranks = mesh.axis_ranks(client_axis)
     lam = state.client_ts.shape[0]
     if len(devices) == 1:
         return state
     if lam % len(devices):
         raise ValueError(f"the {client_axis!r} axis has {len(devices)} "
                          f"devices, which must divide λ={lam}")
-    put = lambda tree: tree_map(lambda l: FleetRows.place(l, devices), tree)
+    if ranks is not None and server_shard.process_rank() not in ranks:
+        raise ValueError(f"process {server_shard.process_rank()} holds no "
+                         f"block of the {client_axis!r} axis (ranks "
+                         f"{ranks})")
+    put = lambda tree: tree_map(
+        lambda l: FleetRows.place(l, devices, ranks), tree)
     return state._replace(client_params=put(state.client_params),
                           client_ts=put(state.client_ts),
                           grad_cache=put(state.grad_cache),
@@ -455,7 +496,8 @@ def _fill_where_(cond, value, fleet_leaf):
     """In place: every row of a fleet leaf ← `value` where `cond`."""
     for b in (fleet_leaf.blocks if isinstance(fleet_leaf, FleetRows)
               else [fleet_leaf]):
-        torch.where(cond.to(b.device), value.to(b.device), b, out=b)
+        if b is not None:
+            torch.where(cond.to(b.device), value.to(b.device), b, out=b)
 
 
 def _canonical(server, device):
@@ -594,6 +636,7 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
                          in getattr(mesh, "axis_names", ()))
     client_devices = (mesh.axis_devices(client_axis)
                       if names_client_axis else ())
+    client_ranks = mesh.axis_ranks(client_axis) if names_client_axis else None
     if config.queue_capacity:
         if names_client_axis:
             raise ValueError(
@@ -736,7 +779,9 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
     def batch_grads(p_e, xb, yb):
         """The window's per-event gradients and losses: one vmap, or, on a
         client axis of D devices, one per device over K/D events each,
-        concatenated on the run's device."""
+        concatenated on the run's device in event order.  Over processes
+        each process maps its own devices' chunks, and one collective
+        (`server_shard.exchange`) brings every chunk to every process."""
         D = len(client_devices)
         if D <= 1:
             return vgrad(p_e, xb, yb)
@@ -745,13 +790,20 @@ def build_step_fn(config: SimConfig, loss_fn: Callable, data_x, data_y,
             raise ValueError(f"the client axis has {D} devices, which must "
                              f"divide the window's {k} events")
         n = k // D
-        parts = [vgrad(*server_shard.on(
-            (tree_map(lambda l: l[d * n:(d + 1) * n], p_e),
-             xb[d * n:(d + 1) * n], yb[d * n:(d + 1) * n]), dev))
-            for d, dev in enumerate(client_devices)]
-        grads = tree_map(lambda *ls: torch.cat([l.to(home) for l in ls]),
-                         *(g for g, _ in parts))
-        return grads, torch.cat([l.to(home) for _, l in parts])
+        me = server_shard.process_rank()
+        mine = {}
+        for d, dev in enumerate(client_devices):
+            if client_ranks is None or client_ranks[d] == me:
+                g, loss = vgrad(*server_shard.on(
+                    (tree_map(lambda l: l[d * n:(d + 1) * n], p_e),
+                     xb[d * n:(d + 1) * n], yb[d * n:(d + 1) * n]), dev))
+                mine[d] = leaves(g) + [loss]
+        spec = [(tuple(t.shape), t.dtype) for t in next(iter(mine.values()))]
+        parts = server_shard.exchange(client_ranks, mine, [spec] * D, home)
+        cat = lambda i: torch.cat([part[i].to(home) for part in parts])
+        n_leaves = len(spec) - 1
+        return (unflatten(p_e, [cat(i) for i in range(n_leaves)]),
+                cat(n_leaves))
 
     def step(state: SimState, draws: Draws):
         k = draws.idx.shape[0]

@@ -133,7 +133,8 @@ def to_numpy(tree):
     as a numpy array; bfloat16 comes back as float32, which numpy lacks.
     A sharded server state (`core.server_shard.ShardedTree`) is gathered
     first, so it comes back in the reference's layout, and so is a fleet
-    array split over a client axis (`sim.fred.FleetRows`)."""
+    array split over a client axis (`sim.fred.FleetRows`); spread over
+    processes, each gather is a collective that every process calls."""
     def one(t):
         if server_shard.is_sharded(t):
             return to_numpy(t.gather())

@@ -169,7 +169,7 @@ def test_roofline_arithmetic_on_the_h100_rates(flops, hbm):
                                 "definitions"}
     assert set(d["definitions"]) == {"flops", "hbm_bytes", "per_device_mem",
                                      "temp_bytes", "collectives"}
-    assert "item 9" in d["definitions"]["collectives"]
+    assert "item 10" in d["definitions"]["collectives"]
     for k in ("compute_s", "memory_s", "collective_s", "bottleneck",
               "useful_flops_frac"):
         assert d[k] == getattr(r, k)

@@ -21,6 +21,7 @@ devices, so that the port's ``shard_*`` counters meet the reference's own.
 """
 import json
 import os
+import socket
 import subprocess
 import sys
 import textwrap
@@ -30,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.configs import get_smoke_config as j_get_smoke_config
 from repro.core import rules as jrules
@@ -255,8 +257,25 @@ def test_meshes():
     assert ss.mesh_axis_size(m) == 2 and ss.mesh_axis_size(m, "x") == 0
     assert ss.mesh_axis_size(None) == 0
     assert init_distributed_mesh(2).shape == make_server_mesh(2).shape
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        init_distributed_mesh(2, coordinator_address="localhost:1234")
+    # a coordinator joins a gloo group (here of this process alone) and
+    # records the rank of every entry; two devices give S = 2 in one
+    # process, so the placement is not spread and runs no collective
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    try:
+        m = init_distributed_mesh(2, coordinator_address=f"127.0.0.1:{port}",
+                                  num_processes=1, process_id=0,
+                                  devices=[CPU, CPU])
+        assert dist.is_initialized() and dist.get_backend() == "gloo"
+        assert m.shape == {"server": 2, "data": 1}
+        assert m.axis_ranks("server") == (0, 0)
+        placed = ss.shard_tree({"w": torch.arange(8.0)}, m)
+        assert placed.local == (0, 1) and not placed.spread
+        assert torch.equal(placed.gather()["w"], torch.arange(8.0))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
