@@ -5334,6 +5334,382 @@ def launcher_arms(cfg, dev, smi, launches, dryrun, record):
     free_card()
 
 
+# Phase 22: the model's (data, model) placement over processes.  Two
+# children of this script join a gloo group on `cuda:0` (NCCL refuses two
+# ranks on one card) and run tinyllama-1.1b's pod-sync step and serving on
+# meshes (2, 1) and (1, 2), each holding its shard of every leaf, against
+# this process's one-process run of the same inputs.
+MODEL_SPREAD_WORLD = 2
+MODEL_SPREAD_MESHES = ((2, 1), (1, 2))
+# 2 of tinyllama-1.1b's 22 layers (a cut): over gloo every step and call
+# gathers every weight through the host, ~0.4 s a decode step at 2 layers
+# and ~2 s at 22 (PERF.md §6)
+MODEL_SPREAD_DEPTH = 2
+MODEL_SPREAD_TRAIN = (2, 512, 2)    # (a): B, S, pod-sync steps
+MODEL_SPREAD_SERVE = (4, 512, 8)    # (b): B, prompt, decode steps
+MODEL_SPREAD_LR = 0.01
+MODEL_SPREAD_TIMEOUT = 400          # seconds for the whole group
+MODEL_SPREAD_FLAG = "--model-spread-rank"
+# (a), (b): the groups' results against one process's, in bf16: the loss
+# and mean_scale within one bf16 rounding (2^-8 relative), logits within
+# one bf16 rounding of the largest |logit|, θ within one bf16 rounding of
+# each leaf's largest |θ| (a bf16 θ' may round either way of a tie)
+BF16_ROUNDING = 2.0 ** -8
+MODEL_SPREAD_LEAVES = ("final_norm", "unembed", "layers.attn.wq",
+                       "layers.mlp.w_down")
+
+
+def model_spread_config(depth):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM_ARCH), num_layers=depth)
+
+
+def model_spread_inputs(cfg):
+    """The token batches of (a), the prompt and decode tokens of (b): the
+    same on every process (numpy, seed 22)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(22)
+    B, S, steps = MODEL_SPREAD_TRAIN
+    Bs, P, gen = MODEL_SPREAD_SERVE
+    draw = lambda *shape: torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, shape).astype(np.int64))
+    return {"batches": [{"tokens": draw(B, S), "targets": draw(B, S)}
+                        for _ in range(steps)],
+            "prompt": draw(Bs, P), "decode": draw(Bs, gen)}
+
+
+def _leaf(tree, dotted):
+    for k in dotted.split("."):
+        tree = tree[k]
+    return tree
+
+
+def _local_bytes(tree):
+    from repro_torch.utils.trees import leaves
+    total = 0
+    for t in leaves(tree):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        total += t.numel() * t.element_size()
+    return total
+
+
+def _comm(fn):
+    """`fn()` under `CommDebugMode` → (its result, {collective: count})."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    mode = CommDebugMode()
+    with mode:
+        out = fn()
+    return out, {str(k).split(".")[-1]: v
+                 for k, v in mode.get_comm_counts().items()}
+
+
+def model_spread_run(mesh, cfg, dev):
+    """(a) and (b) on `mesh` ((1, 1) on `dev` in one process, or spread
+    over the group): the weights drawn on the card from seed 0 and placed
+    by the reference's shardings (each process keeps its shard), the
+    inputs of `model_spread_inputs`.  Returns what phase 22 compares and
+    prints, gathered (a collective over processes)."""
+    import torch
+    from repro_torch.configs.base import TrainerConfig
+    from repro_torch.core import rules as server_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.serving import decode_step, grow_cache, prefill
+    from repro_torch.sharding.rules import (gather, mesh_context,
+                                            param_shardings, place,
+                                            state_shardings)
+    from repro_torch.utils.convert import to_numpy
+    inputs = model_spread_inputs(cfg)
+    B, S, n_steps = MODEL_SPREAD_TRAIN
+    Bs, P, gen = MODEL_SPREAD_SERVE
+    res = {"layers": cfg.num_layers}
+    # (a) the pod-sync step with the fasgd_update kernel
+    tc = TrainerConfig(rule="fasgd", lr=MODEL_SPREAD_LR,
+                       stats_dtype="bfloat16", use_fused_kernel=True)
+    shardings = (state_shardings(steps.abstract_server_state(cfg, tc), mesh),
+                 steps.batch_shardings(steps.batch_struct(
+                     cfg, B, S, with_targets=True), mesh))
+    params = place(lm_params(cfg, dev), shardings[0].params)
+    state = server_rules.init(steps.server_config(tc), params)
+    del params
+    step = steps.place_args(steps.make_train_step(cfg, tc), shardings)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, secs, launches, comm = [], [], [], None
+    for i, batch in enumerate(inputs["batches"]):
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:      # the warm-up step: its collectives counted
+            (state, m), comm = _comm(lambda: step(state, batch))
+        else:
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches.append(ops.DEVICE_LAUNCHES["fasgd_update"])
+        metrics.append({k: float(v) for k, v in m.items()})
+    res["train"] = dict(
+        metrics=metrics, secs=secs, launches=launches, comm=comm,
+        peak=torch.cuda.max_memory_allocated(),
+        state_bytes=_local_bytes(state._replace(extra=None)),
+        leaves=to_numpy(gather({k: _leaf(state.params, k)
+                                for k in MODEL_SPREAD_LEAVES})))
+    del state, step
+    free_card()
+    # (b) prefill, then decode on the given tokens
+    params = lm_params(cfg, dev)
+    params = place(params, param_shardings(params, mesh))
+    torch.cuda.reset_peak_memory_stats()
+    with mesh_context(mesh):
+        batch = {"tokens": inputs["prompt"].to(dev)}
+        batch = place(batch, steps.batch_shardings(batch, mesh))
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, batch)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        flash = [ops.DEVICE_LAUNCHES["flash_attention"]]
+        last = to_numpy(gather(logits[:, -1:]))
+        del logits
+        cache = grow_cache(cfg, cache, P + gen)
+        cache_bytes = _local_bytes(cache)
+        dec, dec_s, dcomm = [], [], None
+        for i in range(gen):
+            tok = {"t": inputs["decode"][:, i:i + 1].to(dev)}
+            tok = place(tok, steps.batch_shardings(tok, mesh, seq_dim=None))
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run = lambda: decode_step(params, cfg, tok["t"], cache, P + i)
+            if i == 0:
+                (out, cache), dcomm = _comm(run)
+            else:
+                out, cache = run()
+            torch.cuda.synchronize()
+            dec_s.append(time.perf_counter() - t0)
+            flash.append(ops.DEVICE_LAUNCHES["flash_attention"])
+            dec.append(to_numpy(gather(out)))
+    res["serve"] = dict(last=last, decode=dec, prefill_s=pre_s,
+                        decode_s=dec_s, flash=flash, comm=dcomm,
+                        cache_bytes=cache_bytes,
+                        param_bytes=_local_bytes(params),
+                        peak=torch.cuda.max_memory_allocated())
+    del params, cache
+    free_card()
+    return res
+
+
+def model_spread_child(rank, port, out_dir, depth):
+    """One rank of phase 22's group: join it, wait for the parent's go,
+    run (a) and (b) at `depth` layers on each mesh of
+    `MODEL_SPREAD_MESHES` over the group, write the results to
+    ``out_dir/rank{rank}.pkl``."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import (init_distributed_host_mesh,
+                                         make_host_mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all()              # built by the parent already: a no-op
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    group = init_distributed_host_mesh(
+        MODEL_SPREAD_WORLD, 1, coordinator_address=f"127.0.0.1:{port}",
+        num_processes=MODEL_SPREAD_WORLD, process_id=rank, devices=[dev])
+    cfg = model_spread_config(depth)
+    (Path(out_dir) / f"ready{rank}").touch()
+    go = Path(out_dir) / "go"
+    deadline = time.monotonic() + MODEL_SPREAD_TIMEOUT
+    while not go.exists():
+        if time.monotonic() > deadline:
+            raise SystemExit(f"phase 22 rank {rank}: no go from the parent")
+        time.sleep(0.05)
+    res = {"backend": dist.get_backend(),
+           "imported": sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("jax", "repro"))}
+    for data, model in MODEL_SPREAD_MESHES:
+        mesh = make_host_mesh(data, model, devices=list(group.devices.flat),
+                              ranks=list(group.ranks.flat))
+        t0 = time.perf_counter()
+        res[(data, model)] = model_spread_run(mesh, cfg, dev)
+        res[(data, model)]["secs"] = time.perf_counter() - t0
+    dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def _rel(got, want) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def _within_rounding(got, want) -> float:
+    """max |got − want| over one bf16 rounding of max |want|."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()
+                 / (BF16_ROUNDING * max(np.abs(want).max(), 1e-30)))
+
+
+def model_spread_check(label, got, base, r):
+    """Rank r's (a) and (b) on one mesh against the one-process run."""
+    for i, (m, b) in enumerate(zip(got["train"]["metrics"],
+                                   base["train"]["metrics"])):
+        for k in ("loss", "mean_scale"):
+            if not _rel(m[k], b[k]) <= BF16_ROUNDING:
+                fail(f"phase 22 {label} rank {r}: step {i}'s {k} {m[k]} "
+                     f"vs one process {b[k]}: beyond one bf16 rounding")
+    for k in MODEL_SPREAD_LEAVES:
+        share = _within_rounding(got["train"]["leaves"][k],
+                                 base["train"]["leaves"][k])
+        if not share <= 1.0:
+            fail(f"phase 22 {label} rank {r}: θ's {k} after "
+                 f"{MODEL_SPREAD_TRAIN[2]} steps differs by {share:.3f} of "
+                 f"one bf16 rounding of its largest entry")
+    logit_shares = [_within_rounding(got["serve"]["last"],
+                                     base["serve"]["last"])]
+    logit_shares += [_within_rounding(a, b) for a, b in
+                     zip(got["serve"]["decode"], base["serve"]["decode"])]
+    if not max(logit_shares) <= 1.0:
+        fail(f"phase 22 {label} rank {r}: logits differ by "
+             f"{max(logit_shares):.3f} of one bf16 rounding of the largest "
+             f"(prefill's last position, then each decode step)")
+    layers = base["layers"]
+    want_flash = [layers] * (1 + MODEL_SPREAD_SERVE[2])
+    if got["train"]["launches"] != [1] * MODEL_SPREAD_TRAIN[2] \
+            or got["serve"]["flash"] != want_flash:
+        fail(f"phase 22 {label} rank {r}: fasgd_update launched "
+             f"{got['train']['launches']} (want once a step), "
+             f"flash_attention {got['serve']['flash']} (want {layers} a "
+             f"call)")
+    return max(logit_shares)
+
+
+def phase_model_spread(smi):
+    """Phase 22: tinyllama-1.1b's pod-sync step (a) and serving (b) over
+    two processes on `cuda:0`, meshes (2, 1) and (1, 2), against this
+    process's run on a (1, 1) mesh.  Returns the launches of
+    `fasgd_update` and `flash_attention` (both children's and this
+    process's)."""
+    import pickle
+    import shutil
+    import socket
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    cfg = model_spread_config(MODEL_SPREAD_DEPTH)
+    print(f"phase 22: {LM_ARCH} at full width, {cfg.num_layers} of 22 "
+          f"layers, bf16, over {MODEL_SPREAD_WORLD} processes on cuda:0 "
+          f"(gloo), meshes {MODEL_SPREAD_MESHES} (data, model)")
+    free_card()
+    out_dir = ROOT / "build" / "phase22"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    logs = [open(out_dir / f"rank{r}.log", "w")
+            for r in range(MODEL_SPREAD_WORLD)]
+    t_group = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), MODEL_SPREAD_FLAG,
+         str(r), str(port), str(out_dir), str(cfg.num_layers)],
+        stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(MODEL_SPREAD_WORLD)]
+    deadline = time.monotonic() + MODEL_SPREAD_TIMEOUT
+    base = None
+    try:
+        # the children start and wait; then this process's run, then
+        # theirs, each alone on the card and the host
+        while not all((out_dir / f"ready{r}").exists()
+                      for r in range(MODEL_SPREAD_WORLD)):
+            if (time.monotonic() > deadline
+                    or any(p.poll() is not None for p in procs)):
+                deadline = time.monotonic()     # kill the group below
+                break
+            time.sleep(0.05)
+        else:
+            dev = torch.device("cuda", 0)
+            base = model_spread_run(make_host_mesh(devices=[dev]), cfg, dev)
+            (out_dir / "go").touch()
+        for p in procs:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    group_secs = time.perf_counter() - t_group
+    if any(p.returncode != 0 for p in procs):
+        tails = "\n".join(f"--- rank {r}:\n"
+                          + (out_dir / f"rank{r}.log").read_text()[-4000:]
+                          for r in range(MODEL_SPREAD_WORLD))
+        fail(f"phase 22: children exited {[p.returncode for p in procs]} "
+             f"(killed after {MODEL_SPREAD_TIMEOUT} s if negative)\n{tails}")
+    ranks = []
+    for r in range(MODEL_SPREAD_WORLD):
+        with open(out_dir / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    B, S, n_steps = MODEL_SPREAD_TRAIN
+    Bs, P, gen = MODEL_SPREAD_SERVE
+    bt, bs = base["train"], base["serve"]
+    print(f"  the group: {MODEL_SPREAD_WORLD} processes, backend "
+          f"{ranks[0]['backend']}, {group_secs:.1f} s (start-up, this "
+          f"process's run while they wait, then theirs)")
+    print(f"  one process: (a) {n_steps} pod-sync steps at B = {B}, S = {S}"
+          f": losses {[m['loss'] for m in bt['metrics']]}, step "
+          f"{bt['secs'][-1]:.3f} s, state {gib(bt['state_bytes'])}, peak "
+          f"{gib(bt['peak'])}; (b) prefill {Bs} x {P} in "
+          f"{bs['prefill_s']:.3f} s ({Bs * P / bs['prefill_s']:.0f} "
+          f"tokens/s), decode {1e3 * min(bs['decode_s'][1:]):.2f} ms a step, "
+          f"weights {gib(bs['param_bytes'])} + cache "
+          f"{gib(bs['cache_bytes'])}, peak {gib(bs['peak'])}")
+    n_fasgd = sum(bt["launches"])
+    n_flash = sum(bs["flash"])
+    worst = 0.0
+    for mesh in MODEL_SPREAD_MESHES:
+        label = f"({mesh[0]}, {mesh[1]})"
+        for r, res in enumerate(ranks):
+            if res["imported"]:
+                fail(f"phase 22: rank {r} imported {res['imported']}")
+            got = res[mesh]
+            worst = max(worst, model_spread_check(label, got, base, r))
+            n_fasgd += sum(got["train"]["launches"])
+            n_flash += sum(got["serve"]["flash"])
+            gt, gs = got["train"], got["serve"]
+            print(f"  {label} rank {r}: (a) losses "
+                  f"{[m['loss'] for m in gt['metrics']]}, step "
+                  f"{gt['secs'][-1]:.3f} s ({gt['secs'][-1] / bt['secs'][-1]:.1f}x "
+                  f"one process), state {gib(gt['state_bytes'])} "
+                  f"({gt['state_bytes'] / bt['state_bytes']:.3f} of one "
+                  f"process's), peak {gib(gt['peak'])}, fasgd_update "
+                  f"{gt['launches']}, collectives a step {gt['comm']}; (b) "
+                  f"prefill {gs['prefill_s']:.3f} s, decode "
+                  f"{1e3 * min(gs['decode_s'][1:]):.2f} ms a step (one "
+                  f"process {1e3 * min(bs['decode_s'][1:]):.2f}), weights "
+                  f"{gib(gs['param_bytes'])} + cache "
+                  f"{gib(gs['cache_bytes'])}, peak {gib(gs['peak'])}, "
+                  f"flash_attention {gs['flash'][0]} + "
+                  f"{gs['flash'][1]} a step, collectives a decode step "
+                  f"{gs['comm']}")
+        print(f"  {label}: both ranks within one bf16 rounding of one "
+              f"process (loss, mean_scale, θ's {', '.join(MODEL_SPREAD_LEAVES)}"
+              f", logits); the mesh's run {ranks[0][mesh]['secs']:.1f} s")
+    print(f"  worst logits share of one bf16 rounding: {worst:.3f}; "
+          f"phase 22 took {time.perf_counter() - t0:.1f} s on {smi}")
+    return n_fasgd, n_flash
+
+
 def main() -> int:
     """Run the phases in order; 0 when every one passed."""
     import torch
@@ -5506,6 +5882,8 @@ def main() -> int:
     n_fasgd20, n_fused20 = phase_launcher(dev, smi)
     # --- phase 21: the server spread over processes ---
     n_fasgd21, n_fused21 = phase_spread_server(ds, params, smi, K)
+    # --- phase 22: the model's placement over processes ---
+    n_fasgd22, n_flash22 = phase_model_spread(smi)
 
     kernels = [
         dict(name="fasgd_update", route="cuda",
@@ -5513,7 +5891,7 @@ def main() -> int:
              replaces="src/repro/kernels/fasgd_update.py:50",
              launches=n_serial + n_gated + n_fasgd12 + n_fasgd13
              + n_fasgd14 + n_fasgd15 + n_fasgd16 + n_fasgd17 + n_fasgd18
-             + n_fasgd19 + n_fasgd20 + n_fasgd21,
+             + n_fasgd19 + n_fasgd20 + n_fasgd21 + n_fasgd22,
              max_abs_err=errs["fasgd_update"], ms=fu_ms, plain_ms=fu_plain,
              bound_ms=fu_bound,
              bound_by="bytes" if fu_bytes / bw >= fu_ops / flops
@@ -5530,7 +5908,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:98",
              launches=serving["launches"] + n_flash16 + n_flash17
-             + n_flash18,
+             + n_flash18 + n_flash22,
              max_abs_err=attn_err,
              **attn_times),
         batched,
@@ -5546,5 +5924,9 @@ if __name__ == "__main__":
     if len(sys.argv) == 6 and sys.argv[1] == SPREAD_FLAG:
         spread_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                      int(sys.argv[5]))
+        sys.exit(0)
+    if len(sys.argv) == 6 and sys.argv[1] == MODEL_SPREAD_FLAG:
+        model_spread_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                           int(sys.argv[5]))
         sys.exit(0)
     sys.exit(main())

@@ -36,10 +36,13 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import server_shard
+from repro_torch.sharding.rules import gather, local_index
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.trees import unflatten
+from repro_torch.utils.trees import leaves, unflatten
 
 
 def _flatten_with_paths(tree, prefix: Tuple[str, ...] = ()
@@ -132,7 +135,14 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
                     extra: Optional[dict] = None) -> str:
     """Save `tree` under ``<ckpt_dir>/step_<step>/``, atomically (a
     ``.tmp`` directory renamed over any earlier one).  Returns the step's
-    directory."""
+    directory.  A tree placed over processes (DTensor leaves) is gathered
+    once, every process taking part, and rank 0 alone writes the
+    reference's file."""
+    if any(isinstance(leaf, DTensor) for leaf in leaves(tree)):
+        tree = gather(tree)
+        final = os.path.join(ckpt_dir, f"step_{step}")
+        if dist.get_rank() != 0:
+            return final
     flat = _flatten_with_paths(tree)
     host = [_to_host(leaf) for _, leaf in flat]
     dtypes = [_dtype_name(torch.as_tensor(leaf).dtype) for _, leaf in flat]
@@ -172,7 +182,10 @@ def restore_checkpoint(ckpt_dir: str, template: Any,
     `ValueError`; each leaf comes back in its template leaf's dtype, on the
     template leaf's device (a meta template's on `device`, the card unless
     the caller passes another).  `step` defaults to the latest.  A sharded
-    template is refused: restore the unsharded state, then place it.
+    template is refused: restore the unsharded state, then place it.  A
+    template placed over processes (DTensor leaves) reads the file on
+    every process and keeps each leaf's shard by the template's
+    placements.
     """
     if step is None:
         step = latest_step(ckpt_dir)
@@ -201,6 +214,14 @@ def restore_checkpoint(ckpt_dir: str, template: Any,
             if list(a.shape) != list(t.shape):
                 raise ValueError(
                     f"{e['path']}: shape {a.shape} != template {t.shape}")
+            if isinstance(t, DTensor):
+                whole = _from_host(a, e["dtype"], t.dtype, "cpu")
+                out.append(DTensor.from_local(
+                    whole[local_index(whole.shape, t.placements,
+                                        t.device_mesh)].to(t.device),
+                    t.device_mesh, t.placements, run_check=False,
+                    shape=t.shape, stride=t.stride()))
+                continue
             dev = t.device if t.device.type != "meta" else resolve_device(
                 device)
             out.append(_from_host(a, e["dtype"], t.dtype, dev))

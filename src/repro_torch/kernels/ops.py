@@ -11,6 +11,15 @@ Ported from `repro.kernels.ops`.  Dispatch is by the tensors' device:
   route, an op of its own (`torch.ops.repro_torch.flash_attention`) that
   `launch.analysis` counts as the kernel's useful work (`flash_flops`).
 
+Over processes (a mesh of `launch.mesh.init_distributed_host_mesh`) the
+model's tensors are DTensors (`sharding.rules`).  A kernel never receives
+one: `fasgd_update` and `attention` bring a DTensor's operands to
+matching placements and run on each process's local shards, then wrap
+the outputs back (`_spread_fasgd_update`, `_spread_attention`); the
+CPU's plain versions run on the same local shards.  A DTensor that
+reaches a kernel's launch (`_fasgd_update_cuda`, `_attention_cuda`)
+raises: it would be read as an empty wrapper, not as its shard.
+
 There is no switch and no fallback.  The server-update kernels take each
 leaf flat and contiguous and mask its tail, so unlike the TPU wrappers there
 is no padding to (R, 128) tiles; the attention kernel takes each tensor's
@@ -42,6 +51,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import build, ref
 from repro_torch.utils.trees import leaves, same_structure, unflatten
@@ -106,6 +116,15 @@ def _scalar_f32(x, device) -> torch.Tensor:
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _refuse_dtensors(name, ts) -> None:
+    """A kernel takes raw pointers: a DTensor (a wrapper whose storage is
+    not its shard's) must not reach its launch."""
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError(f"a DTensor reached the {name} kernel's launch; "
+                        f"ops.{name} runs the kernel on each process's "
+                        f"local shards")
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -181,6 +200,7 @@ def _fasgd_update_cuda(ps, gs, ns, bs, vs, lr, tau, gamma, beta, eps,
                        variant):
     """Launch the tree kernel over the leaves `ps`...; returns one
     (θ', n', b', v') per leaf."""
+    _refuse_dtensors("fasgd_update", [*ps, *gs, *ns, *bs, *vs, tau])
     dev = ps[0].device
     for p, g, n, b, v in zip(ps, gs, ns, bs, vs):
         if p.dtype not in _DTYPE_CODE:
@@ -256,6 +276,10 @@ def fasgd_update(params: Any, grads: Any, n: Any, b: Any, v: Any, lr, tau,
     ps = leaves(params)
     if not ps:
         return _unzip(params, [])
+    if isinstance(ps[0], DTensor):
+        return _spread_fasgd_update(params, grads, n, b, v, lr, tau,
+                                    gamma=gamma, beta=beta, eps=eps,
+                                    variant=variant)
     trees = (ps, leaves(grads), leaves(n), leaves(b), leaves(v))
     if _tree_kind(ps) == "cpu":
         outs = [fasgd_update_leaf(p, g, nn, bb, vv, lr, tau, gamma=gamma,
@@ -265,6 +289,32 @@ def fasgd_update(params: Any, grads: Any, n: Any, b: Any, v: Any, lr, tau,
         LAUNCHES["fasgd_update"] += len(ps)
         outs = _fasgd_update_cuda(*trees, lr, tau, gamma, beta, eps, variant)
     return _unzip(params, outs)
+
+
+def _spread_fasgd_update(params, grads, n, b, v, lr, tau, **kw):
+    """`fasgd_update` over DTensor leaves: g, n, b and v are brought to
+    θ's placements (`sharding.rules.redistribute`), the update runs on
+    this process's local shards (one launch on the card for the tree, as
+    in one process), and θ', n', b', v' come back as DTensors with θ's
+    placements.  τ is a replicated scalar."""
+    from repro_torch.sharding.rules import redistribute
+    ps = leaves(params)
+    pls = [p.placements for p in ps]
+
+    def local(tree):
+        return unflatten(params, [
+            redistribute(t, pl).to_local().contiguous()
+            for t, pl in zip(leaves(tree), pls)])
+
+    if isinstance(tau, DTensor):
+        tau = redistribute(tau, [Replicate()] * tau.device_mesh.ndim) \
+            .to_local()
+    outs = fasgd_update(local(params), local(grads), local(n), local(b),
+                        local(v), lr, tau, **kw)
+    wrap = lambda t, p: DTensor.from_local(t, p.device_mesh, p.placements,
+                                           run_check=False)
+    return tuple(unflatten(params, [wrap(t, p) for t, p in
+                                    zip(leaves(out), ps)]) for out in outs)
 
 
 # The most events `csrc/batched_update.cu` and `csrc/fused_event_apply.cu`
@@ -596,6 +646,7 @@ _DECODE_MAX_SPLITS = 32
 
 
 def _attention_cuda(q, k, v, causal, window, sm_scale):
+    _refuse_dtensors("attention", (q, k, v))
     B, Hq, Lq, D = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != D:
@@ -666,6 +717,9 @@ def attention(q, k, v, *, causal=True, window=0, sm_scale=None):
     transformed by `torch.func` raises `RuntimeError`.  On the meta device
     it returns an empty output of q's shape (the shape-only route).
     """
+    if isinstance(q, DTensor):
+        return _spread_attention(q, k, v, causal=causal, window=window,
+                                 sm_scale=sm_scale)
     if q.device.type == "meta":
         return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal),
                                                      int(window))
@@ -679,3 +733,57 @@ def attention(q, k, v, *, causal=True, window=0, sm_scale=None):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  sm_scale=sm_scale)
     return _attention_cuda(q, k, v, causal, window, sm_scale)
+
+
+def head_split(Hq: int, Hkv: int, m: int) -> str:
+    """How attention's heads split over a 'model' axis of size m: 'kv'
+    (q and kv heads both in m contiguous groups), 'q' (q heads in m
+    groups, each inside one kv head's group, the kv heads replicated and
+    each process taking the one its q heads read), or 'none' (heads whole
+    on every process)."""
+    if m <= 1 or Hq % m:
+        return "none"
+    if Hkv % m == 0:
+        return "kv"
+    return "q" if m % Hkv == 0 else "none"
+
+
+def _spread_attention(q, k, v, *, causal, window, sm_scale):
+    """`attention` over DTensors q [B, Hq, Lq, D], k/v [B, Hkv, Lk, D]:
+    batch over the mesh's 'data' axis (where B divides), heads over
+    'model' (`head_split`), k/v whole along the sequence.  q, k, v are
+    redistributed to that layout (a head_dim-sharded cache goes to
+    heads by an all-to-all), the kernel (its plain version on the CPU)
+    runs once on this process's local shards, and the output is a DTensor
+    with q's new placements."""
+    from repro_torch.sharding.rules import redistribute
+    dm = q.device_mesh
+    names = dm.mesh_dim_names
+    B, Hq = q.shape[:2]
+    Hkv = k.shape[1]
+    m = dm.size(names.index("model")) if "model" in names else 1
+    split = head_split(Hq, Hkv, m)
+    q_pl, kv_pl = [], []
+    for axis, name in enumerate(names):
+        n = dm.size(axis)
+        if name in ("data", "pod") and B % n == 0:
+            q_pl.append(Shard(0))
+            kv_pl.append(Shard(0))
+        elif name == "model" and split != "none":
+            q_pl.append(Shard(1))
+            kv_pl.append(Shard(1) if split == "kv" else Replicate())
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+    q = redistribute(q, q_pl)
+    ql = q.to_local()
+    kl = redistribute(k, kv_pl).to_local()
+    vl = redistribute(v, kv_pl).to_local()
+    if split == "q":
+        # this process's q heads lie inside one kv head's group
+        c = dm.get_local_rank(names.index("model"))
+        h = c * (Hq // m) // (Hq // Hkv)
+        kl, vl = kl[:, h:h + 1], vl[:, h:h + 1]
+    o = attention(ql, kl, vl, causal=causal, window=window,
+                  sm_scale=sm_scale)
+    return DTensor.from_local(o, dm, q_pl, run_check=False)

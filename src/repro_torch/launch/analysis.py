@@ -24,11 +24,14 @@ rates (`launch.mesh.card_rates`, the H100 SXM where no card is present):
 
   compute term    = flops per device / peak bf16 FLOP/s
   memory term     = hbm_bytes per device / memory bytes/s
-  collective term = 0: the model's step runs in one process, so it has
-                    no collectives to count (the reference parses them out
-                    of XLA's HLO text, which the port never produces;
-                    placing the step over processes is ROADMAP queue 1,
-                    item 10).
+  collective term = 0: the counting pass runs the step in one process,
+                    which has no collectives to count (the reference
+                    parses them out of XLA's HLO text, which the port
+                    never produces).  Over a mesh of processes the step's
+                    collectives are DTensor's, counted on a live group by
+                    `CommDebugMode` (`chip_smoke.py` phase 22); counting
+                    them at the production mesh's sizes here is ROADMAP
+                    queue 1, item 10c.
 
 Per-device memory is reckoned from the `sharding.rules` specs: each
 argument leaf's bytes over the sizes of the mesh axes in its spec, plus an
@@ -66,8 +69,8 @@ DEFINITIONS = {
                       "plus temp_bytes, an estimate",
     "temp_bytes": "estimate: high-water mark of the bytes made and alive at "
                   "once during the pass, over the batch axes' size",
-    "collectives": "not reckoned until ROADMAP queue 1, item 10: "
-                   "coll_bytes 0, collective_s 0",
+    "collectives": "not reckoned at the production mesh (ROADMAP queue "
+                   "1, item 10c): coll_bytes 0, collective_s 0",
 }
 
 

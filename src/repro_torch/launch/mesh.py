@@ -11,6 +11,15 @@ the port's counterpart of the reference's simulated host devices
 (``--xla_force_host_platform_device_count``).  A mesh over several
 processes also records which process (its rank in the
 `torch.distributed` group) holds each entry.
+
+A model's ("data", "model") mesh spread over processes, one entry a
+process (`init_distributed_host_mesh`), is also a
+`torch.distributed.device_mesh.DeviceMesh` over those ranks in the same
+order (`device_mesh`): the mesh that `sharding.rules` places DTensors on.
+The group is NCCL's where every process holds a card of its own and
+gloo's otherwise (on the CPU, and where processes share a card, which
+NCCL refuses); over gloo on the card DTensor's collectives run through
+`sharding.gloo`.
 """
 from __future__ import annotations
 
@@ -121,15 +130,20 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh(_grid([torch.device("meta")] * n, shape), axes)
 
 
-def make_host_mesh(data: int = 1, model: int = 1, devices=None) -> Mesh:
+def make_host_mesh(data: int = 1, model: int = 1, devices=None,
+                   ranks=None) -> Mesh:
     """A ("data", "model") mesh over the devices there are (the cards,
     else the CPU), each axis clamped to them as in the reference; an
-    explicit `devices` list may repeat a device."""
+    explicit `devices` list may repeat a device, and `ranks` gives the
+    process holding each entry of a global list (the mesh takes as many
+    of them as of the devices, in the same order)."""
     devices = _distinct_devices() if devices is None else list(devices)
     n = len(devices)
     data = min(data, n)
     model = min(model, max(n // data, 1))
-    return Mesh(_grid(devices, (data, model)), ("data", "model"))
+    shape = (data, model)
+    return Mesh(_grid(devices, shape), ("data", "model"),
+                None if ranks is None else _grid(list(ranks), shape))
 
 
 def make_server_mesh(server: int = 1, data: int = 1, devices=None,
@@ -185,10 +199,95 @@ def init_distributed_mesh(server: int = 1, *, coordinator_address=None,
         dist.init_process_group(
             "gloo", init_method=f"tcp://{coordinator_address}",
             world_size=num_processes, rank=process_id)
+    everyone, ranks = _gather_devices(devices)
+    return make_server_mesh(server=server, devices=everyone, ranks=ranks)
+
+
+def _gather_devices(devices):
+    """Every process's devices (default: `_local_devices`), gathered in
+    rank order, and the rank of each entry."""
     mine = (_local_devices(dist.get_rank()) if devices is None
             else list(devices))
     shares = [None] * dist.get_world_size()
     dist.all_gather_object(shares, [str(d) for d in mine])
     everyone = [torch.device(d) for share in shares for d in share]
     ranks = [r for r, share in enumerate(shares) for _ in share]
-    return make_server_mesh(server=server, devices=everyone, ranks=ranks)
+    return everyone, ranks
+
+
+def group_backend(num_processes: int) -> str:
+    """The backend of a group of `num_processes` processes on this host:
+    'nccl' where each takes a card of its own (card ``rank``), else
+    'gloo' (the CPU, or processes sharing cards)."""
+    if torch.cuda.is_available() and \
+            torch.cuda.device_count() >= num_processes:
+        return "nccl"
+    return "gloo"
+
+
+def init_distributed_host_mesh(data=None, model: int = 1, *,
+                               coordinator_address=None, num_processes=None,
+                               process_id=None, devices=None) -> Mesh:
+    """The reference's ``make_host_mesh`` over every process of a group:
+    a ("data", "model") mesh with one entry a process, ``data`` ×
+    ``model`` = the group's size (``data`` defaults to size / model).
+
+    Every process calls this with the same arguments.  With a
+    `coordinator_address` (``host:port``) the process joins a group of
+    `num_processes` as rank `process_id` first (`group_backend`), unless a
+    group is already initialized, which it keeps.  Each process
+    contributes one device (default: `_local_devices`, card ``rank %
+    device_count``, else the CPU).  Without a coordinator or a group it is
+    `make_host_mesh` of this process alone."""
+    if coordinator_address is None and not dist.is_initialized():
+        return make_host_mesh(data or 1, model, devices=devices)
+    if not dist.is_initialized():
+        backend = group_backend(num_processes)
+        if backend == "nccl":
+            torch.cuda.set_device(process_id % torch.cuda.device_count())
+        dist.init_process_group(
+            backend, init_method=f"tcp://{coordinator_address}",
+            world_size=num_processes, rank=process_id)
+    everyone, ranks = _gather_devices(devices)
+    if len(everyone) != dist.get_world_size():
+        raise ValueError(f"{len(everyone)} devices for "
+                         f"{dist.get_world_size()} processes: a host mesh "
+                         f"takes one device a process")
+    world = len(everyone)
+    data = world // model if data is None else data
+    if data * model != world:
+        raise ValueError(f"a ({data}, {model}) mesh over {world} processes")
+    return make_host_mesh(data, model, devices=everyone, ranks=ranks)
+
+
+def is_spread(mesh) -> bool:
+    """Whether `mesh` spans more than one process."""
+    ranks = getattr(mesh, "ranks", None)
+    return ranks is not None and len(set(ranks.flat)) > 1
+
+
+def local_device(mesh) -> torch.device:
+    """The device of this process's entry of a spread mesh."""
+    return mesh.devices[tuple(np.argwhere(mesh.ranks == dist.get_rank())[0])]
+
+
+def device_mesh(mesh):
+    """The `DeviceMesh` of a spread mesh, over its ranks in its order and
+    with its axis names, made once a mesh (every process makes it, in the
+    same order: it forms the axes' subgroups).  Each entry must be a
+    process of its own.  Over gloo on the card it installs
+    `sharding.gloo`'s collectives."""
+    dm = getattr(mesh, "_device_mesh", None)
+    if dm is not None:
+        return dm
+    if not is_spread(mesh) or len(set(mesh.ranks.flat)) != mesh.ranks.size:
+        raise ValueError("a DeviceMesh needs a mesh of one entry a process")
+    from torch.distributed.device_mesh import DeviceMesh
+    kind = local_device(mesh).type
+    if kind == "cuda" and dist.get_backend() == "gloo":
+        from repro_torch.sharding import gloo
+        gloo.install()
+    dm = DeviceMesh(kind, torch.as_tensor(mesh.ranks),
+                    mesh_dim_names=mesh.axis_names)
+    mesh._device_mesh = dm
+    return dm

@@ -33,19 +33,33 @@ tokens/s.  An encoder (hubert-xlarge) has no decode step and is refused,
 as the reference refuses it; `models.serving.encode` is its inference
 entry point.  `serve` is the loop itself, for callers that bring their
 own weights and prompts.
+
+Started by ``torchrun`` (or under ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``) it joins that group as `launch.train`
+does: a ``(data=world, model=1)`` mesh, the weights placed by
+`param_shardings`, the prompts by `batch_shardings` and the cache by
+`cache_shardings`, each process holding its shards; the dense family
+only (ROADMAP queue 1, item 10b).  `serve` takes weights placed so under
+a `sharding.rules.mesh_context` of their mesh.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import time
 
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import is_spread, make_host_mesh
+from repro_torch.launch.train import SPREAD_REFUSAL, group_mesh
 from repro_torch.models.api import make_batch, param_count
 from repro_torch.models.serving import decode_step, grow_cache, prefill
 from repro_torch.models.transformer import init_model
+from repro_torch.sharding.rules import (batch_shardings, gather,
+                                        get_mesh_context, mesh_context,
+                                        param_shardings, place)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.trees import leaves
 
@@ -76,7 +90,11 @@ def serve(cfg: ModelConfig, params, tokens, gen: int, *,
     decode steps follow (the first token comes from the prefill's logits).
     Sampling draws from a generator seeded with `seed` on `device`.  Runs on
     `device` (the card unless the caller passes another), where `params`
-    must already be.  Returns a dict: ``tokens`` [B, gen] (the generated
+    must already be.  Under a mesh context spread over processes the
+    weights are placed DTensors (`sharding.rules.place`): the prompt and
+    each next token are placed by `batch_shardings`, the cache by
+    `cache_shardings`, and every process draws the same tokens from the
+    gathered logits.  Returns a dict: ``tokens`` [B, gen] (the generated
     tokens), ``prefill_logits`` [B, S, V], ``last_logits`` [B, 1, V] (those
     the last token was chosen from), ``prefill_s`` and ``decode_s`` (host
     clock, ending in a device synchronise).
@@ -96,13 +114,18 @@ def serve(cfg: ModelConfig, params, tokens, gen: int, *,
     batch = {"tokens": tokens.to(device)}
     if image_embeds is not None:
         batch["image_embeds"] = image_embeds.to(device)
+    mesh = get_mesh_context()
+    if mesh is None or not is_spread(mesh):
+        placed = lambda b: b
+    else:
+        placed = lambda b: place(b, batch_shardings(b, mesh))
     generator = torch.Generator(device=device).manual_seed(seed)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, cfg, batch)
+    logits, cache = prefill(params, cfg, placed(batch))
     S = logits.shape[1]
-    tok = _next_token(logits, temperature, generator)
+    tok = _next_token(gather(logits[:, -1:]), temperature, generator)
     _sync(device)
     prefill_s = time.perf_counter() - t0
 
@@ -111,8 +134,9 @@ def serve(cfg: ModelConfig, params, tokens, gen: int, *,
     _sync(device)
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        last, cache = decode_step(params, cfg, tok, cache, S + i)
-        tok = _next_token(last, temperature, generator)
+        last, cache = decode_step(params, cfg, placed({"t": tok})["t"],
+                                  cache, S + i)
+        tok = _next_token(gather(last), temperature, generator)
         out.append(tok)
     _sync(device)
     decode_s = time.perf_counter() - t0
@@ -139,16 +163,28 @@ def main(argv=None):
     if not cfg.supports_decode():
         ap.error(f"{cfg.name} is encoder-only: it has no decode step")
     device = resolve_device(args.device)
+    spread = group_mesh(device)
+    if spread is not None and cfg.arch_type != "dense":
+        ap.error(SPREAD_REFUSAL)
+    if spread is not None:
+        device = spread.devices.flat[spread.ranks.flatten().tolist().index(
+            torch.distributed.get_rank())]
+    mesh = spread or make_host_mesh(data=1, devices=[device])
     params = init_model(torch.Generator(device=device).manual_seed(args.seed),
                         cfg, device=device)
     B, S = args.batch, args.prompt_len
     print(f"[serve] {cfg.name}: {param_count(params):,} params, "
-          f"batch={B} prompt={S} gen={args.gen} on {device}")
+          f"batch={B} prompt={S} gen={args.gen} on {device}"
+          + (f", mesh={collections.OrderedDict(mesh.shape)}"
+             if spread is not None else ""))
+    if spread is not None:
+        params = place(params, param_shardings(params, mesh))
     batch = make_batch(cfg, B, S, torch.Generator(device=device).manual_seed(
         args.seed + 1))
-    res = serve(cfg, params, batch["tokens"], args.gen,
-                temperature=args.temperature, seed=args.seed + 2,
-                device=device, image_embeds=batch.get("image_embeds"))
+    with mesh_context(mesh):
+        res = serve(cfg, params, batch["tokens"], args.gen,
+                    temperature=args.temperature, seed=args.seed + 2,
+                    device=device, image_embeds=batch.get("image_embeds"))
     print(f"  prefill: {B * S} tokens in {res['prefill_s']:.3f}s "
           f"({B * S / res['prefill_s']:.0f} tok/s)")
     n_dec = B * (args.gen - 1)

@@ -16,17 +16,22 @@ launcher:
    case);
  - `make_prefill_step(cfg)` / `make_decode_step(cfg)`: the serving steps;
  - `shardings_for(cfg, shape, mesh)`: a step function, its abstract
-   arguments and their `sharding.rules` shardings.
+   arguments and their `sharding.rules` shardings;
+ - `place_args(fn, shardings)`: the port's ``jax.jit(fn,
+   in_shardings=shardings)``: each argument placed by its sharding, then
+   the step as it is, under the shardings' mesh context.
 
 Token tensors are int64, the port's index type (the reference's are
-int32).  One process has no partitioner: the shardings are reckoned, not
-applied (`sharding.rules`).
+int32).  In one process the shardings are reckoned, not applied; over a
+mesh spread over processes `place_args` places every leaf as a DTensor
+holding this process's shard (`sharding.rules.place`).
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import (INPUT_SHAPES, InputShape, ModelConfig,
                                       TrainerConfig)
@@ -36,7 +41,8 @@ from repro_torch.models.serving import decode_step, init_cache, prefill
 from repro_torch.models.transformer import forward, init_model, loss_fn
 from repro_torch.sharding import (batch_shardings, cache_shardings,
                                   param_shardings, state_shardings)
-from repro_torch.sharding.rules import NamedSharding, PartitionSpec
+from repro_torch.sharding.rules import (NamedSharding, PartitionSpec, gather,
+                                        mesh_context, place, redistribute)
 from repro_torch.utils.trees import leaves, tree_map, unflatten
 
 
@@ -67,12 +73,15 @@ def abstract_server_state(cfg: ModelConfig, tc: TrainerConfig) -> ServerState:
 
 def server_config(tc: TrainerConfig) -> ServerConfig:
     """Project the trainer config onto the engine's `ServerConfig`, as the
-    reference's launch layer does (no kernel flag: the pod-sync step
-    updates with the plain rule)."""
+    reference's launch layer does, and carry `tc.use_fused_kernel`: the
+    pod-sync step then updates through `kernels.ops.fasgd_update` (the
+    reference's step updates with the plain rule, which it computes to
+    float32 rounding)."""
     return ServerConfig(
         rule=tc.rule, lr=tc.lr, gamma=tc.gamma, beta=tc.beta, eps=tc.eps,
         kappa=tc.kappa, poly_power=tc.poly_power,
         variant=tc.variant, num_clients=tc.num_round_clients,
+        use_fused_kernel=tc.use_fused_kernel,
     )
 
 
@@ -138,7 +147,12 @@ def make_train_step(cfg: ModelConfig, tc: TrainerConfig):
     a parameter the loss does not reach gets zeros, as under JAX), cast to
     `tc.stats_dtype` when that is not float32, then
     `core.rules.apply_update` at the state's own timestamp.  With
-    ``cfg.remat`` each layer is recomputed in the backward."""
+    ``cfg.remat`` each layer is recomputed in the backward.
+
+    Over processes (a state placed by `place_args`) each gradient leaf is
+    brought to its parameter's placements before the update
+    (`sharding.rules.redistribute`), and the metrics come back whole, the
+    same on every process."""
     scfg = server_config(tc)
 
     def train_step(state: ServerState, batch):
@@ -146,17 +160,20 @@ def make_train_step(cfg: ModelConfig, tc: TrainerConfig):
                           state.params)
         loss, metrics = loss_fn(params, cfg, batch)
         flat = leaves(params)
-        grads = unflatten(state.params, torch.autograd.grad(
-            loss, flat, allow_unused=True, materialize_grads=True))
+        grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                    materialize_grads=True)
+        grads = unflatten(state.params, [
+            redistribute(g, p.placements) if isinstance(p, DTensor) else g
+            for g, p in zip(grads, flat)])
         if tc.stats_dtype != "float32":
             dt = getattr(torch, tc.stats_dtype)
             grads = tree_map(lambda g: g.to(dt), grads)
         with torch.no_grad():
             new_state, aux = server_rules.apply_update(
                 scfg, state, grads, state.timestamp)
-        out = {"loss": loss.detach(), "ce": metrics["ce"].detach(),
-               "moe_aux": metrics["moe_aux"].detach(), "tau": aux["tau"],
-               "mean_scale": aux["mean_scale"]}
+        out = gather({"loss": loss.detach(), "ce": metrics["ce"].detach(),
+                      "moe_aux": metrics["moe_aux"].detach(),
+                      "tau": aux["tau"], "mean_scale": aux["mean_scale"]})
         return new_state, out
 
     return train_step
@@ -219,3 +236,22 @@ def shardings_for(cfg: ModelConfig, shape: InputShape | str, mesh,
     shard = (pshard, batch_shardings(specs["token"], mesh, seq_dim=None),
              cache_shardings(specs["cache"], mesh), repl)
     return make_decode_step(cfg), args, shard
+
+
+def place_args(fn, shardings):
+    """The port's ``jax.jit(fn, in_shardings=shardings)``: a step that
+    places each argument by its sharding (`sharding.rules.place`: over a
+    mesh spread over processes, only this process's shard of each leaf;
+    an argument already placed so is kept) and runs `fn` on them as it is,
+    under the shardings' mesh context (`mesh_context`), where the model's
+    `constrain` sites act.  ``shardings_for(...)``'s third element is
+    such a tuple."""
+    mesh = next(s for s in leaves(list(shardings))
+                if isinstance(s, NamedSharding)).mesh
+
+    def step(*args):
+        placed = [place(a, s) for a, s in zip(args, shardings)]
+        with mesh_context(mesh):
+            return fn(*placed)
+
+    return step

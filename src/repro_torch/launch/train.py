@@ -20,6 +20,16 @@ Modes:
 
 It runs on the card unless given ``--device cpu`` (use ``--smoke`` there,
 the reduced configuration; the kernels then take their plain versions).
+
+Started by ``torchrun`` (or with ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
+and ``MASTER_PORT`` set otherwise) it joins that group
+(`launch.mesh.init_distributed_host_mesh`), as the reference's launcher
+takes every device of its process group: the mesh is then ``(data=world,
+model=1)``, the state and each batch are placed by the reference's
+shardings (`launch.steps.place_args`) and every process holds its shard
+of each leaf.  Over more than one process only the pod-sync step of the
+dense family runs; the other families and ``--clients > 0`` are refused
+(ROADMAP queue 1, item 10b).
 Weights are random, from ``--seed``.  Round r's gates are
 ``native_round_draws(...).round(r)``, keyed by the step, and its batch a
 function of the step alone, so a run resumed from ``--ckpt-dir`` replays
@@ -31,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import os
 import time
 
 import torch
@@ -47,11 +58,15 @@ from repro_torch.core.round_trainer import (
     shard_round_state)
 from repro_torch.data.tokens import TokenDataConfig
 from repro_torch.data.tokens import make_batch as make_token_batch
-from repro_torch.launch.mesh import make_host_mesh, make_server_mesh
-from repro_torch.launch.steps import make_train_step, server_config
+from repro_torch.launch.mesh import (init_distributed_host_mesh,
+                                     make_host_mesh, make_server_mesh)
+from repro_torch.launch.steps import (abstract_server_state, batch_struct,
+                                      make_train_step, place_args,
+                                      server_config)
 from repro_torch.models.api import make_batch, make_dict_grad_fn, param_count
 from repro_torch.models.lm import make_lm_loss
 from repro_torch.models.transformer import init_model
+from repro_torch.sharding.rules import batch_shardings, place, state_shardings
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.trees import leaves
 
@@ -73,6 +88,29 @@ def batch_for_step(cfg, B, S, step, device=None):
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+SPREAD_REFUSAL = ("over more than one process the port runs the dense "
+                  "family's pod-sync step and serving only (ROADMAP queue "
+                  "1, item 10b)")
+
+
+def group_mesh(device):
+    """The host mesh of the group the environment names (torchrun's
+    ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``): ``(data=
+    world, model=1)`` over its processes, each on `device` (its card
+    there, ``rank % device_count``); without them, or for one process,
+    None."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or "RANK" not in os.environ:
+        return None
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ["RANK"])
+                              % torch.cuda.device_count())
+    return init_distributed_host_mesh(
+        world, 1, coordinator_address=f"{os.environ['MASTER_ADDR']}:"
+        f"{os.environ['MASTER_PORT']}", num_processes=world,
+        process_id=int(os.environ["RANK"]), devices=[device])
 
 
 def main(argv=None):
@@ -180,8 +218,15 @@ def main(argv=None):
         kernel_block_rows=args.kernel_block_rows,
         seed=args.seed,
     )
-    # one process on one device: the mesh is (1, 1)
-    mesh = make_host_mesh(data=1, devices=[device])
+    spread = group_mesh(device)
+    if spread is not None and (cfg.arch_type != "dense"
+                               or args.clients > 0):
+        ap.error(SPREAD_REFUSAL)
+    # one process on one device: the mesh is (1, 1); a group: (world, 1)
+    mesh = spread or make_host_mesh(data=1, devices=[device])
+    if spread is not None:
+        device = spread.devices.flat[spread.ranks.flatten().tolist().index(
+            torch.distributed.get_rank())]
 
     params = init_model(torch.Generator(device=device).manual_seed(args.seed),
                         cfg, device=device)
@@ -291,9 +336,19 @@ def main(argv=None):
                   f"/{C} over {rounds} rounds")
     else:
         scfg = server_config(tc)
+        train_step = make_train_step(cfg, tc)
+        if spread is not None:
+            # each process keeps its shard of θ, then makes n, b, v and T
+            # of its shard alone; each batch is placed by the same rule
+            shardings = (state_shardings(abstract_server_state(cfg, tc),
+                                         mesh),
+                         batch_shardings(batch_struct(
+                             cfg, args.batch, args.seq, with_targets=True),
+                             mesh))
+            params = place(params, shardings[0].params)
+            train_step = place_args(train_step, shardings)
         state = server_rules.init(scfg, params)
         del params
-        train_step = make_train_step(cfg, tc)
         _sync(device)
         t0 = time.time()
         for step in range(args.steps):

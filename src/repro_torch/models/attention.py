@@ -40,6 +40,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (delta_einsum, dense_init, dget,
                                        rms_norm, rope)
+from repro_torch.sharding.rules import batch_only, constrain, write_rows
 from repro_torch.utils.trees import tree_map
 
 NEG_INF = -1e30
@@ -88,6 +89,7 @@ def _sdpa(q, k, v, *, causal, window, q_offset=0, chunk=512):
     Sk, Kv = k.shape[1], k.shape[2]
     group = H // Kv
     scale = 1.0 / (hd ** 0.5)
+    q, k, v = batch_only(q), batch_only(k), batch_only(v)
     qh = q.reshape(B, S, Kv, group, hd)
     k32, v32 = k.float(), v.float()
     kpos = torch.arange(Sk, device=q.device)[None, :]
@@ -95,6 +97,7 @@ def _sdpa(q, k, v, *, causal, window, q_offset=0, chunk=512):
     def block(q_blk, q_start):
         c = q_blk.shape[1]
         s = torch.einsum("bckgh,bskh->bckgs", q_blk.float(), k32) * scale
+        s = constrain(s, "attn")   # batch → data, q chunk → model
         qpos = (q_start + q_offset
                 + torch.arange(c, device=q.device)[:, None])
         mask = torch.ones((c, Sk), dtype=torch.bool, device=q.device)
@@ -104,15 +107,15 @@ def _sdpa(q, k, v, *, causal, window, q_offset=0, chunk=512):
             mask = mask & (kpos > qpos - window)
         s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
         o = torch.einsum("bckgs,bskh->bckgh", torch.softmax(s, dim=-1), v32)
-        return o.to(q.dtype)
+        return constrain(o.to(q.dtype), "attn")
 
     if S <= chunk:
-        out = block(qh, 0)
+        out = batch_only(block(qh, 0))
     else:
         if S % chunk:
             raise ValueError(f"{S} queries do not split into chunks of "
                              f"{chunk}")
-        out = torch.cat([block(qh[:, i:i + chunk], i)
+        out = torch.cat([batch_only(block(qh[:, i:i + chunk], i))
                          for i in range(0, S, chunk)], dim=1)
     return out.reshape(B, S, H, hd)
 
@@ -123,9 +126,9 @@ def _heads(t):
 
 
 def _qkv(p, cfg, x, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = delta_einsum("bsd,dhk->bshk", x, p["wq"])
+    k = delta_einsum("bsd,dhk->bshk", x, p["wk"])
+    v = delta_einsum("bsd,dhk->bshk", x, p["wv"])
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
 
@@ -133,7 +136,7 @@ def _qkv(p, cfg, x, positions):
 def _attend_and_project(p, cfg, q, k, v):
     o = ops.attention(_heads(q), _heads(k), _heads(v), causal=cfg.causal,
                       window=cfg.attn_window)
-    return torch.einsum("bshk,hkd->bsd", _heads(o), p["wo"])
+    return delta_einsum("bshk,hkd->bsd", _heads(o), p["wo"])
 
 
 def gqa_forward(p, cfg, x, positions, dp=None):
@@ -175,8 +178,8 @@ def gqa_decode(p, cfg, x, cache, pos: int):
     q, k, v = _qkv(p, cfg, x, posv)
     windowed = cfg.attn_window > 0
     slot = pos % W if windowed else pos
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
+    write_rows(cache["k"], 1, slot, k)
+    write_rows(cache["v"], 1, slot, v)
     if windowed:
         # ring buffer: every written slot lies in the window, in any order
         n, causal = min(pos + 1, W), False
@@ -184,7 +187,7 @@ def gqa_decode(p, cfg, x, cache, pos: int):
         n, causal = pos + 1, True
     o = ops.attention(_heads(q), _heads(cache["k"][:, :n]),
                       _heads(cache["v"][:, :n]), causal=causal, window=0)
-    out = torch.einsum("bshk,hkd->bsd", _heads(o), p["wo"])
+    out = delta_einsum("bshk,hkd->bsd", _heads(o), p["wo"])
     return out, cache
 
 

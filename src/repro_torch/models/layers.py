@@ -15,6 +15,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding.rules import batch_only, gathered
 
 
 def dget(dp, key):
@@ -41,9 +44,14 @@ def delta_einsum(eq, x, w, dw=None):
     `w` unbatched, the weight gradient contracts over the combined
     event × token batch in one pass and never forms a per-event [K, ...]
     weight gradient.  This is not `einsum(x, w + dw)` to the last bit.
+
+    Over processes (DTensor operands) the weight is gathered for the
+    contraction and x keeps its batch sharding alone (`sharding.rules`):
+    the output is sharded as x's batch.
     """
+    x, w = batch_only(x), gathered(w)
     y = torch.einsum(eq, x, w)
-    return y if dw is None else y + torch.einsum(eq, x, dw)
+    return y if dw is None else y + torch.einsum(eq, x, gathered(dw))
 
 
 def is_meta(device, generator=None) -> bool:
@@ -77,7 +85,9 @@ def dense_init(generator: torch.Generator, shape, dtype, scale=None, *,
 
 def rms_norm(x, weight, eps: float = 1e-5):
     """x · rsqrt(mean(x²) + eps) · weight, in float32, cast back to x's
-    dtype."""
+    dtype.  Over processes x keeps its batch sharding alone and the gain
+    is gathered, so the mean is over a whole row."""
+    x, weight = batch_only(x), gathered(weight)
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
@@ -122,6 +132,15 @@ def mlp_forward(p, x, dp=None):
     up = delta_einsum("...d,df->...f", x, p["w_up"], dget(dp, "w_up"))
     return delta_einsum("...f,fd->...d", gate * up, p["w_down"],
                         dget(dp, "w_down"))
+
+
+def embed_lookup(table, tokens):
+    """``table[tokens]``; over processes a lookup of the batch-sharded
+    tokens in the table gathered whole (`F.embedding`, whose backward sums
+    into the table's gradient)."""
+    if isinstance(table, DTensor):
+        return F.embedding(batch_only(tokens), gathered(table))
+    return table[tokens]
 
 
 def init_embedding(generator, vocab: int, d_model: int, dtype, device=None):

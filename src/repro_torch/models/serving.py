@@ -26,16 +26,21 @@ a Python int.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import mlp_forward, rms_norm
+from repro_torch.models.layers import embed_lookup, mlp_forward, rms_norm
 from repro_torch.models.transformer import (_embed_inputs, hybrid_split,
                                             layer_views, shared_after,
                                             unembed)
+from repro_torch.sharding.rules import (cache_shardings, constrain,
+                                        get_mesh_context, write_rows,
+                                        zeros_placed)
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.trees import unflatten
 
 
 def cache_len(cfg: ModelConfig, max_seq: int) -> int:
@@ -104,10 +109,20 @@ def grow_cache(cfg: ModelConfig, cache, max_seq: int):
 def _grow_attn(cfg, cache, max_seq):
     first = next(iter(cache.values()))
     L, B, S = first.shape[:3]
-    out = _attn_cache(cfg, L, B, cache_len(cfg, max_seq), first.dtype,
-                      first.device)
-    W = next(iter(out.values())).shape[2]
+    W = cache_len(cfg, max_seq)
+    mesh = get_mesh_context()
+    if isinstance(first, DTensor) and mesh is not None:
+        # over processes: made shard by shard, placed by `cache_specs`
+        meta = _attn_cache(cfg, L, B, W, first.dtype, "meta")
+        out = unflatten(meta, [
+            zeros_placed(t.shape, t.dtype, sh) for t, sh in zip(
+                meta.values(), cache_shardings(meta, mesh).values())])
+    else:
+        out = _attn_cache(cfg, L, B, W, first.dtype, first.device)
     if cfg.attn_window > 0:
+        if isinstance(first, DTensor):
+            raise ValueError("a ring-buffer cache is not placed over "
+                             "processes")
         n = min(S, W)
         slots = torch.arange(S - n, S, device=first.device) % W
         for name in out:
@@ -117,7 +132,7 @@ def _grow_attn(cfg, cache, max_seq):
             raise ValueError(f"a prefill of {S} positions does not fit "
                              f"{W} slots")
         for name in out:
-            out[name][:, :, :S] = cache[name]
+            write_rows(out[name], 2, 0, cache[name])
     return out
 
 
@@ -181,6 +196,7 @@ def _serve_stack(params, cfg, batch, keep_cache):
     {name: the per-layer cache entries} if `keep_cache`: GQA's post-RoPE
     keys and values, MLA's c and kr, an SSM layer's h and conv)."""
     x, positions = _embed_inputs(params, cfg, batch)
+    x = constrain(x, "bsd")
     if cfg.arch_type in ("ssm", "hybrid"):
         x, entries = _ssm_stack(params, cfg, x, positions, keep_cache)
         return unembed(params, cfg, x), entries
@@ -190,7 +206,8 @@ def _serve_stack(params, cfg, batch, keep_cache):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, kv = prefill_attn(lp["attn"], cfg, h, positions)
         x = x + a
-        x = x + _ffn(lp, cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = constrain(x + _ffn(lp, cfg, rms_norm(x, lp["ln2"], cfg.norm_eps)),
+                      "bsd")
         if keep_cache:
             for name, t in kv.items():
                 entries.setdefault(name, []).append(t)
@@ -253,7 +270,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos: int):
                                      attn.gqa_decode, layer_cache, pos)
         return unembed(params, cfg, x), cache
     decode_attn = attn.mla_decode if cfg.use_mla else attn.gqa_decode
-    x = params["embed"][token]
+    x = embed_lookup(params["embed"], token)
     for i, lp in enumerate(layer_views(params["layers"])):
         layer_cache = {name: t[i] for name, t in cache.items()}
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)

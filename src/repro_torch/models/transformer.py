@@ -49,8 +49,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (delta_einsum, dense_init, dget, eff,
-                                       init_embedding, init_mlp, mlp_forward,
-                                       rms_norm)
+                                       embed_lookup, init_embedding, init_mlp,
+                                       mlp_forward, rms_norm)
+from repro_torch.sharding.rules import constrain, unstacked
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.trees import leaves, tree_map, unflatten
 
@@ -173,8 +174,10 @@ def layer_views(tree):
     """Each layer's tree of the stacked [L, ...] leaves (views), from one
     `unbind` per leaf.  On the training path its backward stacks the L
     layer gradients once, where indexing one layer at a time would give
-    each leaf L full-size zero-filled gradients to add: O(L²) traffic."""
-    cols = [leaf.unbind(0) for leaf in leaves(tree)]
+    each leaf L full-size zero-filled gradients to add: O(L²) traffic.
+    Over processes a leaf sharded along its layer dim is first gathered
+    along it (`sharding.rules.unstacked`)."""
+    cols = [unstacked(leaf).unbind(0) for leaf in leaves(tree)]
     return [unflatten(tree, [c[i] for c in cols])
             for i in range(len(cols[0]))]
 
@@ -300,6 +303,7 @@ def _run_stack(params, cfg, x, positions, deltas=None):
     Mamba2 layer, and for the hybrid each group of k layers with its
     shared block besides (the reference checkpoints both its inner and its
     outer scan body)."""
+    x = constrain(x, "bsd")
     lps = layer_views(params["layers"])
     dls = ([None] * len(lps) if deltas is None
            else layer_views(deltas["layers"]))
@@ -328,6 +332,7 @@ def _run_stack(params, cfg, x, positions, deltas=None):
             x, *a = remat(partial(_attn_layer, cfg), lp, dl, x, positions)
         else:
             x, *a = _attn_layer(cfg, lp, dl, x, positions)
+        x = constrain(x, "bsd")
         if a:
             aux = aux + a[0]
     return x, aux
@@ -349,7 +354,7 @@ def _embed_inputs(params, cfg, batch, deltas=None):
                          dget(deltas, "frame_proj"))
     else:
         tokens = batch["tokens"]
-        x = params["embed"][tokens]
+        x = embed_lookup(params["embed"], tokens)
         if deltas is not None:
             x = x + deltas["embed"][tokens]
         if cfg.arch_type == "vlm":
@@ -377,8 +382,9 @@ def _final_norm(params, cfg, x, deltas=None):
 
 def _logits(params, cfg, x, deltas=None):
     """x [B, S, d] (normed) → masked logits [B, S, V] in x's dtype."""
-    return mask_vocab_pad(cfg, delta_einsum(
-        "bsd,dv->bsv", x, params["unembed"], dget(deltas, "unembed")))
+    return mask_vocab_pad(cfg, constrain(delta_einsum(
+        "bsd,dv->bsv", x, params["unembed"], dget(deltas, "unembed")),
+        "bsv"))
 
 
 def unembed(params, cfg, x):
@@ -397,9 +403,9 @@ def forward(params, cfg: ModelConfig, batch, deltas=None):
 def _nll_sum(params, cfg, x, targets, deltas=None):
     """Σ of the token NLLs of x [B, c, d] (normed) against `targets` [B, c],
     the logits in float32."""
-    logits = mask_vocab_pad(cfg, delta_einsum(
+    logits = mask_vocab_pad(cfg, constrain(delta_einsum(
         "bsd,dv->bsv", x, params["unembed"],
-        dget(deltas, "unembed")).float())
+        dget(deltas, "unembed")), "bsv").float())
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, targets[..., None].long())[..., 0].sum()
 

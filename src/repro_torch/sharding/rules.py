@@ -18,10 +18,18 @@ key as itself, a list index as its number, a NamedTuple field as
 there.  A spec is a `PartitionSpec`, a tuple of axis names, None or
 tuples of names; a `NamedSharding` pairs a mesh with one.
 
-One process has no partitioner: `constrain` and `constrain_axes` keep the
-reference's signatures and return their input itself, with or without a
-mesh context.  Placing a model's tensors over processes is ROADMAP.md
-queue 1, item 10; the port's models call neither function.
+Over a mesh spread over processes (`launch.mesh.init_distributed_host_mesh`)
+a `NamedSharding` is a DTensor placement: `placements` turns a spec into
+one `Shard(dim)` or `Replicate()` per mesh axis of the mesh's
+`DeviceMesh` (`launch.mesh.device_mesh`), `place` keeps only this
+process's shard of each leaf of a tree, and `gather` makes the leaves
+whole again.  Under such a mesh context `constrain` and `constrain_axes`
+redistribute a DTensor to the spec the reference would constrain it to,
+at the reference's sites in the dense family's models
+(`models.transformer`, `models.attention`, `models.serving`); the
+weights of a contraction or a lookup are gathered for the op
+(`gathered`, FSDP's all-gather).  Without a mesh context, under a mesh of
+one process, and on a plain tensor, both return their input itself.
 """
 from __future__ import annotations
 
@@ -31,8 +39,13 @@ import os
 import threading
 from typing import Any, List, Optional, Sequence, Tuple
 
-from repro_torch.launch.mesh import Mesh
-from repro_torch.utils.trees import unflatten
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.launch.mesh import (Mesh, device_mesh, is_spread,
+                                     local_device)
+from repro_torch.utils.trees import leaves, tree_map, unflatten
 
 
 class PartitionSpec(tuple):
@@ -76,11 +89,21 @@ def get_mesh_context() -> Optional[Mesh]:
 
 @contextlib.contextmanager
 def mesh_context(mesh: Mesh):
-    """Scoped `set_mesh_context`: restores the previous mesh on exit."""
+    """Scoped `set_mesh_context`: restores the previous mesh on exit.
+    Under a mesh spread over processes, a plain tensor that meets a
+    DTensor in an op counts as replicated (DTensor's
+    `implicit_replication`): positions, masks and constants made inside
+    the model are the same on every process."""
     prev = get_mesh_context()
     set_mesh_context(mesh)
     try:
-        yield
+        if is_spread(mesh):
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            with implicit_replication():
+                yield
+        else:
+            yield
     finally:
         set_mesh_context(prev)
 
@@ -319,16 +342,240 @@ def cache_shardings(cache, mesh: Mesh):
 # activation constraints
 # ---------------------------------------------------------------------------
 
+def _spread_context():
+    mesh = get_mesh_context()
+    return mesh if mesh is not None and is_spread(mesh) else None
+
+
+def constrain_spec(shape, kind: str, mesh: Mesh) -> P:
+    """The reference's spec at a named activation site:
+
+      'bsd'  — [batch, seq, d_model]: batch → batch axes (else seq), d →
+               model;
+      'bsv'  — [batch, seq, vocab]: batch → batch axes, vocab → model;
+      'ecd'  — [experts, capacity, d]: capacity → batch axes, d → model;
+      'attn' — attention scores / outputs [batch, ...]: batch → batch
+               axes, model → the first divisible dim of 1 .. n − 1 (the
+               query chunk, so the softmax over keys stays local);
+      'grad' — a parameter-shaped gradient leaf: the generic param rule.
+    """
+    model_n = axis_size(mesh, "model")
+    ba = batch_axes(mesh)
+    ba_spec = ba if len(ba) > 1 else ba[0]
+    bn = axis_size(mesh, ba)
+    ndim = len(shape)
+    spec: list = [None] * ndim
+    if kind in ("bsd", "bsv", "ecd"):
+        bdim = 0 if kind != "ecd" else 1
+        if _div(shape[bdim], bn):
+            spec[bdim] = ba_spec
+        elif kind == "bsd" and _div(shape[1], bn):
+            spec[1] = ba_spec        # context parallelism (batch=1 long seq)
+        if _div(shape[-1], model_n):
+            spec[-1] = "model"
+        return P(*spec)
+    if kind == "attn":
+        if _div(shape[0], bn):
+            spec[0] = ba_spec
+        for i in range(1, ndim):
+            if _div(shape[i], model_n):
+                spec[i] = "model"
+                break
+        return P(*spec)
+    if kind == "grad":
+        return leaf_param_spec("", tuple(shape), mesh)
+    raise ValueError(kind)
+
+
 def constrain(x, kind: str):
     """The reference's sharding constraint at a named activation site
-    ('bsd', 'bsv', 'ecd', 'attn', 'grad').  One process has no partitioner,
-    so this returns `x` itself, with or without a mesh context; placing
-    activations over processes is ROADMAP.md queue 1, item 10."""
-    return x
+    (`constrain_spec`): under a mesh context spread over processes, a
+    DTensor `x` is redistributed to that spec's placements.  Without a
+    mesh context, under a mesh of one process, or for a plain tensor it
+    returns `x` itself."""
+    mesh = _spread_context()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    return redistribute(x, placements(constrain_spec(x.shape, kind, mesh),
+                                      mesh))
 
 
 def constrain_axes(x, axes: dict):
-    """The reference's per-dim constraint ({dim: 'batch' | 'model'}).
-    Returns `x` itself, as `constrain` does (one process, no
-    partitioner)."""
-    return x
+    """The reference's per-dim constraint ({dim: 'batch' | 'model'}; a dim
+    that fails divisibility stays unsharded), acting as `constrain`
+    does."""
+    mesh = _spread_context()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    model_n = axis_size(mesh, "model")
+    ba = batch_axes(mesh)
+    bn = axis_size(mesh, ba)
+    spec: list = [None] * x.ndim
+    for dim, role in axes.items():
+        if role == "batch" and _div(x.shape[dim], bn):
+            spec[dim] = ba if len(ba) > 1 else ba[0]
+        elif role == "model" and _div(x.shape[dim], model_n):
+            spec[dim] = "model"
+    return redistribute(x, placements(P(*spec), mesh))
+
+
+# ---------------------------------------------------------------------------
+# placement over processes (DTensor)
+# ---------------------------------------------------------------------------
+
+def placements(spec, mesh: Mesh) -> tuple:
+    """One DTensor placement per axis of `mesh` for `spec`: ``Shard(i)``
+    on each axis that dim i names (a tuple of names shards dim i on each
+    of them, in the mesh's axis order), ``Replicate()`` on the others."""
+    out = [Replicate()] * len(mesh.axis_names)
+    for i, part in enumerate(spec):
+        names = part if isinstance(part, tuple) else (part,)
+        for name in names:
+            if name is not None and name in mesh.axis_names:
+                out[mesh.axis_names.index(name)] = Shard(i)
+    return tuple(out)
+
+
+def _gloo_group() -> bool:
+    return dist.is_initialized() and dist.get_backend() == "gloo"
+
+
+def redistribute(x, target):
+    """`x` (a DTensor) with placements `target`.  Over gloo, a partial sum
+    that must end sharded goes through its all-reduce and then this
+    process's slice (both supported on gloo, on the CPU and on the card),
+    never a reduce-scatter."""
+    target = tuple(target)
+    if tuple(x.placements) == target:
+        return x
+    if _gloo_group() and any(c.is_partial() and t.is_shard()
+                             for c, t in zip(x.placements, target)):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if c.is_partial() and t.is_shard() else c
+            for c, t in zip(x.placements, target)])
+    return x.redistribute(x.device_mesh, target)
+
+
+def gathered(x):
+    """`x` replicated on every axis (a weight gathered whole for the op
+    that reads it); a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return redistribute(x, [Replicate()] * x.device_mesh.ndim)
+
+
+def batch_only(x):
+    """`x` with its dim-0 (batch) sharding kept and every other axis
+    replicated: the operand layout of a contraction with a gathered
+    weight; a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return redistribute(x, [p if p.is_shard(0) else Replicate()
+                            for p in x.placements])
+
+
+def unstacked(x):
+    """`x` with no axis sharding its dim 0 (a stacked [L, ...] leaf
+    gathered along its layers before they are taken apart); a plain
+    tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return redistribute(x, [Replicate() if p.is_shard(0) else p
+                            for p in x.placements])
+
+
+def write_rows(dst, dim: int, start: int, src) -> None:
+    """``dst[..., start:start + n, ...] = src`` along `dim` (n =
+    src.shape[dim]), in place.  Over processes `src` is brought to `dst`'s
+    placements and each process writes its own shard, which needs `dim`
+    unsharded."""
+    index = (slice(None),) * dim + (slice(start, start + src.shape[dim]),)
+    if not isinstance(dst, DTensor):
+        dst[index] = src
+        return
+    if any(p.is_shard(dim) for p in dst.placements):
+        raise ValueError(f"rows of dim {dim} are written in place only "
+                         f"where no mesh axis shards that dim")
+    dst.to_local()[index] = redistribute(src, dst.placements).to_local()
+
+
+def local_index(shape, pls, dm):
+    """This process's index (a tuple of slices) into a tensor of `shape`
+    placed by `pls` on the `DeviceMesh` `dm`."""
+    index = [slice(None)] * len(shape)
+    sizes = list(shape)
+    coord = dm.get_coordinate()
+    for axis, p in enumerate(pls):
+        if not p.is_shard():
+            continue
+        d, n = p.dim, dm.size(axis)
+        if sizes[d] % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"over {n}")
+        sizes[d] //= n
+        start = (index[d].start or 0) + coord[axis] * sizes[d]
+        index[d] = slice(start, start + sizes[d])
+    return tuple(index)
+
+
+def place_leaf(t, sharding: NamedSharding):
+    """`t` placed by `sharding`: over a spread mesh, a DTensor holding only
+    this process's shard (sliced from `t`, whole on every process, and
+    copied to this process's device; a DTensor is redistributed);
+    otherwise `t` itself, and so are a scalar (a 0-d tensor, the same on
+    every process) and a non-tensor."""
+    mesh = sharding.mesh
+    if not is_spread(mesh) or not isinstance(t, torch.Tensor) or t.ndim == 0:
+        return t
+    pls = placements(sharding.spec, mesh)
+    if isinstance(t, DTensor):
+        return redistribute(t, pls)
+    dm = device_mesh(mesh)
+    part = t[local_index(t.shape, pls, dm)]
+    local = torch.empty(part.shape, dtype=t.dtype,
+                        device=local_device(mesh)).copy_(part)
+    return DTensor.from_local(local, dm, pls, run_check=False,
+                              shape=t.shape, stride=local_stride(t.shape))
+
+
+def local_stride(shape) -> tuple:
+    """The row-major strides of `shape`."""
+    strides, n = [], 1
+    for d in reversed(tuple(shape)):
+        strides.append(n)
+        n *= d
+    return tuple(reversed(strides))
+
+
+def place(tree, shardings):
+    """Every leaf of `tree` placed by the matching leaf of `shardings` (a
+    tree of `NamedSharding`, or one for every leaf): the port's
+    ``jax.device_put(tree, shardings)``."""
+    if isinstance(shardings, NamedSharding):
+        return tree_map(lambda t: place_leaf(t, shardings), tree)
+    return unflatten(tree, [place_leaf(t, s) for t, s in
+                            zip(leaves(tree), leaves(shardings))])
+
+
+def gather(tree):
+    """Every DTensor leaf of `tree` whole, a plain tensor on this process's
+    device (a collective that every process of the mesh calls); plain
+    leaves as they are."""
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)
+
+
+def zeros_placed(shape, dtype, sharding: NamedSharding):
+    """A zero tensor of `shape` placed by `sharding`, made shard by shard:
+    no process holds it whole."""
+    mesh = sharding.mesh
+    pls = placements(sharding.spec, mesh)
+    dm = device_mesh(mesh)
+    sizes = list(shape)
+    for axis, p in enumerate(pls):
+        if p.is_shard():
+            sizes[p.dim] //= dm.size(axis)
+    local = torch.zeros(sizes, dtype=dtype, device=local_device(mesh))
+    return DTensor.from_local(local, dm, pls, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=local_stride(shape))

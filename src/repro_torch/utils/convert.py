@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import server_shard
 from repro_torch.core.engine import Counters
@@ -133,13 +134,16 @@ def to_numpy(tree):
     as a numpy array; bfloat16 comes back as float32, which numpy lacks.
     A sharded server state (`core.server_shard.ShardedTree`) is gathered
     first, so it comes back in the reference's layout, and so is a fleet
-    array split over a client axis (`sim.fred.FleetRows`); spread over
+    array split over a client axis (`sim.fred.FleetRows`) and a DTensor
+    placed over processes (`sharding.rules.place`); spread over
     processes, each gather is a collective that every process calls."""
     def one(t):
         if server_shard.is_sharded(t):
             return to_numpy(t.gather())
         if isinstance(t, FleetRows):
             t = t.gather()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.detach().cpu().numpy()
