@@ -120,7 +120,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 12. FRED, the rest of the server, at the full 784-200-10 width on the full
    synthetic set: (a) the combined per-tensor arm, serial (λ=16, μ=8,
    fasgd lr=0.005, per-tensor push and fetch, c_push=0.05, c_fetch=0.2,
-   'cache', kernel on, 2000 events; per-tensor τ keeps `fasgd_update` off,
+   'cache', kernel on, `PER_TENSOR_EVENTS` = 1000 events, 2000 until phase
+   23 needed the time; per-tensor τ keeps `fasgd_update` off,
    so ``kernel_launches`` must equal `ops.LAUNCHES` at 0; push and fetch
    bytes sent against potential printed); (b) per-tensor push with
    whole-copy fetch (c_push=0.05, 'skip'): `fasgd_update` once per event;
@@ -128,8 +129,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    windows): `fused_event_apply` once per window, then 8 windows from one
    state with the kernel on and off, θ/n/b/v within KSUM_TOL, T, τ and
    the counters equal; (d) Gap-Aware serial (500 events) and fused (40
-   windows); (e) SSGD and K-async (K=4 of 16), round-robin, 1024 events,
-   T = 64 rounds each (125 until phase 19 needed the time).  Every run's validation cost must fall; (f) each
+   windows); (e) SSGD and K-async (K=4 of 16), round-robin, 512 events,
+   T = 32 rounds each (125 until phase 19 and 64 until phase 23 needed
+   the time).  Every run's validation cost must fall; (f) each
    loop runs under ``set_sync_debug_mode('error')`` and is profiled as in
    phase 6; (g) each run's events/s.  The launches of (b) and (c) join
    the kernels' record.
@@ -183,8 +185,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    round's 4th order statistic of the same draws.  Every run's validation
    cost must fall.  (f) FRED under scenarios: `benchmarks/scenarios.py`'s
    operating point at full width (λ=32, μ=4, 'stragglers', asgd lr=0.01
-   with K=8 windows and kasync K=8 lr=0.2 with λ-event rounds, 2048 events
-   each; 4096 before phase 20 needed the time), 'dropout' async on the
+   with K=8 windows and kasync K=8 lr=0.2 with λ-event rounds, 1024 events
+   each; 4096 before phase 20 and 2048 before phase 23 needed the time), 'dropout' async on the
    same fleet (1024 events), and fused fasgd with the kernel under 'hotspot' at phase 4's fleet (40 windows):
    the wall-clock curve never decreases, the scenario counters agree with
    the windows and the fleet, `fused_event_apply` launches once a window,
@@ -246,8 +248,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    loss over the text positions only, 10 rounds, peak memory; (e) serial
    FRED at `benchmarks/lm_training.py`'s point (tinyllama SMOKE in
    float32, sequences of 32 at temperature 0.2, a pool of 8192, 256 held
-   out, μ=32, λ=4, fasgd lr 0.01 with `fasgd_update`, 800 events), seeds
-   0 and 1: the held-out CE after 800 events at most 6.27 and below the
+   out, μ=32, λ=4, fasgd lr 0.01 with `fasgd_update`, 800 events), seed 0
+   (seeds 0 and 1 until phase 23 needed the time): the held-out CE after 800 events at most 6.27 and below the
    initial parameters', and after 100 and 800 events within 0.02 of the
    reference's curve as `BENCH_lm_training.json` records it (6.3858,
    6.2394).  Each arm's time is printed.  The launches of (a)-(e) join
@@ -316,9 +318,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    record.
 19. The sharded parameter server (`core.server_shard`), its shards on
    distinct cards where there are S, else on `cuda:0` repeated (the
-   device list is printed): (a) phase 3's serial arms (plain and gated,
-   2000 events) and phase 4's fused arm (40 windows of K = 128), each at
-   S = 2 and 4 shards through `run_simulation(mesh=...)`, held against
+   device list is printed): (a) phase 4's fused arm (40 windows of K =
+   128) at S = 2 and 4 shards and phase 3's gated serial arm (2000
+   events) at S = 4 (`SHARD_ARMS`; until phase 23 needed the time both
+   serial arms, plain and gated, ran at S = 2 and 4, and phase 21 runs
+   the plain one at S = 2), through `run_simulation(mesh=...)`, held against
    phases 3 and 4's S = 1 runs: the parameters within the reference's
    S > 1 invariant (rtol 1e-5, atol 1e-6; the leaves equal bitwise
    counted), every other counter equal, the ``shard_*`` counters equal
@@ -386,6 +390,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    beside the plan's resident bytes of its shard.  Not run under
    ``set_sync_debug_mode('error')``: a gloo collective syncs with the
    host.  Every launch of the phase joins the kernels' record.
+22. The model's (data, model) placement over processes: two processes
+   (``--model-spread-rank``) on `cuda:0` over gloo run tinyllama-1.1b at
+   full width, 2 of 22 layers, bf16: two pod-sync steps and a prefill
+   with 8 decode steps on meshes (2, 1) and (1, 2), each rank within one
+   bf16 rounding of this process's run.
+23. The round trainer over processes (`launch.train --clients C > 0`
+   under torchrun): two processes (``--round-spread-rank``) on `cuda:0`
+   over gloo, a (data=2, model=1) mesh, run tinyllama-1.1b at full width,
+   2 of 22 layers, bf16, C = 2, Bc = 2, S = 512, 3 rounds of fasgd with
+   the kernels, serial (`fasgd_update` once a candidate push) and fused
+   (`fused_event_apply` once a round); each takes its row of every
+   client's two (`sharding.rules.row_slice`) and averages the losses and
+   gradients over the group once a round (`sharding.reduce.GroupMean`,
+   float32 buckets).  Each round's loss and θ after the last round within
+   one bf16 rounding of this process's run, the gates, T and fetch times
+   equal, the ranks' state digests equal every round
+   (`sharding.reduce.check_replicas`); rounds/s, peaks and the
+   reduction's bytes and seconds printed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1963,7 +1985,8 @@ def kernel_on_off(label, cfg, ds, params, warm, windows):
           f"kernel on, 0 off")
 
 
-BARRIER_EVENTS = 1024      # phase 12 (e): 64 rounds of 16 arrivals
+BARRIER_EVENTS = 512       # phase 12 (e): 32 rounds of 16 arrivals
+PER_TENSOR_EVENTS = 1000   # phase 12 (a), (b) (2000 until phase 23)
 
 
 def phase_rest_of_server(ds, params, K):
@@ -1990,7 +2013,9 @@ def phase_rest_of_server(ds, params, K):
     # (a) the fig3 combined per-tensor arm, serial
     label = "(a) serial per-tensor push+fetch, cache"
     cfg = SimConfig(server=fasgd, bandwidth=combined, **quick)
-    out, secs, launches, _ = run_path(label, cfg, ds, params, 2000, 500)
+    out, secs, launches, _ = run_path(label, cfg, ds, params,
+                                      PER_TENSOR_EVENTS,
+                                      PER_TENSOR_EVENTS // 4)
     c = out["counters"]
     if not sum(launches.values()) == c["kernel_launches"] == 0:
         fail(f"{label}: ops.LAUNCHES {launches} vs kernel_launches "
@@ -2004,15 +2029,15 @@ def phase_rest_of_server(ds, params, K):
           f" ({c['fetch_bytes_sent'] / c['fetch_bytes_total']:.4f}); total "
           f"reduction {total / sent:.2f}x; kernel_launches "
           f"{c['kernel_launches']:.0f} = ops.LAUNCHES")
-    rates[label], loops[label] = 2000 / secs, cfg
+    rates[label], loops[label] = PER_TENSOR_EVENTS / secs, cfg
 
     # (b) per-tensor push, whole-copy fetch: the fasgd_update kernel
     label = "(b) serial per-tensor push, skip"
     cfg = SimConfig(server=fasgd, bandwidth=BandwidthConfig(
         c_push=0.05, drop_policy="skip", per_tensor_push=True), **quick)
-    n_fasgd, rates[label], _ = run_main_path(label, cfg, ds, params, 2000,
-                                             500,
-                                          "fasgd_update", "fused_event_apply")
+    n_fasgd, rates[label], _ = run_main_path(
+        label, cfg, ds, params, PER_TENSOR_EVENTS, PER_TENSOR_EVENTS // 4,
+        "fasgd_update", "fused_event_apply")
     loops[label] = cfg
 
     # (c) fused per-tensor push+fetch: fused_event_apply with per-leaf τ
@@ -2249,11 +2274,15 @@ def phase_cotangent_and_queue(ds, params, K):
                     drain_policy="drain_k", drain_k=1,
                     admission_policy="reject", **quick)
     label = "(d) queued serial, drain_k 1"
-    out, secs, launches, device = run_path(label, cfg, ds, params, 2000, 500)
+    # 1000 events, 250 windows of 4, evaluated every 200 (whole windows;
+    # 2000 every 500 until phase 23 needed the time)
+    events, windows = 1000, 250
+    out, secs, launches, device = run_path(label, cfg, ds, params, events,
+                                           200)
     c = out["counters"]
-    if not (device["fasgd_update"] == 12 * c["queue_windows"] == 12 * 500
+    if not (device["fasgd_update"] == 12 * c["queue_windows"] == 12 * windows
             and launches["fasgd_update"] == c["kernel_launches"]
-            == 12 * len(MLP_SHAPES) * 500
+            == 12 * len(MLP_SHAPES) * windows
             and c["kernel_events"] == c["queue_drained"]
             and device["fused_event_apply"] == 0):
         fail(f"{label}: kernel launches {device}, leaf dispatches "
@@ -2261,9 +2290,9 @@ def phase_cotangent_and_queue(ds, params, K):
     print(f"  {label}: fasgd_update launched {device['fasgd_update']} times"
           f" = 12 a window (every row's candidate, invalid ones masked); "
           f"kernel_launches {c['kernel_launches']:.0f} = 12 x 4 leaves x "
-          f"500, kernel_events {c['kernel_events']:.0f} = drained")
+          f"{windows}, kernel_events {c['kernel_events']:.0f} = drained")
     n_fasgd = device["fasgd_update"]
-    rates[label] = queue_report(label, out, secs, 2000)
+    rates[label] = queue_report(label, out, secs, events)
     loops[label] = cfg
     # capacity 1, drain_all, block: the unqueued serial path, bitwise
     plain = SimConfig(server=fasgd, **quick)
@@ -2304,7 +2333,8 @@ def phase_cotangent_and_queue(ds, params, K):
 
 
 ROUND_LR = 0.0025
-STRAG_EVENTS = 2048         # (f)'s 'stragglers' runs (4096 until phase 20)
+STRAG_EVENTS = 1024         # (f)'s 'stragglers' runs (4096 until phase 20,
+                            # 2048 until phase 23)
 
 
 def round_batches(ds, C, mu, rounds, seed=0):
@@ -3264,6 +3294,7 @@ BENCH_LM_GATE = 6.27                    # within 0.03 of the reference's
 # the uniform predictor (ln 512 at 100 events, 0.15 below) or stays at its
 # initial CE (~0.10 below) falls outside it
 BENCH_LM_POINTS, BENCH_LM_MARGIN = (100, 800), 0.02
+BENCH_LM_SEEDS = (0,)                   # (0, 1) until phase 23
 
 
 def phase_vlm_serving(ops, dev):
@@ -3536,7 +3567,8 @@ def bench_lm_reference():
 
 def phase_bench_lm_point(dev):
     """(e) FRED, serial, at `benchmarks/lm_training.py`'s point (tinyllama
-    SMOKE, float32), seeds 0 and 1: the held-out CE after 800 events at
+    SMOKE, float32), the seeds of BENCH_LM_SEEDS: the held-out CE after
+    800 events at
     most BENCH_LM_GATE and below the initial parameters' CE, and within
     BENCH_LM_MARGIN of the reference's at BENCH_LM_POINTS.  Returns the
     `fasgd_update` launches."""
@@ -3550,7 +3582,7 @@ def phase_bench_lm_point(dev):
     cfg = get_smoke_config(BENCH_LM_ARCH)
     ref_ce = bench_lm_reference()
     n_fasgd = 0
-    for seed in (0, 1):
+    for seed in BENCH_LM_SEEDS:
         data = lambda n, fold: make_batch(TokenDataConfig(
             vocab_size=cfg.vocab_size, seq_len=BENCH_LM_SEQ, batch_size=n,
             temperature=BENCH_LM_TEMPERATURE, seed=seed), fold, device=dev)
@@ -4353,6 +4385,10 @@ def phase_ssm(ops, dev, smi, flush, fp32_flops):
 # Phase 19: the sharded parameter server (ROADMAP queue 1, item 7), its
 # shards on the card (repeated) or on distinct cards where there are S.
 SHARD_COUNTS = (2, 4)
+# phase 19 (a)'s arms at each S: the host-bound serial arms at the most
+# shards only, the gated one (both, at S = 2 and 4, until phase 23 needed
+# the time; phase 21 runs the plain one at S = 2)
+SHARD_ARMS = {2: ("(a) fused",), 4: ("(a) serial gated", "(a) fused")}
 SHARD_TOL = dict(rtol=1e-5, atol=1e-6)   # the reference's S > 1 invariant
 SHARD_LM_S = 4                           # (b): tinyllama's round trainer
 SHARD_LM_DEPTH = 22                      # (b): all of tinyllama's layers
@@ -4598,6 +4634,8 @@ def phase_sharded_server(ds, params, smi, bases, K):
     n = {"fasgd_update": 0, "fused_event_apply": 0}
     for S in SHARD_COUNTS:
         for label, cfg, events, every, kernel in arms:
+            if label not in SHARD_ARMS[S]:
+                continue
             got, _ = shard_arm(label, cfg, ds, params, events, every,
                                kernel, bases[label], S)
             n[kernel] += got
@@ -5710,6 +5748,322 @@ def phase_model_spread(smi):
     return n_fasgd, n_flash
 
 
+# Phase 23: the round trainer over processes.  Two children of this script
+# join a gloo group on `cuda:0` (a (data=2, model=1) mesh, as
+# `launch.train` under torchrun makes) and run tinyllama-1.1b's round
+# trainer, serial and fused with the kernels, each taking its row of every
+# client's two and averaging the losses and gradients over the group once
+# a round (`sharding.reduce.GroupMean`), against this process's run of the
+# same rounds in one process.
+ROUND_SPREAD_WORLD = 2
+# 2 of tinyllama-1.1b's 22 layers (a cut): over gloo a round's float32
+# mean of C × ~0.22 B gradient entries crosses the host at ~1.3 GB/s
+ROUND_SPREAD_DEPTH = 2
+ROUND_SPREAD_SHAPE = (2, 2, 512, 3)    # C, Bc (one row a rank), S, rounds
+ROUND_SPREAD_TIMEOUT = 300             # seconds for the whole group
+ROUND_SPREAD_FLAG = "--round-spread-rank"
+# the arms: apply mode → the kernel each round launches, and how often
+ROUND_SPREAD_ARMS = {"serial": ("fasgd_update", ROUND_SPREAD_SHAPE[0]),
+                     "fused": ("fused_event_apply", 1)}
+# the group's results against one process's, in bf16: each round's loss
+# within one bf16 rounding (2^-8 relative); the first round's gradients
+# (the first `ROUND_SPREAD_SAMPLE` entries of each client's leaf) within
+# two bf16 roundings of each leaf's largest |g| (each rank's row gradient
+# is rounded to bf16, and their float32 mean once more, where one process
+# rounds once); θ within two bf16 roundings (one ulp, 2^-7) of each leaf's
+# largest |θ| (a θ' entry may round either way of a tie: one ulp, which at
+# the top of a binade exceeds one rounding of the largest entry); the
+# gates, T and the clients' fetch times equal
+ROUND_SPREAD_SAMPLE = 1 << 20
+
+
+def round_spread_run(cfg, dev, mode, mesh=None):
+    """One arm of phase 23: `ROUND_SPREAD_SHAPE`'s rounds of the fasgd
+    round trainer (lr `LM_LR`, c_fetch `LM_C_FETCH`, the kernels on) from
+    `lm_params`, on `launch.train.batch_for_step`'s batches and the native
+    draws of seed 0: in one process (`mesh` None) or over the group
+    (`mesh`: this process's rows by `row_slice`, `GroupMean`, and
+    `check_replicas` after every round, outside the timed stretch).
+    Returns each round's metrics, seconds, reduction seconds and launches,
+    the peak, the reduction's bytes and buckets, θ's `MODEL_SPREAD_LEAVES`
+    and the state's digest after the last round."""
+    import torch
+    from repro_torch.configs.base import TrainerConfig
+    from repro_torch.core.round_trainer import (build_round_step,
+                                                init_round_state,
+                                                native_round_draws)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import batch_for_step
+    from repro_torch.models.api import make_dict_grad_fn
+    from repro_torch.sharding.reduce import GroupMean, check_replicas, digest
+    from repro_torch.sharding.rules import row_slice
+    from repro_torch.utils.convert import to_numpy
+    C, Bc, S, rounds = ROUND_SPREAD_SHAPE
+    kernel, _ = ROUND_SPREAD_ARMS[mode]
+    tc = TrainerConfig(num_round_clients=C, rule="fasgd", lr=LM_LR,
+                       c_fetch=LM_C_FETCH, use_fused_kernel=True)
+    params = lm_params(cfg, dev)
+    draws = native_round_draws(tc, params, dev)
+    state = init_round_state(tc, params, dev)
+    del params
+    rows = reduce = None
+    if mesh is not None:
+        rows = row_slice((Bc, S, cfg.d_model), mesh)
+        if rows is None:
+            fail(f"phase 23: {Bc} rows do not split over {mesh.shape}")
+        reduce = GroupMean()
+    first = {}
+
+    def reduced(tree):
+        """The group's mean (or, in one process, the tree itself), the
+        first round's gradients sampled."""
+        if reduce is not None:
+            tree = reduce(tree)
+        if not first:
+            first.update(to_numpy({
+                k: _leaf(tree[1], k).reshape(C, -1)[:, :ROUND_SPREAD_SAMPLE]
+                for k in MODEL_SPREAD_LEAVES}))
+        return tree
+
+    step = build_round_step(tc, make_dict_grad_fn(cfg), apply_mode=mode,
+                            reduce=reduced)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"metrics": [], "secs": [], "reduce_s": [], "launches": [],
+           "rows": None if rows is None else (rows.start, rows.stop)}
+    for r in range(rounds):
+        flat = batch_for_step(cfg, C * Bc, S, r, dev)
+        batch = {k: v.reshape((C, Bc) + tuple(v.shape[1:]))
+                 for k, v in flat.items()}
+        if rows is not None:
+            batch = {k: v[:, rows].contiguous() for k, v in batch.items()}
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, draws.round(r))
+        torch.cuda.synchronize()
+        out["secs"].append(time.perf_counter() - t0)
+        out["launches"].append(ops.DEVICE_LAUNCHES[kernel])
+        out["reduce_s"].append(reduce.seconds[-1] if reduce is not None
+                               else 0.0)
+        out["metrics"].append({k: float(m[k]) for k in
+                               ("loss", "mean_tau", "pushes", "fetches",
+                                "timestamp")})
+        if mesh is not None:
+            check_replicas(state)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["reduce_bytes"] = reduce.bytes if reduce is not None else 0
+    out["buckets"] = reduce.buckets if reduce is not None else 0
+    out["leaves"] = to_numpy({k: _leaf(state.server.params, k)
+                              for k in MODEL_SPREAD_LEAVES})
+    out["client_ts"] = state.client_ts.tolist()
+    out["grads"] = first
+    out["digest"] = digest(state)[1].cpu().numpy()
+    del state, step, batch, flat
+    free_card()
+    return out
+
+
+def round_spread_child(rank, port, out_dir, depth):
+    """One rank of phase 23's group: join it, wait for the parent's go,
+    run both arms at `depth` layers over the (data=2, model=1) mesh, write
+    the results to ``out_dir/rank{rank}.pkl``."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import init_distributed_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all()              # built by the parent already: a no-op
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = init_distributed_host_mesh(
+        ROUND_SPREAD_WORLD, 1, coordinator_address=f"127.0.0.1:{port}",
+        num_processes=ROUND_SPREAD_WORLD, process_id=rank, devices=[dev])
+    cfg = model_spread_config(depth)
+    (Path(out_dir) / f"ready{rank}").touch()
+    go = Path(out_dir) / "go"
+    deadline = time.monotonic() + ROUND_SPREAD_TIMEOUT
+    while not go.exists():
+        if time.monotonic() > deadline:
+            raise SystemExit(f"phase 23 rank {rank}: no go from the parent")
+        time.sleep(0.05)
+    res = {"backend": dist.get_backend(), "mesh": dict(mesh.shape),
+           "imported": sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("jax", "repro"))}
+    for mode in ROUND_SPREAD_ARMS:
+        t0 = time.perf_counter()
+        res[mode] = round_spread_run(cfg, dev, mode, mesh)
+        res[mode]["arm_s"] = time.perf_counter() - t0
+    dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+
+
+def round_spread_check(mode, got, base, r):
+    """Rank r's arm against the one-process run; returns the worst
+    shares of their tolerances: the first round's gradients' and θ's."""
+    kernel, per_round = ROUND_SPREAD_ARMS[mode]
+    for i, (m, b) in enumerate(zip(got["metrics"], base["metrics"])):
+        if not _rel(m["loss"], b["loss"]) <= BF16_ROUNDING:
+            fail(f"phase 23 {mode} rank {r}: round {i}'s loss {m['loss']} "
+                 f"vs one process {b['loss']}: beyond one bf16 rounding")
+        for k in ("pushes", "fetches", "timestamp"):
+            if m[k] != b[k]:
+                fail(f"phase 23 {mode} rank {r}: round {i}'s {k} {m[k]} vs "
+                     f"one process {b[k]}")
+    if got["client_ts"] != base["client_ts"]:
+        fail(f"phase 23 {mode} rank {r}: client fetch times "
+             f"{got['client_ts']} vs {base['client_ts']}")
+    worst = {"grad": 0.0, "theta": 0.0}
+    for k in MODEL_SPREAD_LEAVES:
+        share = _within_rounding(got["grads"][k], base["grads"][k]) / 2
+        worst["grad"] = max(worst["grad"], share)
+        if not share <= 1.0:
+            fail(f"phase 23 {mode} rank {r}: the first round's gradient of "
+                 f"{k} differs by {2 * share:.3f} of one bf16 rounding of "
+                 f"its largest entry (two allowed)")
+        share = _within_rounding(got["leaves"][k], base["leaves"][k]) / 2
+        worst["theta"] = max(worst["theta"], share)
+        if not share <= 1.0:
+            fail(f"phase 23 {mode} rank {r}: θ's {k} after "
+                 f"{ROUND_SPREAD_SHAPE[3]} rounds differs by {2 * share:.3f} "
+                 f"of one bf16 rounding of its largest entry (two allowed)")
+    want = [per_round] * ROUND_SPREAD_SHAPE[3]
+    if got["launches"] != want:
+        fail(f"phase 23 {mode} rank {r}: {kernel} launched "
+             f"{got['launches']} a round (want {want})")
+    return worst
+
+
+def phase_round_spread(smi):
+    """Phase 23: tinyllama-1.1b's round trainer over two processes on
+    `cuda:0`, serial and fused, against this process's run.  Returns the
+    launches of `fasgd_update` and `fused_event_apply` (both children's
+    and this process's)."""
+    import pickle
+    import shutil
+    import socket
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    cfg = model_spread_config(ROUND_SPREAD_DEPTH)
+    C, Bc, S, rounds = ROUND_SPREAD_SHAPE
+    print(f"phase 23: the round trainer over {ROUND_SPREAD_WORLD} processes "
+          f"on cuda:0 (gloo, data={ROUND_SPREAD_WORLD}), {LM_ARCH} at full "
+          f"width, {cfg.num_layers} of 22 layers, bf16, C = {C}, Bc = {Bc} "
+          f"(one row a rank), S = {S}, {rounds} rounds, fasgd lr {LM_LR}, "
+          f"c_fetch {LM_C_FETCH}, kernels on")
+    free_card()
+    out_dir = ROOT / "build" / "phase23"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    logs = [open(out_dir / f"rank{r}.log", "w")
+            for r in range(ROUND_SPREAD_WORLD)]
+    t_group = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), ROUND_SPREAD_FLAG,
+         str(r), str(port), str(out_dir), str(cfg.num_layers)],
+        stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(ROUND_SPREAD_WORLD)]
+    deadline = time.monotonic() + ROUND_SPREAD_TIMEOUT
+    base = None
+    try:
+        # the children start and wait; then this process's arms, then
+        # theirs, each alone on the card and the host
+        while not all((out_dir / f"ready{r}").exists()
+                      for r in range(ROUND_SPREAD_WORLD)):
+            if (time.monotonic() > deadline
+                    or any(p.poll() is not None for p in procs)):
+                deadline = time.monotonic()     # kill the group below
+                break
+            time.sleep(0.05)
+        else:
+            dev = torch.device("cuda", 0)
+            base = {mode: round_spread_run(cfg, dev, mode)
+                    for mode in ROUND_SPREAD_ARMS}
+            (out_dir / "go").touch()
+        for p in procs:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    group_secs = time.perf_counter() - t_group
+    if any(p.returncode != 0 for p in procs):
+        tails = "\n".join(f"--- rank {r}:\n"
+                          + (out_dir / f"rank{r}.log").read_text()[-4000:]
+                          for r in range(ROUND_SPREAD_WORLD))
+        fail(f"phase 23: children exited {[p.returncode for p in procs]} "
+             f"(killed after {ROUND_SPREAD_TIMEOUT} s if negative)\n{tails}")
+    ranks = []
+    for r in range(ROUND_SPREAD_WORLD):
+        with open(out_dir / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    print(f"  the group: {ROUND_SPREAD_WORLD} processes, backend "
+          f"{ranks[0]['backend']}, mesh {ranks[0]['mesh']}, "
+          f"{group_secs:.1f} s (start-up, this process's arms while they "
+          f"wait, then theirs)")
+    steady = lambda secs: (len(secs) - 1) / sum(secs[1:])
+    launches = {"fasgd_update": 0, "fused_event_apply": 0}
+    worst = {"grad": 0.0, "theta": 0.0}
+    for mode, (kernel, _) in ROUND_SPREAD_ARMS.items():
+        b = base[mode]
+        launches[kernel] += sum(b["launches"])
+        print(f"  {mode}, one process: losses "
+              f"{[m['loss'] for m in b['metrics']]}, pushes "
+              f"{[int(m['pushes']) for m in b['metrics']]}, fetches "
+              f"{[int(m['fetches']) for m in b['metrics']]}, taus "
+              f"{[m['mean_tau'] for m in b['metrics']]}, T "
+              f"{int(b['metrics'][-1]['timestamp'])}, rounds "
+              f"{[round(s, 3) for s in b['secs']]} s, "
+              f"{steady(b['secs']):.3f} rounds/s over rounds 2-{rounds}, "
+              f"peak {gib(b['peak'])}, {kernel} {b['launches']}")
+        for r, res in enumerate(ranks):
+            if res["imported"]:
+                fail(f"phase 23: rank {r} imported {res['imported']}")
+            got = res[mode]
+            for k, v in round_spread_check(mode, got, b, r).items():
+                worst[k] = max(worst[k], v)
+            launches[kernel] += sum(got["launches"])
+            red = got["reduce_s"][1:]
+            print(f"  {mode}, rank {r} (rows {got['rows']}): losses "
+                  f"{[m['loss'] for m in got['metrics']]}, rounds "
+                  f"{[round(s, 3) for s in got['secs']]} s, "
+                  f"{steady(got['secs']):.3f} rounds/s "
+                  f"({steady(got['secs']) / steady(b['secs']):.3f}x one "
+                  f"process), peak {gib(got['peak'])} "
+                  f"({got['peak'] / b['peak']:.3f} of one process's), the "
+                  f"mean over 'data': {got['reduce_bytes'] / 2**30:.3f} GiB "
+                  f"float32 in {got['buckets']} buckets, "
+                  f"{statistics.mean(red):.3f} s a round "
+                  f"({statistics.mean(red) / statistics.mean(got['secs'][1:]):.2f}"
+                  f" of it, {got['reduce_bytes'] / statistics.mean(red) / 1e9:.2f}"
+                  f" GB/s), {kernel} {got['launches']}")
+        if not all(np.array_equal(res[mode]["digest"], ranks[0][mode]["digest"])
+                   for res in ranks):
+            fail(f"phase 23 {mode}: the ranks' final digests differ")
+        print(f"  {mode}: both ranks within tolerance of one process (each "
+              f"round's loss; the first round's gradients and θ's "
+              f"{', '.join(MODEL_SPREAD_LEAVES)} after the last), the gates, "
+              f"T and fetch times equal, the ranks' state digests equal "
+              f"every round")
+    print(f"  worst shares of the tolerances: the first round's gradients "
+          f"{worst['grad']:.3f}, θ {worst['theta']:.3f}; phase 23 took "
+          f"{time.perf_counter() - t0:.1f} s on {smi}")
+    return launches["fasgd_update"], launches["fused_event_apply"]
+
+
 def main() -> int:
     """Run the phases in order; 0 when every one passed."""
     import torch
@@ -5884,6 +6238,8 @@ def main() -> int:
     n_fasgd21, n_fused21 = phase_spread_server(ds, params, smi, K)
     # --- phase 22: the model's placement over processes ---
     n_fasgd22, n_flash22 = phase_model_spread(smi)
+    # --- phase 23: the round trainer over processes ---
+    n_fasgd23, n_fused23 = phase_round_spread(smi)
 
     kernels = [
         dict(name="fasgd_update", route="cuda",
@@ -5891,7 +6247,7 @@ def main() -> int:
              replaces="src/repro/kernels/fasgd_update.py:50",
              launches=n_serial + n_gated + n_fasgd12 + n_fasgd13
              + n_fasgd14 + n_fasgd15 + n_fasgd16 + n_fasgd17 + n_fasgd18
-             + n_fasgd19 + n_fasgd20 + n_fasgd21 + n_fasgd22,
+             + n_fasgd19 + n_fasgd20 + n_fasgd21 + n_fasgd22 + n_fasgd23,
              max_abs_err=errs["fasgd_update"], ms=fu_ms, plain_ms=fu_plain,
              bound_ms=fu_bound,
              bound_by="bytes" if fu_bytes / bw >= fu_ops / flops
@@ -5901,7 +6257,7 @@ def main() -> int:
              replaces="src/repro/kernels/fused_event_apply.py:89",
              launches=n_fused + n_fused12 + n_fused13 + n_fused14
              + n_fused15 + n_fused16 + n_fused17 + n_fused18 + n_fused19
-             + n_fused20 + n_fused21,
+             + n_fused20 + n_fused21 + n_fused23,
              max_abs_err=errs["fused_event_apply"],
              library_ms=None, **fused),
         dict(name="flash_attention", route="cuda",
@@ -5927,6 +6283,10 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 6 and sys.argv[1] == MODEL_SPREAD_FLAG:
         model_spread_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                           int(sys.argv[5]))
+        sys.exit(0)
+    if len(sys.argv) == 6 and sys.argv[1] == ROUND_SPREAD_FLAG:
+        round_spread_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                            int(sys.argv[5]))
         sys.exit(0)
     sys.exit(main())

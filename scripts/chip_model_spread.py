@@ -1,9 +1,13 @@
-"""llama3-8b's pod-sync FASGD step over four processes, one card each: a
-step that no single card holds (≈ 157 GiB at bf16 statistics, twice an
-H100's 80 GB), placed by the reference's shardings over a (data, model)
-mesh of processes.
+"""The model over four processes, one card each: llama3-8b's pod-sync FASGD
+step (the default), or tinyllama-1.1b's round trainer (``--round-trainer``).
 
     python3 scripts/chip_model_spread.py   # four H100s of one host, within 700 s
+    python3 scripts/chip_model_spread.py --round-trainer [--procs 1,2,4]
+        [--batch 32] [--rounds 4]          # within 600 s
+
+**Pod-sync** (the default): llama3-8b's step, which no single card holds
+(≈ 157 GiB at bf16 statistics, twice an H100's 80 GB), placed by the
+reference's shardings over a (data, model) mesh of processes.
 
 The script starts four children of itself (card = rank), which join an
 NCCL group through `launch.mesh.init_distributed_host_mesh` and run, on
@@ -21,6 +25,23 @@ over (seconds × the card's bf16 peak × 4), with the card's name and power
 limit as ``nvidia-smi`` gives them.  Everything printed also goes to
 ``chiprun_out/model_spread.json``.  Exits 1 if a child fails, outlives
 `TIMEOUT`, or the meshes disagree.
+
+**Round trainer** (``--round-trainer``): `launch.train.main` in each of
+1, 2 and 4 processes (``--procs``), one card each, over NCCL (torchrun's
+variables set for 2 and 4): tinyllama-1.1b at full width and depth in
+bf16 with ``--remat``, the fused round trainer with the
+`fused_event_apply` kernel (fasgd, lr 0.01, c_fetch 0.5), C = 4 clients,
+S = 1024, the global batch ``--batch`` (Bc = B / 4 rows a client, split
+over the processes by the reference's 'bsd' rule), ``--rounds`` rounds.
+Each process's final peak allocated bytes, rank 0's printed lines (each
+round's loss and gates, the split line with a round's reduction: its
+float32 bytes and median seconds) and the rate over rounds 2 onwards (the
+step lines' times: each is printed once its round's loss is read off the
+card and every rank's state digest compared) are printed and go to
+``build/round_spread/round_spread.json``; the losses of 2 and 4 processes must
+agree with one process's within one bf16 rounding (2^-8 relative, at the
+printed 4 decimals), the gates and T exactly.  Exits 1 otherwise, or if a
+child fails or outlives `TIMEOUT`.
 """
 import dataclasses
 import gc
@@ -40,6 +61,8 @@ B, S, STEPS = 8, 1024, 3
 LR = 0.001
 TIMEOUT = 600                  # seconds for the whole group
 BF16_ROUNDING = 2.0 ** -8
+ROUND_ARCH = "tinyllama-1.1b"
+ROUND_C, ROUND_S = 4, 1024
 
 
 def child(rank, port, out):
@@ -212,8 +235,168 @@ def main() -> int:
     return 0 if worst <= BF16_ROUNDING else 1
 
 
+def round_argv(batch, rounds):
+    return ["--arch", ROUND_ARCH, "--clients", str(ROUND_C), "--batch",
+            str(batch), "--seq", str(ROUND_S), "--steps", str(rounds),
+            "--apply-mode", "fused", "--use-fused-kernel", "--remat",
+            "--lr", "0.01", "--c-fetch", "0.5", "--log-every", "1"]
+
+
+def round_child(rank, world, port, out, batch, rounds):
+    """One process of a round-trainer run: `launch.train.main` with
+    torchrun's variables (for a group), its lines kept with the time of
+    each write; writes {rank, peak, text, step_times} to `out`."""
+    import contextlib
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    build.build_all()           # built by the parent already: a no-op
+    if world > 1:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    lines = []
+
+    class Stamped:
+        def write(self, s):
+            lines.append((time.perf_counter(), s))
+            return len(s)
+
+        def flush(self):
+            pass
+
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(Stamped()):
+        train.main(round_argv(batch, rounds))
+    record = {"rank": rank, "peak": torch.cuda.max_memory_allocated(),
+              "text": "".join(s for _, s in lines),
+              "step_times": [t for t, s in lines
+                             if s.startswith("  step ")],
+              "backend": (torch.distributed.get_backend() if world > 1
+                          else None)}
+    with open(out, "w") as f:
+        json.dump(record, f)
+    if world > 1:
+        torch.distributed.destroy_process_group()
+
+
+def _round_lines(text):
+    """Each printed round's (loss, pushes, fetches, T)."""
+    import re
+    return [(float(m[0]), m[1], m[2], int(m[3])) for m in re.findall(
+        r"loss=(\S+) tau=\S+ push=(\S+) fetch=(\S+) T=(\d+)", text)]
+
+
+def round_main(procs, batch, rounds) -> int:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    print("\n".join(smi))
+    import torch
+    if torch.cuda.device_count() < max(procs):
+        print(f"chip_model_spread: {torch.cuda.device_count()} card(s), "
+              f"needs {max(procs)}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    build.build_all()
+    out_dir = ROOT / "build" / "round_spread"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    record = {"card": smi, "shape": {"arch": ROUND_ARCH, "C": ROUND_C,
+                                     "B": batch, "S": ROUND_S,
+                                     "rounds": rounds, "remat": True},
+              "runs": {}}
+    ok = True
+    for world in procs:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        outs = [out_dir / f"round_spread_{world}_rank{r}.json"
+                for r in range(world)]
+        logs = [open(out_dir / f"round_spread_{world}_rank{r}.log", "w")
+                for r in range(world)]
+        t0 = time.perf_counter()
+        ps = [subprocess.Popen(
+            [sys.executable, __file__, "--round-rank", str(r), str(world),
+             str(port), str(outs[r]), str(batch), str(rounds)],
+            stdout=logs[r], stderr=subprocess.STDOUT, env=env)
+            for r in range(world)]
+        deadline = time.monotonic() + TIMEOUT
+        try:
+            for p in ps:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        if any(p.returncode != 0 for p in ps):
+            for r in range(world):
+                tail = (out_dir / f"round_spread_{world}_rank{r}.log"
+                        ).read_text()[-3000:]
+                print(f"--- {world} processes, rank {r} (exit "
+                      f"{ps[r].returncode}):\n{tail}")
+            ok = False
+            continue
+        ranks = [json.loads(o.read_text()) for o in outs]
+        text = ranks[0]["text"]
+        stamps = ranks[0]["step_times"]
+        rate = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        split = [line for line in text.splitlines()
+                 if line.startswith("[train] split:")]
+        record["runs"][world] = {
+            "seconds": time.perf_counter() - t0, "backend":
+            ranks[0]["backend"], "peaks": [r["peak"] for r in ranks],
+            "rounds_per_s": rate, "tokens_per_s": rate * batch * ROUND_S,
+            "rounds": _round_lines(text), "split": split, "text": text}
+        print(f"{world} process(es) ({ranks[0]['backend'] or 'one card'}): "
+              f"{rate:.3f} rounds/s over rounds 2-{rounds} "
+              f"({rate * batch * ROUND_S:.0f} tokens/s), peaks "
+              f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB, "
+              f"{record['runs'][world]['seconds']:.1f} s in all")
+        for line in text.splitlines():
+            print(f"    | {line}")
+    base = record["runs"].get(min(procs))
+    for world, run in record["runs"].items():
+        if base is None or world == min(procs):
+            continue
+        worst = max(abs(a[0] - b[0]) / abs(b[0])
+                    for a, b in zip(run["rounds"], base["rounds"]))
+        same = [a[1:] for a in run["rounds"]] == \
+            [b[1:] for b in base["rounds"]]
+        run["loss_agreement"] = worst
+        print(f"{world} processes vs {min(procs)}: losses within {worst:.2e} "
+              f"(one bf16 rounding: {BF16_ROUNDING:.2e}), gates and T "
+              f"{'equal' if same else 'DIFFER'}, rounds/s "
+              f"{run['rounds_per_s'] / base['rounds_per_s']:.3f}x")
+        ok = ok and worst <= BF16_ROUNDING and same
+    (out_dir / "round_spread.json").write_text(json.dumps(record, indent=1))
+    return 0 if ok else 1
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--rank":
         child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
+    if len(sys.argv) == 8 and sys.argv[1] == "--round-rank":
+        round_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                    sys.argv[5], int(sys.argv[6]), int(sys.argv[7]))
+        sys.exit(0)
+    if len(sys.argv) > 1 and sys.argv[1] == "--round-trainer":
+        import argparse
+        ap = argparse.ArgumentParser()
+        ap.add_argument("--round-trainer", action="store_true")
+        ap.add_argument("--procs", default="1,2,4")
+        ap.add_argument("--batch", type=int, default=32)
+        ap.add_argument("--rounds", type=int, default=4)
+        a = ap.parse_args()
+        sys.exit(round_main([int(p) for p in a.procs.split(",")], a.batch,
+                            a.rounds))
     sys.exit(main())

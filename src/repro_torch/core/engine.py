@@ -585,7 +585,8 @@ def reweight_by_v(W, vfac):
 
 
 def fused_apply_cotangent(scfg: ServerConfig, server: ServerState,
-                          event_losses, stale_params, push, client_ts):
+                          event_losses, stale_params, push, client_ts,
+                          reduce=None):
     """Fused application as weighted backward passes — no [K, P] gradient
     batch.
 
@@ -608,6 +609,13 @@ def fused_apply_cotangent(scfg: ServerConfig, server: ServerState,
     weights cannot ride one cotangent vector).  Statistics advance once
     with ḡ where some event pushed, iff `scfg.track_stats` or the rule
     requires them; T advances by the number of pushes.
+
+    `reduce` (None: none) maps the tree (losses, Δ, ḡ) to its mean over
+    a group of processes that each evaluated `event_losses` on their rows
+    of every event's batch (`sharding.reduce.GroupMean`), between the
+    pullbacks and the update: the weights of both pullbacks depend on T
+    and the pushes, never on the losses, so both sums are linear in the
+    rows and their mean over equal row shards is the whole batch's.
 
     Returns (server, taus [K], losses [K]).  On a placed server the
     contraction runs on the gathered parameters (the loss needs W whole);
@@ -646,13 +654,16 @@ def fused_apply_cotangent(scfg: ServerConfig, server: ServerState,
             mean_g = unflatten(params, list(torch.autograd.grad(
                 losses, W, grad_outputs=w_mean)))
     delta = unflatten(params, list(delta))
+    losses = losses.detach()
+    if reduce is not None:
+        losses, delta, mean_g = reduce((losses.clone(), delta, mean_g))
     if server_shard.is_sharded(server):
         server = server.with_blocks(_per_shard(
             server, lambda blk, d, m, dev: _cotangent_update(
                 scfg, rule, blk, d, m, n_push.to(dev)), delta, mean_g))
     else:
         server = _cotangent_update(scfg, rule, server, delta, mean_g, n_push)
-    return server, taus, losses.detach()
+    return server, taus, losses
 
 
 def _cotangent_update(scfg, rule, server, delta, mean_g, n_push):

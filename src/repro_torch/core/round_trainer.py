@@ -48,6 +48,13 @@ reads the gathered parameters once a round.  Without placement the round
 is the unsharded one, and only the ``shard_*`` counters move.  On a mesh
 spread over processes (`launch.mesh.init_distributed_mesh`) every process
 steps the same round and applies its own shards only.
+
+**Over a group of processes** (`launch.train` under torchrun, a
+``(data=w, model=1)`` mesh, as the reference's launcher installs): each
+process passes its rows of every client's micro-batch and a ``reduce``
+that averages the losses and gradients over the group once a round
+(`sharding.reduce.GroupMean`); the state stays whole and every process
+steps it the same way (`sharding.reduce.check_replicas` checks it).
 """
 from __future__ import annotations
 
@@ -231,7 +238,7 @@ def _check(tc: TrainerConfig, rule):
 def build_round_step(tc: TrainerConfig, grad_fn: Callable,
                      apply_mode: str = "serial",
                      batched_loss_fn: Optional[Callable] = None,
-                     scenario_draws=None):
+                     scenario_draws=None, reduce: Optional[Callable] = None):
     """Returns ``round_step(state, batch, draws) -> (state, metrics)``.
 
     `grad_fn(params, batch) -> (loss, grads)` (see `make_grad_fn`) is
@@ -243,6 +250,14 @@ def build_round_step(tc: TrainerConfig, grad_fn: Callable,
     ``grad_fn.event_batched`` in the model convention ``batched(W, deltas,
     *batch)``.  `scenario_draws` is the scenario's variate provider
     (`core.scenarios.native_draws(tc.scenario)` by default).
+
+    `reduce` (None: none) is the round's one reduction over a group of
+    processes, each of which passes its rows of every client's batch
+    (`sharding.rules.row_slice`): it maps the tree (losses [C], gradients)
+    to its mean over the group (`sharding.reduce.GroupMean`), right after
+    the vmapped gradient (on the cotangent path, after the pullbacks:
+    `engine.fused_apply_cotangent`), so that the gates, the applies and
+    the clients' refresh run on the same values in every process.
     """
     if apply_mode not in ("serial", "fused"):
         raise ValueError(f"unknown apply_mode {apply_mode!r}")
@@ -313,6 +328,8 @@ def build_round_step(tc: TrainerConfig, grad_fn: Callable,
 
         if not use_cotangent:
             losses, grads = vgrad(state.client_params, batch)
+            if reduce is not None:
+                losses, grads = reduce((losses, grads))
         else:
             grads = None        # cotangent: losses come from the forward
 
@@ -393,7 +410,7 @@ def build_round_step(tc: TrainerConfig, grad_fn: Callable,
             new_server, taus, losses = engine.fused_apply_cotangent(
                 scfg, server,
                 lambda W, deltas: batched_losses(W, deltas, batch),
-                state.client_params, push, grad_ts)
+                state.client_params, push, grad_ts, reduce=reduce)
         elif apply_mode == "serial":
             g_srv, p_srv, t_srv, cp_srv = (grads, push, grad_ts,
                                            state.client_params)

@@ -38,9 +38,12 @@ Started by ``torchrun`` (or under ``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``) it joins that group as `launch.train`
 does: a ``(data=world, model=1)`` mesh, the weights placed by
 `param_shardings`, the prompts by `batch_shardings` and the cache by
-`cache_shardings`, each process holding its shards; the dense family
-only (ROADMAP queue 1, item 10b).  `serve` takes weights placed so under
-a `sharding.rules.mesh_context` of their mesh.
+`cache_shardings`, each process holding its shards.  Serving over more
+than one process runs the dense family only: the VLM, MoE, SSM and
+hybrid families are refused there (ROADMAP queue 1, item 10b), as they
+are in `launch.train`'s pod-sync step; `launch.train`'s round trainer
+runs every family but the MoE over a group.  `serve` takes weights
+placed so under a `sharding.rules.mesh_context` of their mesh.
 """
 from __future__ import annotations
 

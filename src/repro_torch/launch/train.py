@@ -20,16 +20,30 @@ Modes:
 
 It runs on the card unless given ``--device cpu`` (use ``--smoke`` there,
 the reduced configuration; the kernels then take their plain versions).
+``--remat`` recomputes each layer's activations in the backward
+(`ModelConfig.remat`, which the reference's CLI takes from the config
+alone).
 
 Started by ``torchrun`` (or with ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
 and ``MASTER_PORT`` set otherwise) it joins that group
 (`launch.mesh.init_distributed_host_mesh`), as the reference's launcher
 takes every device of its process group: the mesh is then ``(data=world,
-model=1)``, the state and each batch are placed by the reference's
-shardings (`launch.steps.place_args`) and every process holds its shard
-of each leaf.  Over more than one process only the pod-sync step of the
-dense family runs; the other families and ``--clients > 0`` are refused
-(ROADMAP queue 1, item 10b).
+model=1)``.  With ``--clients C > 0`` (the dense, VLM, audio, SSM and
+hybrid families) every process holds the whole round state and computes
+the gradients of its rows of every client's micro-batch, by the
+reference's 'bsd' rule (`sharding.rules.row_slice`: rows [r·Bc/w,
+(r+1)·Bc/w) where w divides Bc; otherwise every process computes the
+whole micro-batch and nothing is reduced); the losses and gradients are
+averaged over the group once a round (`sharding.reduce.GroupMean`,
+float32 buckets), so every process steps the same state, which
+`sharding.reduce.check_replicas` checks every ``--log-every`` rounds.
+Only rank 0 prints the round lines and writes the checkpoint; every rank
+resumes from it.  With ``--clients 0`` the state and each batch are
+placed by the reference's shardings (`launch.steps.place_args`) and every
+process holds its shard of each leaf: the dense family only.  The MoE
+family's round trainer (its capacity and aux loss route the whole
+micro-batch) and the other families' pod-sync step are refused over more
+than one process (ROADMAP queue 1, item 10b).
 Weights are random, from ``--seed``.  Round r's gates are
 ``native_round_draws(...).round(r)``, keyed by the step, and its batch a
 function of the step alone, so a run resumed from ``--ckpt-dir`` replays
@@ -41,7 +55,9 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import os
+import statistics
 import time
 
 import torch
@@ -66,7 +82,9 @@ from repro_torch.launch.steps import (abstract_server_state, batch_struct,
 from repro_torch.models.api import make_batch, make_dict_grad_fn, param_count
 from repro_torch.models.lm import make_lm_loss
 from repro_torch.models.transformer import init_model
-from repro_torch.sharding.rules import batch_shardings, place, state_shardings
+from repro_torch.sharding.reduce import GroupMean, check_replicas
+from repro_torch.sharding.rules import (batch_shardings, place, row_slice,
+                                        state_shardings)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.trees import leaves
 
@@ -90,9 +108,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-SPREAD_REFUSAL = ("over more than one process the port runs the dense "
-                  "family's pod-sync step and serving only (ROADMAP queue "
-                  "1, item 10b)")
+SPREAD_REFUSAL = ("over more than one process the port runs the round "
+                  "trainer (--clients > 0) of every family but the MoE, "
+                  "and the dense family's pod-sync step and serving only "
+                  "(ROADMAP queue 1, item 10b)")
 
 
 def group_mesh(device):
@@ -181,7 +200,14 @@ def main(argv=None):
                     help="partition the server state (W + eq. 4-6 stats) "
                          "into S shards along a 'server' mesh axis "
                          "(core/server_shard.py); 1 = one whole server; "
-                         "this process holds every shard, on --device")
+                         "this process holds every shard, on --device (under "
+                         "torchrun every process holds all S on its own "
+                         "device; spreading them over the processes is "
+                         "ROADMAP queue 1, item 10d)")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each layer's activations in the "
+                         "backward (ModelConfig.remat; the reference's CLI "
+                         "takes it from the config alone)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
@@ -191,6 +217,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.remat:
+        cfg = dataclasses.replace(cfg, remat=True)
     scn = (None if args.scenario == "off"
            else scenarios.preset(args.scenario))
     if scn is not None and args.clients <= 0:
@@ -219,9 +247,13 @@ def main(argv=None):
         seed=args.seed,
     )
     spread = group_mesh(device)
-    if spread is not None and (cfg.arch_type != "dense"
-                               or args.clients > 0):
+    if spread is not None and (
+            (args.clients > 0 and cfg.arch_type == "moe")
+            or (args.clients <= 0 and cfg.arch_type != "dense")):
         ap.error(SPREAD_REFUSAL)
+    # over a group only rank 0 prints the round trainer's lines
+    rank0 = spread is None or torch.distributed.get_rank() == 0
+    say = print if rank0 else (lambda *_: None)
     # one process on one device: the mesh is (1, 1); a group: (world, 1)
     mesh = spread or make_host_mesh(data=1, devices=[device])
     if spread is not None:
@@ -254,21 +286,32 @@ def main(argv=None):
         if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
             # restored whole, then placed on the shards
             state, start, _ = restore_checkpoint(args.ckpt_dir, state)
-            print(f"[train] resumed from step {start}")
+            say(f"[train] resumed from step {start}")
         if tc.server_shards > 1:
             smesh = make_server_mesh(server=tc.server_shards,
                                      devices=[device] * tc.server_shards)
             server_shard.validate_server_mesh(
                 smesh, tc.server_shards, tc.server_axis)
             state = shard_round_state(state, smesh, tc.server_axis)
-            print(f"[train] server sharded: {tc.server_shards} shards on "
-                  f"axis '{tc.server_axis}' (mesh {dict(smesh.shape)})")
-        step_fn = build_round_step(
-            tc, grad_fn, apply_mode=args.apply_mode,
-            batched_loss_fn=batched_loss_fn)
+            say(f"[train] server sharded: {tc.server_shards} shards on "
+                f"axis '{tc.server_axis}' (mesh {dict(smesh.shape)})")
         C = args.clients
         assert args.batch % C == 0, "global batch must divide clients"
         Bc = args.batch // C
+        rows = reduce = None
+        if spread is not None:
+            rows = row_slice((Bc, args.seq, cfg.d_model), mesh)
+            if rows is None:
+                say(f"[train] split: data={mesh.shape['data']} does not "
+                    f"divide a client's {Bc} rows: every process computes "
+                    f"the whole micro-batch and nothing is reduced (the "
+                    f"reference splits the sequence; ROADMAP queue 1, item "
+                    f"10d)")
+            else:
+                reduce = GroupMean()
+        step_fn = build_round_step(
+            tc, grad_fn, apply_mode=args.apply_mode,
+            batched_loss_fn=batched_loss_fn, reduce=reduce)
 
         _sync(device)
         t0 = time.time()
@@ -276,64 +319,83 @@ def main(argv=None):
             flat = batch_for_step(cfg, args.batch, args.seq, step, device)
             batch = {k: l.reshape((C, Bc) + tuple(l.shape[1:]))
                      for k, l in flat.items()}
+            if rows is not None:
+                batch = {k: l[:, rows].contiguous() for k, l in batch.items()}
             state, m = step_fn(state, batch, draws.round(step))
             if step % args.log_every == 0 or step == args.steps - 1:
+                if spread is not None:
+                    check_replicas(state)
                 wall = (f" wall={float(m['wall']):.2f}"
                         if "wall" in m else "")
-                print(f"  step {step:5d} loss={float(m['loss']):.4f} "
-                      f"tau={float(m['mean_tau']):.2f} "
-                      f"push={int(m['pushes'])}/{C} fetch={int(m['fetches'])}/{C} "
-                      f"T={int(m['timestamp'])}{wall}")
+                say(f"  step {step:5d} loss={float(m['loss']):.4f} "
+                    f"tau={float(m['mean_tau']):.2f} "
+                    f"push={int(m['pushes'])}/{C} fetch={int(m['fetches'])}/{C} "
+                    f"T={int(m['timestamp'])}{wall}")
             if args.ckpt_every and args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-                save_checkpoint(args.ckpt_dir, step + 1, state)
+                # the state is whole and the same on every process
+                if rank0:
+                    save_checkpoint(args.ckpt_dir, step + 1, state)
+                if spread is not None:
+                    torch.distributed.barrier()
         _sync(device)
         dt = time.time() - t0
-        print(f"[train] done: {args.steps - start} rounds in {dt:.1f}s "
-              f"({(args.steps - start) / max(dt, 1e-9):.2f} rounds/s)")
+        say(f"[train] done: {args.steps - start} rounds in {dt:.1f}s "
+            f"({(args.steps - start) / max(dt, 1e-9):.2f} rounds/s)")
+        if reduce is not None:
+            w = mesh.shape["data"]
+            # the first round's reduction also sets up the collective
+            secs = reduce.seconds[1:] or reduce.seconds
+            say(f"[train] split: rows [{rows.start}, {rows.stop}) of each "
+                f"client's {Bc} on rank 0, {Bc // w} on each of {w} "
+                f"processes; one mean over 'data' a round: "
+                f"{reduce.buckets} float32 bucket(s), "
+                f"{reduce.bytes / 2**20:.2f} MiB, "
+                f"{statistics.median(secs):.4f} s a round (median over "
+                f"{len(secs)} rounds)")
         cnt = state.counters
         sent = float(cnt.push_bytes_sent + cnt.fetch_bytes_sent)
         total = float(cnt.push_bytes_total + cnt.fetch_bytes_total)
         if total > 0:
-            print(f"[train] bandwidth: {sent / 2**20:.1f} MiB sent of "
-                  f"{total / 2**20:.1f} MiB potential "
-                  f"({sent / total:.1%} transmitted, "
-                  f"{total / max(sent, 1e-9):.1f}x reduction)")
+            say(f"[train] bandwidth: {sent / 2**20:.1f} MiB sent of "
+                f"{total / 2**20:.1f} MiB potential "
+                f"({sent / total:.1%} transmitted, "
+                f"{total / max(sent, 1e-9):.1f}x reduction)")
         if args.queue_capacity:
             w = max(int(cnt.queue_windows), 1)
-            print(f"[train] queue: {int(cnt.queue_drained)} drained / "
-                  f"{int(cnt.queue_enqueued)} admitted "
-                  f"({int(cnt.queue_rejected)} rejected, "
-                  f"{int(cnt.queue_dropped)} dropped), "
-                  f"mean depth {float(cnt.queue_depth_sum) / w:.2f}, "
-                  f"peak {int(cnt.queue_depth_peak)}, "
-                  f"mean latency "
-                  f"{float(cnt.queue_latency_sum) / max(int(cnt.queue_drained), 1):.2f} T-ticks")
+            say(f"[train] queue: {int(cnt.queue_drained)} drained / "
+                f"{int(cnt.queue_enqueued)} admitted "
+                f"({int(cnt.queue_rejected)} rejected, "
+                f"{int(cnt.queue_dropped)} dropped), "
+                f"mean depth {float(cnt.queue_depth_sum) / w:.2f}, "
+                f"peak {int(cnt.queue_depth_peak)}, "
+                f"mean latency "
+                f"{float(cnt.queue_latency_sum) / max(int(cnt.queue_drained), 1):.2f} T-ticks")
         if args.use_fused_kernel:
             n_leaves = len(leaves(server_shard.like(state.server).params))
             launches = int(cnt.kernel_launches)
             windows = launches // max(n_leaves, 1)
             events = int(cnt.kernel_events)
-            print(f"[train] kernel: {launches} launches "
-                  f"({windows} apply windows x {n_leaves} leaves), "
-                  f"{events} events consumed "
-                  f"({events / max(windows, 1):.1f} events/window)")
+            say(f"[train] kernel: {launches} launches "
+                f"({windows} apply windows x {n_leaves} leaves), "
+                f"{events} events consumed "
+                f"({events / max(windows, 1):.1f} events/window)")
         if tc.server_shards > 1:
-            print(f"[train] shards: {tc.server_shards} server shards, "
-                  f"{int(cnt.shard_events)} events over "
-                  f"{int(cnt.shard_applies)} apply windows "
-                  f"(peak window batch {int(cnt.shard_depth_peak)}), "
-                  f"peak resident "
-                  f"{float(cnt.shard_bytes_peak) / 2**20:.2f} MiB/shard")
+            say(f"[train] shards: {tc.server_shards} server shards, "
+                f"{int(cnt.shard_events)} events over "
+                f"{int(cnt.shard_applies)} apply windows "
+                f"(peak window batch {int(cnt.shard_depth_peak)}), "
+                f"peak resident "
+                f"{float(cnt.shard_bytes_peak) / 2**20:.2f} MiB/shard")
         if scn is not None:
             rounds = max(int(cnt.scenario_windows), 1)
             k_used = (tc.kasync_k or C) if server_rules.get_rule(
                 args.rule).synchronous else C
-            print(f"[train] scenario '{args.scenario}': "
-                  f"wall={float(cnt.wall_clock):.2f} "
-                  f"({float(cnt.wall_clock) / rounds:.3f}/round, "
-                  f"barrier {k_used}/{C}), "
-                  f"mean active {float(cnt.scenario_active_sum) / rounds:.1f}"
-                  f"/{C} over {rounds} rounds")
+            say(f"[train] scenario '{args.scenario}': "
+                f"wall={float(cnt.wall_clock):.2f} "
+                f"({float(cnt.wall_clock) / rounds:.3f}/round, "
+                f"barrier {k_used}/{C}), "
+                f"mean active {float(cnt.scenario_active_sum) / rounds:.1f}"
+                f"/{C} over {rounds} rounds")
     else:
         scfg = server_config(tc)
         train_step = make_train_step(cfg, tc)

@@ -52,7 +52,14 @@ def make_dict_grad_fn(cfg: ModelConfig):
     """``grad_fn(params, batch) -> (loss, grads)`` of `transformer.loss_fn`
     over a dict batch (`make_batch`'s keys with a leading client axis in
     the round trainer).  It carries no event-batched loss, so the round
-    trainer's cotangent path refuses it, as the reference's does."""
+    trainer's cotangent path refuses it, as the reference's does.
+
+    The loss is the mean over the batch's own tokens (text tokens for the
+    VLM) with no mask, so over a group of processes that each take an
+    equal share of the rows (`sharding.rules.row_slice`) the mean of the
+    processes' losses and gradients is the whole batch's, with no
+    reweighting (`sharding.reduce.GroupMean`).  The MoE family's is not:
+    its capacity and aux loss depend on every routed token."""
     vg = torch.func.grad_and_value(lambda p, b: loss_fn(p, cfg, b)[0])
 
     def grad_fn(params, batch):

@@ -38,7 +38,11 @@ def make_lm_loss(cfg: ModelConfig, aux_weight: float = 0.01):
 
     def event_batched(params, deltas, tokens, targets):
         """Per-event losses [K] at the stale points W + δ_k; `params` is
-        the one differentiable W, unbatched under the map."""
+        the one differentiable W, unbatched under the map.  Each is the
+        mean over its event's own tokens, with no mask: over a group of
+        processes holding equal shares of every event's rows, the mean of
+        the processes' losses (and of their pullbacks) is the whole
+        batch's (`engine.fused_apply_cotangent`'s ``reduce``)."""
         def one_event(delta, tok, tgt):
             value, _ = transformer.loss_fn(
                 params, cfg, {"tokens": tok, "targets": tgt},

@@ -23,8 +23,10 @@ a `NamedSharding` is a DTensor placement: `placements` turns a spec into
 one `Shard(dim)` or `Replicate()` per mesh axis of the mesh's
 `DeviceMesh` (`launch.mesh.device_mesh`), `place` keeps only this
 process's shard of each leaf of a tree, and `gather` makes the leaves
-whole again.  Under such a mesh context `constrain` and `constrain_axes`
-redistribute a DTensor to the spec the reference would constrain it to,
+whole again; `row_slice` gives a process its rows of a micro-batch by
+the 'bsd' rule (the round trainer over processes, on plain tensors).
+Under such a mesh context `constrain` and `constrain_axes` redistribute
+a DTensor to the spec the reference would constrain it to,
 at the reference's sites in the dense family's models
 (`models.transformer`, `models.attention`, `models.serving`); the
 weights of a contraction or a lookup are gathered for the op
@@ -417,6 +419,29 @@ def constrain_axes(x, axes: dict):
         elif role == "model" and _div(x.shape[dim], model_n):
             spec[dim] = "model"
     return redistribute(x, placements(P(*spec), mesh))
+
+
+def row_slice(shape, mesh: Mesh) -> Optional[slice]:
+    """This process's rows of a micro-batch of `shape` [Bc, S, ...] over a
+    mesh spread over processes, by the reference's 'bsd' rule
+    (`constrain_spec`): where the batch axes divide Bc, process i of them
+    (in the mesh's order) takes rows [i·Bc/n, (i+1)·Bc/n).  None where the
+    rule does not split Bc (the reference then splits the sequence, a
+    placement the round trainer over processes replicates instead) and on
+    a mesh of one process."""
+    if not is_spread(mesh):
+        return None
+    spec = constrain_spec(tuple(shape), "bsd", mesh)
+    if spec[0] is None:
+        return None
+    where = (mesh.ranks == dist.get_rank()).nonzero()
+    index = 0
+    for name in batch_axes(mesh):
+        if name in mesh.axis_names:
+            axis = mesh.axis_names.index(name)
+            index = index * mesh.devices.shape[axis] + int(where[axis][0])
+    rows = shape[0] // axis_size(mesh, batch_axes(mesh))
+    return slice(index * rows, (index + 1) * rows)
 
 
 # ---------------------------------------------------------------------------

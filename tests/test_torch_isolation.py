@@ -1,6 +1,7 @@
-"""The port stands alone: no module of `src/repro_torch/`, and not
-`chip_smoke.py`, imports `jax` or the JAX package `repro` (an AST scan, so
-an import inside a function counts too)."""
+"""The port stands alone: no module of `src/repro_torch/`, not
+`chip_smoke.py`, not the port's chip scripts under `scripts/` and not the
+worker processes of the port's tests import `jax` or the JAX package
+`repro` (an AST scan, so an import inside a function counts too)."""
 import ast
 from pathlib import Path
 
@@ -8,7 +9,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("chip_*.py")) \
+    + sorted((ROOT / "tests").glob("torch_*_worker.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -343,7 +343,8 @@ def test_serve_cli_under_the_group(results, one_process):
 
 @pytest.mark.parametrize("name", sorted(worker.REFUSED))
 def test_refusals_over_processes(results, name):
-    """MoE, SSM and ``--clients > 0`` are refused over more than one
+    """The MoE family (pod-sync, ``--clients > 0`` and serving) and the
+    SSM's pod-sync step and serving are refused over more than one
     process, naming ROADMAP queue 1, item 10b."""
     for res in results:
         value, text = res["cli"][name]

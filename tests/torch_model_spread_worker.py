@@ -176,8 +176,8 @@ REFUSED = {"train_ssm": ("train", ["--arch", "mamba2-1.3b", "--smoke",
                                    "--device", "cpu", "--clients", "0"]),
            "train_moe": ("train", ["--arch", "grok-1-314b", "--smoke",
                                    "--device", "cpu", "--clients", "0"]),
-           "train_clients": ("train", ["--smoke", "--device", "cpu",
-                                       "--clients", "2"]),
+           "train_clients": ("train", ["--arch", "grok-1-314b", "--smoke",
+                                       "--device", "cpu", "--clients", "2"]),
            "serve_ssm": ("serve", ["--arch", "mamba2-1.3b", "--smoke",
                                    "--device", "cpu"]),
            "serve_moe": ("serve", ["--arch", "grok-1-314b", "--smoke",
